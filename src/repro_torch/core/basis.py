@@ -1,0 +1,151 @@
+"""Radial / angular basis expansion (paper §II-B (2), §III-C).
+
+PyTorch port of ``repro.core.basis``:
+
+  - ``envelope_reference``  : Eq. 12 (4 independent pow() terms)
+  - ``envelope_factored``   : Eq. 13 in Horner form (single pow + 2 fma)
+  - ``smooth_rbf``          : trainable-frequency smooth radial Bessel basis
+  - ``fourier_basis``       : angle Fourier expansion [DC, cos(n t), sin(n t)]
+  - ``compute_geometry``    : bond vectors / distances / angle cosines of a
+                              padded batch.
+
+Geometry and every basis expansion stay f32 (DESIGN.md §4).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .graph import CrystalGraphBatch
+
+
+def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n (n >= 1) by repeated squaring, in the multiplication order of
+    JAX's ``integer_pow``: the envelopes cancel to ~1e-4 near the cutoff,
+    where the rounding of the powers shows."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def envelope_reference(xi: torch.Tensor, p: int = 8) -> torch.Tensor:
+    """Eq. 12 with the corrected smooth-cutoff coefficients
+    a=-(p+1)(p+2)/2, b=p(p+2), c=-p(p+1)/2, so u(1) = u'(1) = 0."""
+    a = -(p + 1) * (p + 2) / 2.0
+    b = float(p * (p + 2))
+    c = -p * (p + 1) / 2.0
+    return 1.0 + a * _integer_pow(xi, p) + b * _integer_pow(xi, p + 1) \
+        + c * _integer_pow(xi, p + 2)
+
+
+def envelope_factored(xi: torch.Tensor, p: int = 8) -> torch.Tensor:
+    """Eq. 13: u = 1 - xi^p/2 * [(p+1)(p+2) - 2p(p+2) xi + p(p+1) xi^2]."""
+    inner = (p + 1.0) * (p + 2.0) + xi * (
+        -2.0 * p * (p + 2.0) + xi * (p * (p + 1.0)))
+    return 1.0 - 0.5 * _integer_pow(xi, p) * inner
+
+
+def rbf_frequencies(num_basis: int) -> torch.Tensor:
+    """Initial (trainable) frequencies n*pi, n = 1..num_basis."""
+    return torch.arange(1, num_basis + 1, dtype=torch.float32) * math.pi
+
+
+def smooth_rbf(
+    r: torch.Tensor,
+    freqs: torch.Tensor,
+    r_cut: float,
+    p: int = 8,
+    *,
+    envelope=envelope_factored,
+) -> torch.Tensor:
+    """sRBF(r)_n = sqrt(2/rc) * sin(f_n * r/rc) / r * u(r/rc).
+
+    r: (...,) distances;  freqs: (K,) trainable;  returns (..., K).
+    Safe at r ~ 0 (padded entries) through the ``r_safe`` guard.
+    """
+    r = r.float()
+    freqs = freqs.float()
+    xi = r / r_cut
+    u = envelope(xi, p)
+    r_safe = torch.where(r > 1e-8, r, torch.ones_like(r))
+    phases = xi[..., None] * freqs
+    val = math.sqrt(2.0 / r_cut) * torch.sin(phases) / r_safe[..., None]
+    return val * u[..., None]
+
+
+def fourier_basis(theta: torch.Tensor, num_basis: int = 31) -> torch.Tensor:
+    """FT(theta) -> (..., num_basis): [1/sqrt(2), cos(n t), sin(n t)]/sqrt(pi).
+
+    num_basis = 2*L + 1 (DC + L cos + L sin). Paper sets num_basis = 31.
+    """
+    if num_basis % 2 != 1:
+        raise ValueError("fourier num_basis must be odd (DC + pairs)")
+    theta = theta.float()
+    harmonics = (num_basis - 1) // 2
+    n = torch.arange(1, harmonics + 1, dtype=theta.dtype, device=theta.device)
+    ang = theta[..., None] * n
+    dc = torch.full(theta.shape + (1,), 1.0 / math.sqrt(2.0),
+                    dtype=theta.dtype, device=theta.device)
+    feats = torch.cat([dc, torch.cos(ang), torch.sin(ang)], dim=-1)
+    return feats / math.sqrt(math.pi)
+
+
+def _cart_positions(graph: CrystalGraphBatch, displacement, strain):
+    """Strained lattice + Cartesian positions."""
+    lattice = graph.lattice
+    if strain is not None:
+        eye = torch.eye(3, dtype=lattice.dtype, device=lattice.device)
+        lattice = torch.einsum("bij,bjk->bik", lattice, eye + strain)
+    cart = torch.einsum(
+        "ai,aij->aj", graph.frac_coords, lattice[graph.atom_crystal])
+    if displacement is not None:
+        cart = cart + displacement
+    return cart, lattice
+
+
+def _bond_vectors(cart, lattice, center, nbr, image, crystal):
+    """r_ij = r_j + image @ L - r_i and its length."""
+    shift = torch.einsum("bi,bij->bj", image, lattice[crystal])
+    vec = cart[nbr] + shift - cart[center]
+    dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-16)
+    return vec, dist
+
+
+def _angle_cosines(vec, dist, idx_ij, idx_ik):
+    """Angle cosines (clipped to ±(1 - 1e-7)) and angles between the bonds
+    selected by two index arrays."""
+    v_ij = vec[idx_ij]
+    v_ik = vec[idx_ik]
+    d_ij = dist[idx_ij]
+    d_ik = dist[idx_ik]
+    cos_t = torch.sum(v_ij * v_ik, dim=-1) / (d_ij * d_ik + 1e-12)
+    cos_t = torch.clamp(cos_t, -1.0 + 1e-7, 1.0 - 1e-7)
+    return cos_t, torch.arccos(cos_t)
+
+
+def compute_geometry(
+    graph: CrystalGraphBatch,
+    *,
+    displacement: torch.Tensor | None = None,
+    strain: torch.Tensor | None = None,
+):
+    """Bond vectors, distances and angle cosines for a padded batch.
+
+    displacement: (atom_cap, 3) added to Cartesian coordinates.
+    strain: (B, 3, 3); the lattice is deformed as L' = L @ (I + eps).
+
+    Returns (bond_vec (Nb,3), bond_dist (Nb,), cos_theta (Na,), theta (Na,)).
+    """
+    cart, lattice = _cart_positions(graph, displacement, strain)
+    vec, dist = _bond_vectors(
+        cart, lattice, graph.bond_center, graph.bond_nbr, graph.bond_image,
+        graph.bond_crystal,
+    )
+    cos_t, theta = _angle_cosines(vec, dist, graph.angle_ij, graph.angle_ik)
+    return vec, dist, cos_t, theta

@@ -1,0 +1,250 @@
+"""CHGNet / FastCHGNet model (paper §II-B, §III), PyTorch port of
+``repro.core.chgnet``.
+
+``chgnet_init`` builds the parameter tree (nested dicts and lists of
+tensors, the names and layout of the JAX package's pytree) and
+``chgnet_apply`` runs the forward pass with the direct Force/Stress heads
+(FastCHGNet C1).  ``CHGNet`` wraps the same tree as an ``nn.Module``
+whose parameter names follow it (``blocks.0.atom_mlp.w``, ...).
+
+``CHGNetConfig`` mirrors the JAX config field for field.  Values this
+port does not implement yet raise ``NotImplementedError`` naming the
+ROADMAP item that adds them; ``table_residency`` is a TPU mechanic and is
+accepted and ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from . import basis, heads
+from .graph import CrystalGraphBatch
+from .interaction import (
+    atom_conv,
+    interaction_block_apply,
+    interaction_block_init,
+    linear_apply,
+    linear_init,
+)
+
+MAX_Z = 95  # elements supported (MPtrj has 89)
+
+
+@dataclasses.dataclass(frozen=True)
+class CHGNetConfig:
+    """Model + implementation-tier selection (see ``repro.core.chgnet``)."""
+
+    dim: int = 64
+    num_rbf: int = 31
+    num_fourier: int = 31
+    num_blocks: int = 3          # full interaction blocks (+1 final atom conv)
+    r_cut_atom: float = 6.0
+    r_cut_bond: float = 3.0
+    envelope_p: int = 8
+    readout: str = "direct"      # "direct" (F/S heads) | "autodiff" (reference)
+    block_variant: str = "fast"  # "fast" (dep. elimination) | "reference"
+    mlp_impl: str = "packed"     # "ref" | "packed" | "pallas"
+    agg_impl: str = "scatter"    # "scatter" | "matmul" | "sorted" | "pallas"
+    # "fused": one hand-written kernel per conv and for the direct force
+    # readout (DESIGN.md §3); requires the §1 sorted-segment layout
+    conv_impl: str = "unfused"   # "unfused" | "fused"
+    bond_store: str = "directed"  # "directed" | "undirected"
+    envelope_impl: str = "factored"  # "factored" | "reference"
+    precision: str = "f32"       # "f32" | "bf16" | "mixed"
+    stress_mode: str = "mlp"     # "mlp" | "bond_virial"
+    stress_scale: float = 0.1
+    # TPU operand-table residency (DESIGN.md §9): accepted so configs carry
+    # over, ignored — every table sits in device memory on the GPU
+    table_residency: str = "auto"  # "auto" | "vmem" | "hbm"
+    bond_features: str = "directed"  # "directed" | "undirected"
+
+    def __post_init__(self):
+        if self.bond_features not in ("directed", "undirected"):
+            raise ValueError(
+                f"bond_features must be 'directed' or 'undirected', "
+                f"got {self.bond_features!r}")
+        if self.bond_features == "undirected" and \
+                self.bond_store != "undirected":
+            raise ValueError(
+                'bond_features="undirected" (the symmetric half-graph '
+                "trunk, DESIGN.md §10) requires the undirected bond store: "
+                'pass bond_store="undirected" as well — the bond_pair / '
+                "angle_pair mirror maps are its compute indices, got "
+                f"bond_store={self.bond_store!r}")
+
+    def with_(self, **kw) -> "CHGNetConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_supported(cfg: CHGNetConfig) -> None:
+    """Raise ``NotImplementedError`` for a tier this port lacks so far."""
+    todo = "is not ported yet: ROADMAP 'Modules to port' item"
+    if cfg.readout == "autodiff":
+        raise NotImplementedError(f'readout="autodiff" {todo} 2')
+    if cfg.bond_store == "undirected":
+        raise NotImplementedError(f'bond_store="undirected" {todo} 5')
+    if cfg.bond_features == "undirected":
+        raise NotImplementedError(f'bond_features="undirected" {todo} 6')
+    if cfg.stress_mode == "bond_virial":
+        raise NotImplementedError(f'stress_mode="bond_virial" {todo} 7')
+    if cfg.precision != "f32":
+        raise NotImplementedError(f"precision={cfg.precision!r} {todo} 8")
+    if cfg.mlp_impl == "pallas":
+        raise NotImplementedError(
+            'mlp_impl="pallas" is not ported yet: ROADMAP "TPU kernels to '
+            'port" item 5')
+    if cfg.conv_impl == "unfused" and cfg.agg_impl in ("matmul", "pallas"):
+        raise NotImplementedError(
+            f'agg_impl="{cfg.agg_impl}" on the unfused path {todo} 4')
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; without CUDA that is an error."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def chgnet_init(seed: int | torch.Generator, cfg: CHGNetConfig) -> dict:
+    """Parameter tree (f32, on the CPU) from a seed or a ``torch.Generator``."""
+    gen = seed if isinstance(seed, torch.Generator) \
+        else torch.Generator().manual_seed(seed)
+    params = {
+        # the three bond linears are packed into one (num_rbf -> 3*dim)
+        # weight (Fig. 3a): [e^0 | e^a | e^b]
+        "atom_embed": torch.randn((MAX_Z, cfg.dim), generator=gen) * 0.02,
+        "bond_embed": linear_init(gen, cfg.num_rbf, 3 * cfg.dim),
+        "angle_embed": linear_init(gen, cfg.num_fourier, cfg.dim),
+        "rbf_freqs": basis.rbf_frequencies(cfg.num_rbf),
+        "blocks": [interaction_block_init(gen, cfg.dim)
+                   for _ in range(cfg.num_blocks)],
+        # final block: atom conv only (CHGNet v0.3.0 has a last atom update)
+        "final_block": interaction_block_init(gen, cfg.dim),
+        "energy_head": heads.energy_head_init(gen, cfg.dim),
+        "magmom_head": heads.magmom_head_init(gen, cfg.dim),
+    }
+    if cfg.readout == "direct":
+        params["force_head"] = heads.force_head_init(gen, cfg.dim)
+        if cfg.stress_mode == "mlp":
+            params["stress_head"] = heads.stress_head_init(
+                gen, cfg.dim, cfg.stress_scale)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
+    """Geometry, bases and feature embedding (Eq. 2).
+
+    Returns ``(v, e, a, e_a, e_b, vec, dist)``: atom, bond and angle
+    features, the two envelope tables, and the bond geometry the heads
+    read.  The envelope tables are made contiguous once here, because
+    every block's kernels read them row by row.
+    """
+    env = (basis.envelope_factored if cfg.envelope_impl == "factored"
+           else basis.envelope_reference)
+    vec, dist, _cos, theta = basis.compute_geometry(graph)
+    rbf = basis.smooth_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
+                           cfg.envelope_p, envelope=env)
+    four = basis.fourier_basis(theta, cfg.num_fourier)
+    packed = linear_apply(params["bond_embed"], rbf)  # (Nb, 3*dim)
+    e0, e_a, e_b = packed.chunk(3, dim=-1)
+    v = params["atom_embed"][graph.atom_z] * graph.atom_mask[..., None]
+    a = linear_apply(params["angle_embed"], four) \
+        * graph.angle_mask[..., None]
+    e = e0 * graph.bond_mask[..., None]
+    return v, e, a, e_a.contiguous(), e_b.contiguous(), vec, dist
+
+
+def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
+    v, e, a, e_a, e_b, vec, dist = embed(params, cfg, graph)
+    for blk in params["blocks"]:
+        v, e, a = interaction_block_apply(
+            blk, graph, v, e, a, e_a, e_b,
+            variant=cfg.block_variant,
+            mlp_impl=cfg.mlp_impl,
+            agg_impl=cfg.agg_impl,
+            conv_impl=cfg.conv_impl,
+        )
+    # last block updates atoms only (matches CHGNet's final atom conv)
+    v = atom_conv(params["final_block"], graph, v, e, e_a,
+                  mlp_impl=cfg.mlp_impl, agg_impl=cfg.agg_impl,
+                  conv_impl=cfg.conv_impl)
+    return v, e, a, vec, dist
+
+
+def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
+    """Energy (B,), forces (A,3), stress (B,3,3), magmom (A,), f32.
+
+    One forward pass with the direct Force/Stress heads; no derivatives.
+    ``params`` and ``graph`` must be on the same device.
+    """
+    check_supported(cfg)
+    v, e, _a, vec, dist = _trunk(params, cfg, graph)
+    energy = heads.energy_head_apply(params["energy_head"], graph, v)
+    magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)
+    forces = heads.force_head_apply(
+        params["force_head"], graph, e, vec, dist,
+        agg_impl=cfg.agg_impl, conv_impl=cfg.conv_impl)
+    stress = heads.stress_head_apply(params["stress_head"], graph, v)
+    return {"energy": energy, "forces": forces, "stress": stress,
+            "magmom": magmom}
+
+
+# ---------------------------------------------------------------------------
+# nn.Module
+# ---------------------------------------------------------------------------
+
+class _Tree(nn.Module):
+    """A dict of the parameter tree as a module: tensors become
+    parameters, dicts sub-modules, lists ``nn.ModuleList``s of them."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(k, _Tree(val))
+            elif isinstance(val, list):
+                self.add_module(k, nn.ModuleList(_Tree(x) for x in val))
+            else:
+                self.register_parameter(k, nn.Parameter(val))
+
+    def tree(self) -> dict:
+        out = {k: p for k, p in self._parameters.items()}
+        for k, m in self._modules.items():
+            out[k] = [x.tree() for x in m] if isinstance(m, nn.ModuleList) \
+                else m.tree()
+        return out
+
+
+class CHGNet(_Tree):
+    """FastCHGNet as an ``nn.Module`` (forward-only in this port so far).
+
+    ``params`` is a parameter tree (``chgnet_init`` or
+    ``convert.params_from_numpy``); without it the model is initialized
+    from ``seed``.  ``device=None`` means the card.  ``tree()`` returns
+    the parameters as nested dicts and lists of tensors.
+    """
+
+    def __init__(self, cfg: CHGNetConfig, params: dict | None = None, *,
+                 seed: int = 0, device=None):
+        check_supported(cfg)
+        device = resolve_device(device)
+        super().__init__(params if params is not None
+                         else chgnet_init(seed, cfg))
+        self.cfg = cfg
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.rbf_freqs.device
+
+    def forward(self, graph: CrystalGraphBatch) -> dict:
+        return chgnet_apply(self.tree(), self.cfg, graph)

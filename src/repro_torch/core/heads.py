@@ -1,0 +1,115 @@
+"""Output heads (paper §III-B, Fig. 2c/2d), PyTorch port of
+``repro.core.heads``.
+
+  Force head (Eq. 7):  n_ij = MLP(e_ij) in R;  F_i = sum_j n_ij * x_hat_ij
+  Stress head (Eq. 9): sigma = sum_i (scale * MLP9(v_i)) ⊙ N(L),
+      N(L) = sum_{a,b} L_a/|L_a| ⊗ L_b/|L_b|  (3x3 lattice-normal matrix).
+
+The per-crystal energy/stress reductions are f32 (DESIGN.md §4).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .graph import CrystalGraphBatch
+from .interaction import linear_apply, linear_init, segment_aggregate
+
+# one epsilon for every unit-vector normalization in the model, shared by
+# the heads and the kernel wrappers
+_UNIT_EPS = 1e-12
+
+
+def bond_unit_vectors(bond_vec, bond_dist):
+    """x_hat = vec / (dist + eps), the one shared normalization."""
+    return bond_vec / (bond_dist[..., None] + _UNIT_EPS)
+
+
+def mlp_init(gen: torch.Generator, dims) -> list:
+    return [linear_init(gen, a, b) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_apply(layers, x):
+    for i, p in enumerate(layers):
+        x = linear_apply(p, x)
+        if i < len(layers) - 1:
+            x = F.silu(x)
+    return x
+
+
+def _per_crystal_sum(values, graph: CrystalGraphBatch):
+    out = values.new_zeros((graph.num_crystals,) + tuple(values.shape[1:]))
+    return out.index_add_(0, graph.atom_crystal.long(), values)
+
+
+# ------------------------------ energy ------------------------------------
+
+def energy_head_init(gen: torch.Generator, dim: int = 64) -> dict:
+    return {"mlp": mlp_init(gen, (dim, dim, dim, 1))}
+
+
+def energy_head_apply(p, graph: CrystalGraphBatch, v):
+    """Per-site energies summed per crystal -> (B,) total energies [eV]."""
+    site_e = mlp_apply(p["mlp"], v)[..., 0] * graph.atom_mask
+    return _per_crystal_sum(site_e, graph)
+
+
+# ------------------------------ magmom ------------------------------------
+
+def magmom_head_init(gen: torch.Generator, dim: int = 64) -> dict:
+    return {"mlp": mlp_init(gen, (dim, dim, 1))}
+
+
+def magmom_head_apply(p, graph: CrystalGraphBatch, v):
+    out = torch.abs(mlp_apply(p["mlp"], v)[..., 0])
+    return out * graph.atom_mask.to(out.dtype)
+
+
+# ------------------------------ force head --------------------------------
+
+def force_head_init(gen: torch.Generator, dim: int = 64) -> dict:
+    return {"mlp": mlp_init(gen, (dim, dim, 1))}
+
+
+def force_head_apply(p, graph: CrystalGraphBatch, e, bond_vec, bond_dist,
+                     *, agg_impl: str = "scatter",
+                     conv_impl: str = "unfused"):
+    """Eq. 7: F_i = sum_j n_ij * x_hat_ij (rotation equivariant).
+
+    With ``conv_impl="fused"`` the whole readout (scalar MLP -> x_hat
+    weighting -> reduce) is one kernel over the sorted CSR rows.
+    """
+    x_hat = bond_unit_vectors(bond_vec, bond_dist)
+    if conv_impl == "fused":
+        from repro_torch.kernels import ops as kops
+
+        l0, l1 = p["mlp"]  # force head is fixed at (dim -> dim -> 1)
+        out = kops.fused_force_readout(
+            e, x_hat, l0["w"], l0["b"], l1["w"], l1["b"],
+            graph.bond_center, graph.bond_offsets, graph.atom_cap,
+        )
+        return out * graph.atom_mask[..., None].to(out.dtype)
+    n_ij = mlp_apply(p["mlp"], e)[..., 0]  # (Nb,); masked by the aggregate
+    contrib = n_ij[..., None] * x_hat
+    out = segment_aggregate(
+        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+    return out * graph.atom_mask[..., None].to(out.dtype)
+
+
+# ------------------------------ stress head -------------------------------
+
+def stress_head_init(gen: torch.Generator, dim: int = 64,
+                     scale: float = 0.1) -> dict:
+    return {"mlp": mlp_init(gen, (dim, dim, 9)),
+            "scale": torch.tensor(scale, dtype=torch.float32)}
+
+
+def stress_head_apply(p, graph: CrystalGraphBatch, v):
+    """Eq. 9. Returns (B, 3, 3) stresses [GPa]."""
+    lat = graph.lattice  # (B, 3, 3) rows are lattice vectors
+    l_hat = lat / (torch.linalg.norm(lat, dim=-1, keepdim=True) + 1e-12)
+    s = torch.sum(l_hat, dim=1)  # (B, 3)
+    normal = torch.einsum("bm,bn->bmn", s, s)
+    per_atom = mlp_apply(p["mlp"], v) * graph.atom_mask[..., None]  # (A, 9)
+    per_crystal = _per_crystal_sum(per_atom, graph).reshape(-1, 3, 3)
+    return p["scale"] * per_crystal * normal

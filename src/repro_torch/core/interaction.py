@@ -1,0 +1,229 @@
+"""Interaction block: GatedMLP, AtomConv, BondConv, AngleUpdate.
+
+PyTorch port of ``repro.core.interaction``.  Both block variants (paper
+Eq. 10 vs Eq. 11):
+
+  - ``reference``: BondConv consumes v^{t+1}; AngleUpdate consumes v^{t+1}
+    and e^{t+1} (sequential dependency chain, as in CHGNet v0.3.0).
+  - ``fast``: dependency elimination (FastCHGNet C2) — BondConv and
+    AngleUpdate consume the layer-t features.
+
+GatedMLP phi(x) = sigmoid(LN(x@Wg+bg)) * silu(LN(x@Wc+bc)), with its
+parameters stored packed as in the JAX package (``w = [Wc ‖ Wg]`` of
+shape (d_in, 2d), applied as ``x @ w + b``), so the weight bridge is a
+copy.  ``conv_impl="fused"`` routes the whole message path of atom_conv /
+bond_conv to the hand-written kernels in ``repro_torch.kernels.ops``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .graph import CrystalGraphBatch
+
+
+def _glorot(gen: torch.Generator, shape) -> torch.Tensor:
+    fan_in, fan_out = shape[0], shape[-1]
+    scale = math.sqrt(2.0 / (fan_in + fan_out))
+    return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> dict:
+    return {"w": _glorot(gen, (d_in, d_out)),
+            "b": torch.zeros((d_out,), dtype=torch.float32)}
+
+
+def linear_apply(p, x):
+    return x @ p["w"] + p["b"]
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    # population variance over the last axis, as jnp.var
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+# ---------------------------------------------------------------------------
+# GatedMLP
+# ---------------------------------------------------------------------------
+
+def gated_mlp_init(gen: torch.Generator, d_in: int, d_out: int) -> dict:
+    """Packed storage layout: each half glorot-initialized with its own
+    fan-out, concatenated once here."""
+    return {
+        "w": torch.cat([_glorot(gen, (d_in, d_out)),
+                        _glorot(gen, (d_in, d_out))], dim=1),
+        "b": torch.zeros((2 * d_out,), dtype=torch.float32),
+        "ln_scale": torch.ones((2 * d_out,), dtype=torch.float32),
+        "ln_bias": torch.zeros((2 * d_out,), dtype=torch.float32),
+    }
+
+
+def gated_mlp_apply(p, x, impl: str = "packed"):
+    d = p["w"].shape[1] // 2
+    w, b = p["w"], p["b"]
+    if impl == "ref":
+        core = layer_norm(x @ w[:, :d] + b[:d],
+                          p["ln_scale"][:d], p["ln_bias"][:d])
+        gate = layer_norm(x @ w[:, d:] + b[d:],
+                          p["ln_scale"][d:], p["ln_bias"][d:])
+        return F.silu(core) * torch.sigmoid(gate)
+    if impl == "packed":
+        # one GEMM against the pre-packed weights, shared epilogue with
+        # silu(x) = x * sigmoid(x)
+        y = x @ w + b
+        core = layer_norm(y[..., :d], p["ln_scale"][:d], p["ln_bias"][:d])
+        gate = layer_norm(y[..., d:], p["ln_scale"][d:], p["ln_bias"][d:])
+        return (core * torch.sigmoid(core)) * torch.sigmoid(gate)
+    if impl == "pallas":
+        raise NotImplementedError(
+            'mlp_impl="pallas" needs the fused GatedMLP kernel: ROADMAP '
+            "'TPU kernels to port' item 5")
+    raise ValueError(f"unknown GatedMLP impl {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Aggregation
+# ---------------------------------------------------------------------------
+
+def segment_aggregate(values, segment_ids, num_segments, mask,
+                      impl="scatter"):
+    """sum_{e : seg(e)=s} values[e] * mask[e]  -> (num_segments, D).
+
+    impl="scatter": ``index_add_`` (the reference).
+    impl="sorted" : requires real ids sorted by segment (DESIGN.md §1);
+        the padded tail is pointed at the last segment (its payload is
+        masked to zero), as the JAX package does before its sorted
+        segment sum.  Same sum as "scatter".
+    """
+    v = values * mask[..., None].to(values.dtype)
+    if impl == "sorted":
+        segment_ids = torch.where(mask > 0, segment_ids.long(),
+                                  num_segments - 1)
+    elif impl in ("matmul", "pallas"):
+        raise NotImplementedError(
+            f'agg_impl="{impl}" on the unfused path is ROADMAP "Modules to '
+            'port" item 4 (with "TPU kernels to port" item 1 for "pallas")')
+    elif impl != "scatter":
+        raise ValueError(f"unknown aggregate impl {impl!r}")
+    out = v.new_zeros((num_segments,) + tuple(v.shape[1:]))
+    return out.index_add_(0, segment_ids.long(), v)
+
+
+# ---------------------------------------------------------------------------
+# Interaction block
+# ---------------------------------------------------------------------------
+
+def interaction_block_init(gen: torch.Generator, dim: int = 64) -> dict:
+    return {
+        "atom_mlp": gated_mlp_init(gen, 3 * dim, dim),
+        "atom_out": linear_init(gen, dim, dim),
+        "bond_mlp": gated_mlp_init(gen, 4 * dim, dim),
+        "bond_out": linear_init(gen, dim, dim),
+        "angle_mlp": gated_mlp_init(gen, 4 * dim, dim),
+    }
+
+
+def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
+              conv_impl: str = "unfused"):
+    """Eq. 4: v_i <- v_i + L_v[ sum_j e^a_ij * phi(v_i, v_j, e_ij) ].
+
+    ``conv_impl="fused"`` runs the message path (gather -> GatedMLP ->
+    envelope -> reduce) as one kernel over the sorted CSR rows (DESIGN.md
+    §3); ``mlp_impl``/``agg_impl`` are then subsumed.
+    """
+    if conv_impl == "fused":
+        from repro_torch.kernels import ops as kops
+
+        mlp = p["atom_mlp"]
+        agg = kops.fused_atom_conv(
+            v, e, e_a, mlp["w"], mlp["b"], mlp["ln_scale"], mlp["ln_bias"],
+            graph.bond_center, graph.bond_nbr, graph.bond_offsets,
+        )
+    elif conv_impl == "unfused":
+        f_v = torch.cat([v[graph.bond_center], v[graph.bond_nbr], e], dim=-1)
+        msg = gated_mlp_apply(p["atom_mlp"], f_v, mlp_impl) * e_a
+        agg = segment_aggregate(
+            msg, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+    else:
+        raise ValueError(f"unknown conv impl {conv_impl!r}")
+    mask = graph.atom_mask[..., None].to(v.dtype)
+    return v + linear_apply(p["atom_out"], agg) * mask
+
+
+def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
+              agg_impl, conv_impl: str = "unfused"):
+    """Eq. 5: e_ij <- e_ij + L_e[ sum_k e^b_ij * e^b_ik * phi(f_e) ].
+
+    ``v_in`` is v^{t+1} in the reference variant, v^t in the fast variant.
+    """
+    center = graph.bond_center[graph.angle_ij]
+    if conv_impl == "fused":
+        from repro_torch.kernels import ops as kops
+
+        mlp = p["bond_mlp"]
+        agg = kops.fused_bond_conv(
+            v_in, e, a, e_b, mlp["w"], mlp["b"], mlp["ln_scale"],
+            mlp["ln_bias"], graph.angle_ij, graph.angle_ik, center,
+            graph.angle_offsets,
+        )
+    elif conv_impl == "unfused":
+        f_e = torch.cat(
+            [v_in[center], e[graph.angle_ij], e[graph.angle_ik], a], dim=-1)
+        msg = gated_mlp_apply(p["bond_mlp"], f_e, mlp_impl)
+        msg = msg * e_b[graph.angle_ij] * e_b[graph.angle_ik]
+        agg = segment_aggregate(
+            msg, graph.angle_ij, graph.bond_cap, graph.angle_mask, agg_impl)
+    else:
+        raise ValueError(f"unknown conv impl {conv_impl!r}")
+    mask = graph.bond_mask[..., None].to(e.dtype)
+    return e + linear_apply(p["bond_out"], agg) * mask
+
+
+def angle_update(p, graph: CrystalGraphBatch, v_in, e_in, a, *, mlp_impl):
+    """Eq. 6: a_ijk <- a_ijk + phi_a(f_a).
+
+    Reference: f_a = [v^{t+1}, e^{t+1}, a^t]; fast: f_a = [v^t, e^t, a^t].
+    """
+    center = graph.bond_center[graph.angle_ij]
+    f_a = torch.cat(
+        [v_in[center], e_in[graph.angle_ij], e_in[graph.angle_ik], a], dim=-1)
+    upd = gated_mlp_apply(p["angle_mlp"], f_a, mlp_impl)
+    return a + upd * graph.angle_mask[..., None].to(a.dtype)
+
+
+def interaction_block_apply(
+    p,
+    graph: CrystalGraphBatch,
+    v,
+    e,
+    a,
+    e_a,
+    e_b,
+    *,
+    variant: str = "fast",
+    mlp_impl: str = "packed",
+    agg_impl: str = "scatter",
+    conv_impl: str = "unfused",
+):
+    """One interaction block IB^t (paper Eq. 3), either variant."""
+    v_new = atom_conv(p, graph, v, e, e_a, mlp_impl=mlp_impl,
+                      agg_impl=agg_impl, conv_impl=conv_impl)
+
+    def _bond(v_in):
+        return bond_conv(p, graph, v_in, e, a, e_b, mlp_impl=mlp_impl,
+                         agg_impl=agg_impl, conv_impl=conv_impl)
+
+    if variant == "reference":
+        e_new = _bond(v_new)
+        a_new = angle_update(p, graph, v_new, e_new, a, mlp_impl=mlp_impl)
+    elif variant == "fast":
+        # dependency elimination (Eq. 11): all three read layer-t features
+        e_new = _bond(v)
+        a_new = angle_update(p, graph, v, e, a, mlp_impl=mlp_impl)
+    else:
+        raise ValueError(f"unknown block variant {variant!r}")
+    return v_new, e_new, a_new

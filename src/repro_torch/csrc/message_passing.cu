@@ -1,0 +1,364 @@
+// Message-passing kernels of the FastCHGNet forward, for Hopper (sm_90a).
+//
+// Three kernels, one per TPU megakernel of the serving path:
+//
+//   atom_conv_fwd      replaces _atom_conv_kernel
+//                      (src/repro/kernels/fused_message_passing.py:252)
+//   bond_conv_fwd      replaces _bond_conv_kernel (same file, :488)
+//   force_readout_fwd  replaces _force_kernel (same file, :737), virial=False
+//
+// What each computes is in the comment above its kernel.  Shared rules,
+// the semantics the TPU kernels define (DESIGN.md §1-§3):
+//   - rows are destination-sorted CSR segments; every destination row is
+//     owned by exactly one block, which walks the edge range
+//     [offs[r0], offs[r1]) of its rows.  Every walk is bounded by the CSR
+//     offsets, never by a segment id, so the padded tail past offs[-1]
+//     (whose ids alias row 0) is never read;
+//   - no atomics: one thread per output column adds the edges of a row in
+//     CSR order, so the result is the same from run to run;
+//   - f32 throughout: products are f32 FMAs on the CUDA cores (no TF32),
+//     LayerNorm statistics are f32, population variance over the real D
+//     lanes of each half, eps 1e-5.
+//
+// TPU mechanics that are not carried over: the one-hot MXU gathers
+// (_window_onehot, _gather_rows) become plain indexed loads; lanes are not
+// padded to 128 (the kernels work at the real width D and x_hat is (E, 3));
+// the chunk-aligned walk and the VMEM/HBM residency tiers collapse into
+// one lowering with every table in device memory (reused rows hit L2).
+//
+// Bound on this card: at FAST_FUSED (D = 64, about 65 bonds and 56 angles
+// per atom) the two convs do 2*E*d_in*2D flops on E*(d_in + D)*4 bytes of
+// gathered rows, about 21 flops per byte, so they sit on the f32 CUDA-core
+// side of the H100's roofline (67 TFLOP/s f32 against 3.35 TB/s): they are
+// bound by operations.  The design therefore keeps the inner loop on FMAs:
+// a tile of TE edges is gathered once into shared memory, each thread owns
+// one of the 2D GEMM output columns and keeps TE accumulators in registers,
+// reads the x rows as float4 broadcasts from shared memory and each weight
+// once per tile from L2 (W is 96-128 KB and shared by every block, so it
+// stays L2-resident).  The force readout does 2*E*D*D flops on E*(D+3)*4
+// bytes, about 31 flops per byte, and is operation-bound the same way.
+// Making them fast (wgmma on TF32-free f32 splits, TMA) is later work; this
+// is the simple, right version.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TE = 32;          // edges per tile
+constexpr float LN_EPS = 1e-5f;
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Ordered CSR accumulation of one tile: thread `col` (< D) adds the tile's
+// messages msg[t * D + col] to the row that owns edge base + t, flushing a
+// finished row before moving on.  `row`, `row_end` and `acc` carry over
+// between tiles.
+__device__ __forceinline__ void accumulate_tile(
+    const float* msg, int n_e, int base, int col, int D,
+    const int* __restrict__ offs, float* __restrict__ out, int& row,
+    int& row_end, float& acc) {
+  for (int t = 0; t < n_e; ++t) {
+    const int g = base + t;
+    while (g >= row_end) {
+      out[(size_t)row * D + col] = acc;
+      acc = 0.0f;
+      ++row;
+      row_end = offs[row + 1];
+    }
+    acc += msg[t * D + col];
+  }
+}
+
+// atom_conv_fwd (BOND = false), Eq. 4 message path.  Per atom row i, over
+// the bonds b in [offs[i], offs[i+1]) in order:
+//   out[i] = sum_b e_a[b] * silu(LN(y_c)) * sigmoid(LN(y_g)),
+//   y = [v[center[b]] | v[nbr[b]] | e[b]] @ W + bias,  y = [y_c | y_g].
+// W is (3D, 2D) packed [Wc | Wg], applied as x @ W.
+//
+// bond_conv_fwd (BOND = true), Eq. 5 message path.  Per bond row j, over
+// the angles n in [offs[j], offs[j+1]) in order:
+//   out[j] = sum_n phi([v[ctr[n]] | e[ij[n]] | e[ik[n]] | a[n]])
+//                  * e_b[ij[n]] * e_b[ik[n]],
+// with ctr = bond_center[angle_ij] from the caller and W (4D, 2D).
+//
+// Arguments: id0/id1/id2 are (center, nbr, -) for the atom conv and
+// (ctr, ij, ik) for the bond conv; env is e_a (E, D) or e_b (E, D).
+template <bool BOND>
+__global__ void conv_fwd_kernel(
+    const float* __restrict__ v, const float* __restrict__ e,
+    const float* __restrict__ a, const float* __restrict__ env,
+    const float* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ lns, const float* __restrict__ lnb,
+    const int* __restrict__ id0, const int* __restrict__ id1,
+    const int* __restrict__ id2, const int* __restrict__ offs,
+    float* __restrict__ out, int n_rows, int D, int rows_per_block) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int d_in = (BOND ? 4 : 3) * D;
+  const int n2 = 2 * D;
+  float* xs = smem;              // (TE, d_in) gathered rows; then (TE, D) msgs
+  float* ys = smem + TE * d_in;  // (TE, 2D) GEMM rows, normalized in place
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, n_rows);
+  const int start = offs[r0], end = offs[r1];
+
+  int row = r0;
+  int row_end = offs[r0 + 1];
+  float acc = 0.0f;
+
+  for (int base = start; base < end; base += TE) {
+    const int n_e = min(TE, end - base);
+
+    // 1. gather the x rows of this tile (zeros past the range)
+    for (int idx = tid; idx < TE * d_in; idx += blockDim.x) {
+      const int t = idx / d_in;
+      const int k = idx - t * d_in;
+      float val = 0.0f;
+      if (t < n_e) {
+        const int g = base + t;
+        const int part = k / D;
+        const int kk = k - part * D;
+        const float* src;
+        if (BOND) {
+          src = part == 0 ? v + (size_t)id0[g] * D
+              : part == 1 ? e + (size_t)id1[g] * D
+              : part == 2 ? e + (size_t)id2[g] * D
+                          : a + (size_t)g * D;
+        } else {
+          src = part == 0 ? v + (size_t)id0[g] * D
+              : part == 1 ? v + (size_t)id1[g] * D
+                          : e + (size_t)g * D;
+        }
+        val = src[kk];
+      }
+      xs[idx] = val;
+    }
+    __syncthreads();
+
+    // 2. y = x @ W + bias; thread c owns output column c
+    const int c = tid;
+    if (c < n2) {
+      float yc[TE];
+#pragma unroll
+      for (int t = 0; t < TE; ++t) yc[t] = 0.0f;
+      for (int k = 0; k < d_in; k += 4) {
+        const float w0 = __ldg(w + (size_t)(k + 0) * n2 + c);
+        const float w1 = __ldg(w + (size_t)(k + 1) * n2 + c);
+        const float w2 = __ldg(w + (size_t)(k + 2) * n2 + c);
+        const float w3 = __ldg(w + (size_t)(k + 3) * n2 + c);
+#pragma unroll
+        for (int t = 0; t < TE; ++t) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xs + t * d_in + k);
+          yc[t] = fmaf(x4.x, w0, yc[t]);
+          yc[t] = fmaf(x4.y, w1, yc[t]);
+          yc[t] = fmaf(x4.z, w2, yc[t]);
+          yc[t] = fmaf(x4.w, w3, yc[t]);
+        }
+      }
+      const float bc = bias[c];
+#pragma unroll
+      for (int t = 0; t < TE; ++t) ys[t * n2 + c] = yc[t] + bc;
+    }
+    __syncthreads();
+
+    // 3. LayerNorm of each (edge, half), one warp per pair
+    for (int p = warp; p < 2 * n_e; p += nwarps) {
+      const int t = p >> 1, h = p & 1;
+      float* yrow = ys + t * n2 + h * D;
+      float s = 0.0f;
+      for (int j = lane; j < D; j += 32) s += yrow[j];
+      const float mu = warp_sum(s) / (float)D;
+      float q = 0.0f;
+      for (int j = lane; j < D; j += 32) {
+        const float dlt = yrow[j] - mu;
+        q += dlt * dlt;
+      }
+      const float rstd = rsqrtf(warp_sum(q) / (float)D + LN_EPS);
+      for (int j = lane; j < D; j += 32)
+        yrow[j] = (yrow[j] - mu) * rstd * lns[h * D + j] + lnb[h * D + j];
+    }
+    __syncthreads();
+
+    // 4. gating and envelope: msg = silu(core) * sigmoid(gate) * env
+    float* msg = xs;
+    for (int idx = tid; idx < n_e * D; idx += blockDim.x) {
+      const int t = idx / D;
+      const int j = idx - t * D;
+      const int g = base + t;
+      const float core = ys[t * n2 + j];
+      const float gate = ys[t * n2 + D + j];
+      float m = (core * sigmoid_f(core)) * sigmoid_f(gate);
+      if (BOND) {
+        m = m * env[(size_t)id1[g] * D + j] * env[(size_t)id2[g] * D + j];
+      } else {
+        m = m * env[(size_t)g * D + j];
+      }
+      msg[idx] = m;
+    }
+    __syncthreads();
+
+    // 5. ordered reduction into the destination rows
+    if (tid < D) accumulate_tile(msg, n_e, base, tid, D, offs, out, row,
+                                 row_end, acc);
+    __syncthreads();
+  }
+  if (tid < D) {
+    for (; row < r1; ++row) {
+      out[(size_t)row * D + tid] = acc;
+      acc = 0.0f;
+    }
+  }
+}
+
+// force_readout_fwd, Eq. 7 with virial=False.  Per atom row i, over the
+// bonds b in [offs[i], offs[i+1]) in order:
+//   out[i] = sum_b n_b * x_hat[b],   n_b = w2 . silu(e[b] @ W1 + b1) + b2.
+// W1 is (D, D), w2 (D, 1), x_hat (E, 3), out (A, 3).
+__global__ void force_readout_kernel(
+    const float* __restrict__ e, const float* __restrict__ xhat,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const int* __restrict__ offs, float* __restrict__ out, int n_rows, int D,
+    int rows_per_block) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* es = smem;              // (TE, D) bond features of the tile
+  float* hs = smem + TE * D;     // (TE, D) hidden layer
+  float* ns = hs + TE * D;       // (TE * 3) contributions n_b * x_hat[b]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, n_rows);
+  const int start = offs[r0], end = offs[r1];
+
+  int row = r0;
+  int row_end = offs[r0 + 1];
+  float acc = 0.0f;
+
+  for (int base = start; base < end; base += TE) {
+    const int n_e = min(TE, end - base);
+    for (int idx = tid; idx < TE * D; idx += blockDim.x) {
+      const int t = idx / D;
+      es[idx] = t < n_e ? e[(size_t)base * D + idx] : 0.0f;
+    }
+    __syncthreads();
+
+    const int c = tid;
+    if (c < D) {
+      float hc[TE];
+#pragma unroll
+      for (int t = 0; t < TE; ++t) hc[t] = 0.0f;
+      for (int k = 0; k < D; ++k) {
+        const float wk = __ldg(w1 + (size_t)k * D + c);
+#pragma unroll
+        for (int t = 0; t < TE; ++t) hc[t] = fmaf(es[t * D + k], wk, hc[t]);
+      }
+      const float bc = b1[c];
+#pragma unroll
+      for (int t = 0; t < TE; ++t) {
+        const float x = hc[t] + bc;
+        hs[t * D + c] = x * sigmoid_f(x);
+      }
+    }
+    __syncthreads();
+
+    // n_b = w2 . h_b + b2, one warp per bond
+    for (int t = warp; t < n_e; t += nwarps) {
+      float s = 0.0f;
+      for (int j = lane; j < D; j += 32) s += hs[t * D + j] * w2[j];
+      s = warp_sum(s) + b2[0];
+      if (lane < 3) ns[t * 3 + lane] = s * xhat[(size_t)(base + t) * 3 + lane];
+    }
+    __syncthreads();
+
+    if (tid < 3) accumulate_tile(ns, n_e, base, tid, 3, offs, out, row,
+                                 row_end, acc);
+    __syncthreads();
+  }
+  if (tid < 3) {
+    for (; row < r1; ++row) {
+      out[(size_t)row * 3 + tid] = acc;
+      acc = 0.0f;
+    }
+  }
+}
+
+int round_up_warp(int n) { return ((n + 31) / 32) * 32; }
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
+// The caller checks shapes, dtypes (f32 / int32), contiguity and D % 4 == 0.
+
+int atom_conv_fwd(const float* v, const float* e, const float* e_a,
+                  const float* w, const float* b, const float* ln_scale,
+                  const float* ln_bias, const int* center, const int* nbr,
+                  const int* offs, float* out, int n_rows, int dim,
+                  int rows_per_block, void* stream) {
+  if (n_rows == 0) return 0;
+  const size_t smem = sizeof(float) * TE * (3 * dim + 2 * dim);
+  cudaError_t err = set_smem(conv_fwd_kernel<false>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
+  conv_fwd_kernel<false><<<grid, round_up_warp(2 * dim), smem,
+                           (cudaStream_t)stream>>>(
+      v, e, nullptr, e_a, w, b, ln_scale, ln_bias, center, nbr, nullptr,
+      offs, out, n_rows, dim, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+int bond_conv_fwd(const float* v, const float* e, const float* a,
+                  const float* e_b, const float* w, const float* b,
+                  const float* ln_scale, const float* ln_bias,
+                  const int* angle_ij, const int* angle_ik,
+                  const int* center_ids, const int* offs, float* out,
+                  int n_rows, int dim, int rows_per_block, void* stream) {
+  if (n_rows == 0) return 0;
+  const size_t smem = sizeof(float) * TE * (4 * dim + 2 * dim);
+  cudaError_t err = set_smem(conv_fwd_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
+  conv_fwd_kernel<true><<<grid, round_up_warp(2 * dim), smem,
+                          (cudaStream_t)stream>>>(
+      v, e, a, e_b, w, b, ln_scale, ln_bias, center_ids, angle_ij, angle_ik,
+      offs, out, n_rows, dim, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+int force_readout_fwd(const float* e, const float* x_hat, const float* w1,
+                      const float* b1, const float* w2, const float* b2,
+                      const int* offs, float* out, int n_rows, int dim,
+                      int rows_per_block, void* stream) {
+  if (n_rows == 0) return 0;
+  const size_t smem = sizeof(float) * TE * (2 * dim + 3);
+  cudaError_t err = set_smem(force_readout_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
+  force_readout_kernel<<<grid, round_up_warp(dim), smem,
+                         (cudaStream_t)stream>>>(
+      e, x_hat, w1, b1, w2, b2, offs, out, n_rows, dim, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
