@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's FastCHGNet serving path (``configs.chgnet_mptrj.
-FAST_FUSED`` at full width, random weights from ``--seed``) through its
-public entry points, ``ServeEngine`` and ``BatchedMD``, and holds every
-hand-written CUDA kernel of that path against its plain PyTorch version:
+Drives the port's two main paths at full width through their public
+entry points and holds every hand-written CUDA kernel on them against
+its plain PyTorch version:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: the kernels compile from ``src/repro_torch/csrc`` (nvcc);
   3. kernels: each kernel against its plain version on the card, on the
-     inputs of a real packed serving batch, within
-     ``1e-4 * max(1, max|plain|)``, and both timed with CUDA events;
-  4. serve: one warm-up MD step, then 5 steps of 16 replicas; the launch
-     counters must show every kernel on the path,
-     the outputs must be finite, and one batch through the plain path
-     (the unfused model, no kernel) must agree with the kernels' path.
+     inputs of a real packed batch, within ``1e-4 * max(1, max|plain|)``,
+     and both timed with CUDA events; then ragged CSR layouts;
+  4. backward: the four kernel wrappers' recompute backwards against
+     plain autograd through ``kernels.ref`` on the card, and whether two
+     backward runs give bitwise equal gradients;
+  5. serve: ``ServeEngine`` / ``BatchedMD`` at ``FAST_FUSED``, one warm-up
+     MD step, then 5 steps of 16 replicas; the launch counters must show
+     every kernel on the path, the outputs must be finite, and one batch
+     through the plain path (the unfused model) must agree;
+  6. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
+     at batch 128, at ``FAST_FUSED`` (1 + 5 steps) and
+     ``FAST_FUSED_VIRIAL`` (1 + 3 steps); the launch counters must show
+     every kernel of each path, losses and gradient norms must be finite,
+     and on the first batch the loss and every gradient leaf must agree
+     with the plain path; then the time of a step taken apart;
+  7. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
+     batch's loss below 0.6x its value before.
 
-Prints a ``{"kernels": [...]}`` and a ``{"serve": {...}}`` JSON line and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-nonzero; without CUDA it exits nonzero before printing a result.
+Prints ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
+JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure
+raises and exits nonzero; without CUDA it exits nonzero before printing a
+result.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import statistics
@@ -37,13 +49,26 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-from repro_torch.batching import batch_crystals  # noqa: E402
+from repro_torch.batching import batch_crystals, capacity_for  # noqa: E402
 from repro_torch.configs import chgnet_mptrj  # noqa: E402
 from repro_torch.core import chgnet, heads  # noqa: E402
 from repro_torch.core.neighbors import build_graph  # noqa: E402
-from repro_torch.data import SyntheticConfig, generate_crystal  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    BatchIterator,
+    SyntheticConfig,
+    generate_crystal,
+    make_dataset,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.serve import BatchedMD, ServeEngine  # noqa: E402
+from repro_torch.train.trainer import (  # noqa: E402
+    TrainConfig,
+    Trainer,
+    apply_grads,
+    chgnet_loss_fn,
+    grads_of,
+)
 
 REPLICAS = 16
 STEPS = 5
@@ -55,6 +80,10 @@ SOURCE = "src/repro_torch/csrc/message_passing.cu"
 TPU_FILE = "src/repro/kernels/fused_message_passing.py"
 PER_FORWARD = {"fused_atom_conv": 4, "fused_bond_conv": 3,
                "fused_force_readout": 1}
+# FAST_FUSED_VIRIAL: the force+virial wrapper launches two kernels
+PER_FORWARD_VIRIAL = {"fused_atom_conv": 4, "fused_bond_conv": 3,
+                      "fused_force_virial_readout": 2}
+TRAIN_BATCH = chgnet_mptrj.BATCH_SIZE
 
 
 def _time_ms(fn, reps: int = 20, inner: int = 10) -> float:
@@ -87,10 +116,14 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def _check_close(name: str, got: torch.Tensor,
-                 want: torch.Tensor) -> tuple[float, float]:
+def _check_close(name: str, got, want) -> tuple[float, float]:
     """Max abs error of ``got`` against ``want`` and the tolerance it met,
-    ``1e-4 * max(1, max|want|)``; raises if it did not."""
+    ``1e-4 * max(1, max|want|)``; raises if it did not.  Tuples are checked
+    element by element and report the largest error and tolerance."""
+    if isinstance(got, tuple):
+        pairs = [_check_close(f"{name}[{i}]", g, w)
+                 for i, (g, w) in enumerate(zip(got, want, strict=True))]
+        return max(p[0] for p in pairs), max(p[1] for p in pairs)
     if got.shape != want.shape:
         raise RuntimeError(f"{name}: shape {tuple(got.shape)} != "
                            f"{tuple(want.shape)}")
@@ -103,8 +136,12 @@ def _check_close(name: str, got: torch.Tensor,
     return err, tol
 
 
-def kernel_phase(params, cfg, batch):
-    """Each kernel against its plain version on one real packed batch."""
+def kernel_cases(params, cfg, batch) -> list[dict]:
+    """Each kernel's wrapper, plain version and inputs on one real packed
+    batch, with the work it must do there: flops and bytes at the batch's
+    real counts (each table row the real edges reach read once, the CSR
+    offsets read whole, each output row written once, padded rows
+    included)."""
     with torch.inference_mode():
         v, e, a, e_a, e_b, vec, dist = chgnet.embed(params, cfg, batch)
     blk = params["blocks"][0]
@@ -114,69 +151,135 @@ def kernel_phase(params, cfg, batch):
     x_hat = heads.bond_unit_vectors(vec, dist)
     n_atoms, dim = v.shape
     n_bonds = e.shape[0]
+    n_crys = batch.num_crystals
+    real_atoms = int(batch.atom_mask.sum())
     real_bonds = int(batch.bond_offsets[-1])
     real_angles = int(batch.angle_offsets[-1])
     f = 4  # bytes per f32 / int32 element
-    cases = [
-        ("atom_conv_fwd", ops.fused_atom_conv, ref.fused_atom_conv_ref,
-         (v, e, e_a, am["w"], am["b"], am["ln_scale"], am["ln_bias"],
-          batch.bond_center, batch.bond_nbr, batch.bond_offsets),
-         f"{TPU_FILE}:252",
-         2 * real_bonds * 3 * dim * 2 * dim,
-         f * (n_atoms * dim + 2 * real_bonds * dim + 3 * dim * 2 * dim
-              + 6 * dim + 2 * real_bonds + n_atoms + 1 + n_atoms * dim),
-         {"atoms": n_atoms, "bonds": n_bonds, "real_bonds": real_bonds,
-          "dim": dim}),
-        ("bond_conv_fwd", ops.fused_bond_conv, ref.fused_bond_conv_ref,
-         (v, e, a, e_b, bm["w"], bm["b"], bm["ln_scale"], bm["ln_bias"],
-          batch.angle_ij, batch.angle_ik, center, batch.angle_offsets),
-         f"{TPU_FILE}:488",
-         2 * real_angles * 4 * dim * 2 * dim,
-         f * (n_atoms * dim + 2 * n_bonds * dim + real_angles * dim
-              + 4 * dim * 2 * dim + 6 * dim + 3 * real_angles + n_bonds + 1
-              + n_bonds * dim),
-         {"atoms": n_atoms, "bonds": n_bonds, "angles": a.shape[0],
-          "real_angles": real_angles, "dim": dim}),
-        ("force_readout_fwd", ops.fused_force_readout,
-         ref.fused_force_readout_ref,
-         (e, x_hat, l0["w"], l0["b"], l1["w"], l1["b"], batch.bond_center,
-          batch.bond_offsets, n_atoms),
-         f"{TPU_FILE}:737",
-         2 * real_bonds * dim * dim + 2 * real_bonds * dim + 6 * real_bonds,
-         f * (real_bonds * (dim + 3) + dim * dim + 2 * dim + 1 + n_atoms + 1
-              + n_atoms * 3),
-         {"atoms": n_atoms, "bonds": n_bonds, "real_bonds": real_bonds,
-          "dim": dim}),
+    readout_flops = (2 * real_bonds * dim * dim + 2 * real_bonds * dim
+                     + 6 * real_bonds)
+    readout_bytes = f * (real_bonds * (dim + 3) + dim * dim + 2 * dim + 1
+                         + n_atoms + 1 + n_atoms * 3)
+    bond_shape = {"atoms": n_atoms, "bonds": n_bonds,
+                  "real_bonds": real_bonds, "dim": dim}
+    return [
+        dict(name="atom_conv_fwd", wrapper=ops.fused_atom_conv,
+             plain=ref.fused_atom_conv_ref,
+             args=(v, e, e_a, am["w"], am["b"], am["ln_scale"],
+                   am["ln_bias"], batch.bond_center, batch.bond_nbr,
+                   batch.bond_offsets),
+             replaces=f"{TPU_FILE}:252",
+             flops=2 * real_bonds * 3 * dim * 2 * dim,
+             bytes=f * (real_atoms * dim + 2 * real_bonds * dim
+                        + 3 * dim * 2 * dim + 6 * dim + 2 * real_bonds
+                        + n_atoms + 1 + n_atoms * dim),
+             shape=bond_shape),
+        dict(name="bond_conv_fwd", wrapper=ops.fused_bond_conv,
+             plain=ref.fused_bond_conv_ref,
+             args=(v, e, a, e_b, bm["w"], bm["b"], bm["ln_scale"],
+                   bm["ln_bias"], batch.angle_ij, batch.angle_ik, center,
+                   batch.angle_offsets),
+             replaces=f"{TPU_FILE}:488",
+             flops=2 * real_angles * 4 * dim * 2 * dim,
+             bytes=f * (real_atoms * dim + 2 * real_bonds * dim
+                        + real_angles * dim + 4 * dim * 2 * dim + 6 * dim
+                        + 3 * real_angles + n_bonds + 1 + n_bonds * dim),
+             shape={"atoms": n_atoms, "bonds": n_bonds,
+                    "angles": a.shape[0], "real_angles": real_angles,
+                    "dim": dim}),
+        dict(name="force_readout_fwd", wrapper=ops.fused_force_readout,
+             plain=ref.fused_force_readout_ref,
+             args=(e, x_hat, l0["w"], l0["b"], l1["w"], l1["b"],
+                   batch.bond_center, batch.bond_offsets, n_atoms),
+             replaces=f"{TPU_FILE}:737", flops=readout_flops,
+             bytes=readout_bytes, shape=bond_shape),
+        # + per bond: n*d and 9 products of 2 factors; + the crystal sum
+        dict(name="force_virial_fwd", wrapper=ops.fused_force_virial_readout,
+             plain=ref.fused_force_virial_readout_ref,
+             args=(e, x_hat, dist, l0["w"], l0["b"], l1["w"], l1["b"],
+                   batch.bond_center, batch.bond_crystal, batch.bond_offsets,
+                   n_atoms, n_crys),
+             replaces=f"{TPU_FILE}:758",
+             flops=readout_flops + 19 * real_bonds + 9 * n_atoms,
+             bytes=readout_bytes + f * (real_bonds + n_atoms + 9 * n_crys),
+             shape=dict(bond_shape, crystals=n_crys)),
     ]
+
+
+def kernel_phase(cases) -> list[dict]:
+    """Each kernel against its plain version, both timed."""
     rows = []
     with torch.inference_mode():
-        for name, kernel, plain, args, replaces, flops, nbytes, shape in cases:
+        for c in cases:
+            kernel, plain, args = c["wrapper"], c["plain"], c["args"]
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            err, tol = _check_close(name, got, want)
+            err, tol = _check_close(c["name"], got, want)
             k_ms = _time_ms(lambda: kernel(*args))
             p_ms = _time_ms(lambda: plain(*args))
-            bound_ms, bound_by = _bound(flops, nbytes)
+            bound_ms, bound_by = _bound(c["flops"], c["bytes"])
             rows.append({
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "wrapper": kernel.__name__,
-                "max_abs_err": err, "tolerance": tol, "ms": k_ms, "kernel_ms": k_ms,
+                "name": c["name"], "route": "cuda", "source": SOURCE,
+                "replaces": c["replaces"], "wrapper": kernel.__name__,
+                "max_abs_err": err, "tolerance": tol, "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "flops": flops, "bytes": nbytes,
-                "shape": shape,
+                "library_ms": None, "flops": c["flops"], "bytes": c["bytes"],
+                "shape": c["shape"],
             })
-            print(f"kernel {name}: max|k-p| {err:.3e} (tolerance {tol:.3e}), "
-                  f"kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), shape {shape}", flush=True)
+            print(f"kernel {c['name']}: max|k-p| {err:.3e} (tolerance "
+                  f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), shape "
+                  f"{c['shape']}", flush=True)
+    return rows
+
+
+def backward_phase(cases, seed: int) -> list[dict]:
+    """Each wrapper's recompute backward against plain autograd through
+    its ``kernels.ref`` version on the same CUDA tensors: the gradients of
+    ``sum(out * r)`` for every float input, ``r`` from a seeded
+    generator.  Each backward runs twice; whether the two runs give
+    bitwise equal gradients is reported, not required (the recompute's
+    gathers transpose to ``index_add_``, whose CUDA order varies)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c in cases:
+        idx = [i for i, x in enumerate(c["args"])
+               if torch.is_tensor(x) and x.is_floating_point()]
+
+        def grads(fn, r=None):
+            args = list(c["args"])
+            for i in idx:
+                args[i] = args[i].detach().clone().requires_grad_()
+            out = fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            if r is None:
+                r = [torch.randn(o.shape, generator=gen, device="cuda")
+                     for o in outs]
+            total = sum((o * ri).sum() for o, ri in zip(outs, r))
+            return torch.autograd.grad(total, [args[i] for i in idx]), r
+
+        got, r = grads(c["wrapper"])
+        again, _ = grads(c["wrapper"], r)
+        want, _ = grads(c["plain"], r)
+        torch.cuda.synchronize()
+        err, tol = _check_close(f"{c['name']} backward", tuple(got),
+                                tuple(want))
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+        rows.append({"name": c["name"], "wrapper": c["wrapper"].__name__,
+                     "inputs": len(idx), "max_abs_err": err,
+                     "tolerance": tol, "bitwise_repeatable": bitwise})
+        print(f"backward {c['wrapper'].__name__}: {len(idx)} input grads, "
+              f"max|k-p| {err:.3e} (tolerance {tol:.3e}), bitwise "
+              f"repeatable: {bitwise}", flush=True)
     return rows
 
 
 def edge_case_phase(seed: int) -> int:
     """Each kernel against its plain version on ragged CSR layouts: a
     padded tail, unaligned rows without padding, every edge padded, and
-    several rows per block.  Returns the number of cases checked."""
+    several rows per block; the force+virial kernel also with an empty
+    crystal slot.  Returns the number of cases checked."""
     rng = np.random.default_rng(seed)
 
     def f(*shape, scale=1.0):
@@ -215,7 +318,18 @@ def edge_case_phase(seed: int) -> int:
             _check_close(f"force_readout case {n}", ops.fused_force_readout(
                 *fargs, block_rows=per_block),
                 ref.fused_force_readout_ref(*fargs))
-            n += 2
+            # crystals own contiguous atom ranges, slot 1 stays empty
+            n_crys = 4
+            atom_cry = np.sort(rng.choice([0, 2, 3], rows)).astype(np.int32)
+            cry = torch.from_numpy(atom_cry).cuda()[seg.long()]
+            cry[n_real:] = 0
+            vargs = fargs[:2] + (f(n_edges).abs() + 0.5,) + fargs[2:7] \
+                + (cry, offs, rows, n_crys)
+            _check_close(f"force_virial case {n}",
+                         ops.fused_force_virial_readout(
+                             *vargs, block_rows=per_block),
+                         ref.fused_force_virial_readout_ref(*vargs))
+            n += 3
         for atoms, bonds, n_ang, d, n_real, per_block in (
                 (10, 48, 300, 32, 260, 32), (6, 17, 40, 16, 40, 1),
                 (5, 12, 24, 8, 0, 32), (30, 400, 900, 64, 880, 5)):
@@ -255,17 +369,18 @@ def serve_breakdown(md, serve) -> dict:
             "h2d_forward_d2h_ms": t_fwd * 1e3}
 
 
-def profile_step(md, out_dir: Path) -> dict:
-    """Trace one MD step with torch.profiler: the device time summed over
-    kernels, and the kernels that take most of it.  The full table goes
-    to ``out_dir/serve_step_profile.txt``."""
+def profile_step(step, out_file: Path) -> dict:
+    """Trace one call of ``step`` (an MD step, a training step) with
+    torch.profiler: the device time summed over kernels and copies, and
+    the events that take most of it.  The full table goes to
+    ``out_file``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        md.step(1)
+        step()
         torch.cuda.synchronize()
     averages = prof.key_averages()
     # device-side events only (kernels, copies): the aten:: rows repeat
@@ -273,9 +388,9 @@ def profile_step(md, out_dir: Path) -> dict:
     events = sorted((e for e in averages if e.device_type != DeviceType.CPU
                      and e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "serve_step_profile.txt").write_text(averages.table(
-        sort_by="self_device_time_total", row_limit=40))
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    out_file.write_text(averages.table(sort_by="self_device_time_total",
+                                       row_limit=40))
     return {
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "device_events": sum(e.count for e in events),
@@ -285,12 +400,179 @@ def profile_step(md, out_dir: Path) -> dict:
     }
 
 
+def _epochs(ds, caps, batch: int, seed: int, log: list | None = None):
+    """Endless single-device batches, one ``BatchIterator`` per epoch (the
+    sampler's seed repeats the order, as tests/test_trainer_e2e.py does);
+    with ``log``, appends (pack seconds, real crystals, real atoms) of
+    each batch packed."""
+    while True:
+        it = iter(BatchIterator(ds, batch, 1, caps, seed=seed))
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                break
+            if log is not None:
+                log.append((time.perf_counter() - t0,
+                            int(b.crystal_mask.sum()),
+                            int(b.atom_mask.sum())))
+            yield b
+
+
+def plain_path_check(params, cfg, batch) -> dict:
+    """Loss and every gradient leaf of the kernels' path against the plain
+    path (the same config unfused, ``agg_impl="scatter"``) on the card."""
+    plain_cfg = cfg.with_(conv_impl="unfused", agg_impl="scatter")
+    ops.reset_launch_counts()
+    loss_k, _ = chgnet_loss_fn(params, cfg, batch, chgnet_mptrj.LOSS)
+    g_k = grads_of(loss_k, params)
+    launched = ops.launch_counts()
+    if not any(launched.values()):
+        raise RuntimeError("the kernels' path launched no kernel")
+    loss_p, _ = chgnet_loss_fn(params, plain_cfg, batch, chgnet_mptrj.LOSS)
+    g_p = grads_of(loss_p, params)
+    torch.cuda.synchronize()
+    err_l, tol_l = _check_close("train loss", loss_k.detach(),
+                                loss_p.detach())
+    errs = [_check_close(f"grad leaf {i}", a, b)
+            for i, (a, b) in enumerate(zip(g_k, g_p, strict=True))]
+    return {"loss": loss_p.item(), "loss_max_abs_err": err_l,
+            "loss_tolerance": tol_l, "grad_leaves": len(errs),
+            "grad_max_abs_err": max(e for e, _ in errs),
+            "grad_worst_err_over_tolerance": max(e / t for e, t in errs)}
+
+
+def step_split(tr, batches, n: int) -> dict:
+    """``n`` more steps taken apart: packing and the host-to-device copy on
+    the host clock, then forward (model + loss), backward and optimizer
+    (clip + Adam) on CUDA events.  Means in ms."""
+    from repro_torch.optim.schedule import cosine_annealing
+
+    tcfg = tr.train_cfg
+    parts = {"pack_ms": 0.0, "h2d_ms": 0.0, "forward_ms": 0.0,
+             "backward_ms": 0.0, "optimizer_ms": 0.0, "step_ms": 0.0}
+    clock = time.perf_counter
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = clock()
+        b = next(batches)
+        t1 = clock()
+        b = b.to(tr.device)
+        torch.cuda.synchronize()
+        t2 = clock()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = chgnet_loss_fn(tr.params, tr.model_cfg, b, tcfg.loss)
+        ev[1].record()
+        grads = grads_of(loss, tr.params)
+        ev[2].record()
+        lr = cosine_annealing(tr.step, tcfg.total_steps, tcfg.init_lr,
+                              warmup_steps=tcfg.warmup_steps)
+        tr.params, tr.opt_state, _ = apply_grads(grads, tr.opt_state,
+                                                 tr.params, lr, tcfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        tr.step += 1
+        for k, v in (("pack_ms", t1 - t0), ("h2d_ms", t2 - t1),
+                     ("step_ms", clock() - t0)):
+            parts[k] += v * 1e3 / n
+        for k, i in (("forward_ms", 0), ("backward_ms", 1),
+                     ("optimizer_ms", 2)):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / n
+    return parts
+
+
+def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
+                seed: int, profile: str | None) -> dict:
+    """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals: the
+    plain-path check on the first batch, 1 warm-up step, ``steps``
+    counted steps of the main path, then two steps taken apart and, with
+    ``profile``, one traced step."""
+    tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
+                       loss=chgnet_mptrj.LOSS)
+    tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
+    log = []
+    batches = _epochs(ds, caps, TRAIN_BATCH, seed, log)
+    first = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps, seed=seed)))
+    plain = plain_path_check(tr.params, cfg, first.to("cuda"))
+    tr.train(itertools.islice(batches, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log.clear()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = tr.train(itertools.islice(batches, steps))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for fn, per in per_forward.items():
+        if counts[fn] != per * steps:
+            raise RuntimeError(f"{name}: {fn} launched {counts[fn]} times in "
+                               f"{steps} steps, expected {per * steps}")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise RuntimeError(f"{name}: non-finite loss or grad norm {h}")
+    crystals = sum(c for _, c, _ in log)
+    atoms = sum(a for _, _, a in log)
+    row = {
+        "config": name, "batch": TRAIN_BATCH, "steps": steps,
+        "ms_per_step": elapsed / steps * 1e3,
+        "pack_ms_per_step": sum(t for t, _, _ in log) / steps * 1e3,
+        "crystals_per_s": crystals / elapsed, "atoms_per_s": atoms / elapsed,
+        "peak_mem_bytes": peak, "launches": counts,
+        "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "plain_path": plain, "split": step_split(tr, batches, 2),
+    }
+    if profile:
+        prof = row["profile"] = profile_step(
+            lambda: tr.train(itertools.islice(batches, 1)),
+            Path(profile) / f"train_step_profile_{name}.txt")
+        prof["busy_share"] = prof["device_ms"] / row["ms_per_step"]
+    print(f"train {name}: {row['ms_per_step']:.2f} ms per step "
+          f"({row['pack_ms_per_step']:.2f} ms of it packing), "
+          f"{row['crystals_per_s']:.1f} crystals/s, {row['atoms_per_s']:.0f} "
+          f"atoms/s, peak {peak / 2**20:.1f} MiB, launches {counts}, losses "
+          f"{row['losses']}; plain path {plain}; split {row['split']}",
+          flush=True)
+    return row
+
+
+def learns_phase(seed: int) -> dict:
+    """tests/test_trainer_e2e.py::test_training_reduces_loss on the card at
+    FAST_FUSED: 96 crystals of at most 20 atoms, batch 8, lr_k=1 with 5
+    warm-up steps; after 60 steps a held-out batch's loss must be below
+    0.6x its value before."""
+    ds = make_dataset(SyntheticConfig(num_crystals=96, max_atoms=20,
+                                      seed=0))
+    caps = capacity_for(ds, 8)
+    tcfg = TrainConfig(global_batch=8, total_steps=300, lr_k=1,
+                       warmup_steps=5)
+    tr = Trainer(chgnet_mptrj.FAST_FUSED, tcfg, seed=seed, device="cuda")
+    held_out = next(iter(BatchIterator(ds, 8, 1, caps, seed=99)))
+    before = tr.evaluate(held_out)["loss"]
+    t0 = time.perf_counter()
+    tr.train(itertools.islice(_epochs(ds, caps, 8, 0), 60))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    after = tr.evaluate(held_out)["loss"]
+    print(f"learns: held-out loss {before:.4f} -> {after:.4f} after 60 "
+          f"steps ({elapsed:.2f} s)", flush=True)
+    if not after < 0.6 * before:
+        raise RuntimeError(f"held-out loss {before} -> {after}: not below "
+                           "0.6x after 60 steps")
+    return {"before": before, "after": after, "ratio": after / before,
+            "steps": 60, "seconds": elapsed}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="also trace one MD step with torch.profiler and "
-                         "write its per-kernel device times to DIR")
+                    help="also trace one MD step and one training step per "
+                         "config with torch.profiler and write their "
+                         "per-kernel device times to DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -344,14 +626,30 @@ def main() -> None:
                     "angle_cap": b.angle_cap} for b in probe]
     print(f"groups: {group_sizes}", flush=True)
 
-    # 3. kernels, on the largest group's batch
+    # training set-up: the JAX package's default synthetic dataset (256
+    # crystals of 2-64 atoms, seed 0), capacities for batches of 128
+    t0 = time.perf_counter()
+    ds = make_dataset(SyntheticConfig())
+    train_caps = capacity_for(ds, TRAIN_BATCH)
+    train_b0 = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, train_caps,
+                                       seed=args.seed))).to("cuda")
+    print(f"dataset: {len(ds)} crystals, {time.perf_counter() - t0:.2f} s; "
+          f"capacities {train_caps}", flush=True)
+
+    # 3. kernels, on the first training batch and on the largest serving
+    # group's batch
     big = max(range(len(probe)), key=lambda i: group_sizes[i]["bonds"])
     tree = serve.model.tree()
-    rows = kernel_phase(tree, cfg, probe[big])
+    train_cases = kernel_cases(tree, cfg, train_b0)
+    rows = kernel_phase(train_cases)
+    serve_kernel_rows = kernel_phase(kernel_cases(tree, cfg, probe[big]))
     print(f"kernels: {edge_case_phase(args.seed)} ragged-layout "
           "cases agree with the plain versions", flush=True)
 
-    # 4. serve: warm-up, then the counted run of the main path
+    # 4. the four backwards against plain autograd, on the training batch
+    backward_rows = backward_phase(train_cases, args.seed)
+
+    # 5. serve: warm-up, then the counted run of the main path
     md.step(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -368,7 +666,7 @@ def main() -> None:
             raise RuntimeError(f"{fn} launched {counts[fn]} times in "
                                f"{forwards} forwards, expected "
                                f"{per * forwards}")
-    for row in rows:
+    for row in serve_kernel_rows:
         row["launches"] = counts[row["wrapper"]]
     if not (np.isfinite(out["energy"]).all()
             and all(np.isfinite(f).all() for f in out["forces"])):
@@ -398,7 +696,8 @@ def main() -> None:
                 lambda: chgnet.chgnet_apply(tree, plain_cfg, b), 10, 3))
     breakdown = serve_breakdown(md, serve)
     if args.profile:
-        prof = breakdown["profile"] = profile_step(md, Path(args.profile))
+        prof = breakdown["profile"] = profile_step(
+            lambda: md.step(1), Path(args.profile) / "serve_step_profile.txt")
         # device time of one traced step over the untraced step's wall time
         prof["busy_share"] = prof["device_ms"] / (elapsed / STEPS * 1e3)
 
@@ -413,6 +712,7 @@ def main() -> None:
         "plain_path_tolerance": {"energy": tol_e, "forces": tol_f},
         "forward_ms": forward_ms, "plain_forward_ms": plain_forward_ms,
         "breakdown": breakdown, "stats": md.stats(),
+        "kernels_at_serve_batch": serve_kernel_rows,
     }
     print(f"serve: {serve_row['ms_per_batched_step']:.2f} ms per batched "
           f"step, {serve_row['replica_steps_per_s']:.1f} replica-steps/s, "
@@ -420,6 +720,29 @@ def main() -> None:
           f"group {forward_ms} ms (plain path {plain_forward_ms} ms); "
           f"one step {breakdown}", flush=True)
     print(json.dumps({"serve": serve_row}))
+
+    # 6. train: each path driven with the counters set to 0 just before it
+    train_rows = {
+        "FAST_FUSED": train_phase(
+            "FAST_FUSED", chgnet_mptrj.FAST_FUSED, ds, train_caps, 5,
+            PER_FORWARD, args.seed, args.profile),
+        "FAST_FUSED_VIRIAL": train_phase(
+            "FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL, ds,
+            train_caps, 3, PER_FORWARD_VIRIAL, args.seed, args.profile),
+    }
+    for row in rows:
+        path = ("FAST_FUSED_VIRIAL" if row["wrapper"]
+                == "fused_force_virial_readout" else "FAST_FUSED")
+        row["launches"] = train_rows[path]["launches"][row["wrapper"]]
+        if not row["launches"]:
+            raise RuntimeError(f"{row['name']} was not launched on {path}")
+
+    # 7. learns
+    learns = learns_phase(args.seed)
+    print(json.dumps({"train": dict(train_rows, backward=backward_rows,
+                                    learns=learns, dataset={
+                                        "crystals": len(ds),
+                                        "caps": vars(train_caps)})}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,6 +84,46 @@ class BatchCapacities:
             None if self.und_angles is None else self.und_angles * k)
 
 
+def capacity_from_stats(
+    atoms: np.ndarray,
+    bonds: np.ndarray,
+    angles: np.ndarray,
+    per_device_batch: int,
+    *,
+    quantile: float = 0.99,
+    margin: float = 1.3,
+    align: int = 256,
+) -> BatchCapacities:
+    """Single worst-case capacity at quantile + margin of per-sample stats."""
+
+    def cap(x):
+        q = float(np.quantile(x, quantile))
+        return _align_up(int(q * per_device_batch * margin), align)
+
+    return BatchCapacities(atoms=cap(atoms), bonds=cap(bonds),
+                           angles=cap(angles))
+
+
+def capacity_for(
+    ds,
+    per_device_batch: int,
+    *,
+    quantile: float = 0.99,
+    margin: float = 1.3,
+    align: int = 256,
+) -> BatchCapacities:
+    """Per-device capacities from the statistics of ``ds`` (any object with
+    ``crystals`` / ``graphs`` lists, ``data.SyntheticDataset`` in
+    practice)."""
+    atoms = np.array([c.num_atoms for c in ds.crystals])
+    bonds = np.array([g.num_bonds for g in ds.graphs])
+    angles = np.array([g.num_angles for g in ds.graphs])
+    return capacity_from_stats(
+        atoms, bonds, angles, per_device_batch,
+        quantile=quantile, margin=margin, align=align,
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class CapacityLadder:
     """An ascending ladder of capacity buckets.

@@ -4,8 +4,9 @@
 ``chgnet_init`` builds the parameter tree (nested dicts and lists of
 tensors, the names and layout of the JAX package's pytree) and
 ``chgnet_apply`` runs the forward pass with the direct Force/Stress heads
-(FastCHGNet C1).  ``CHGNet`` wraps the same tree as an ``nn.Module``
-whose parameter names follow it (``blocks.0.atom_mlp.w``, ...).
+(FastCHGNet C1), or the bond-virial stress (DESIGN.md §7).  ``CHGNet``
+wraps the same tree as an ``nn.Module`` whose parameter names follow it
+(``blocks.0.atom_mlp.w``, ...).
 
 ``CHGNetConfig`` mirrors the JAX config field for field.  Values this
 port does not implement yet raise ``NotImplementedError`` naming the
@@ -19,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.kernels.ref import gather_rows
 from . import basis, heads
 from .graph import CrystalGraphBatch
 from .interaction import (
@@ -87,14 +89,12 @@ def check_supported(cfg: CHGNetConfig) -> None:
         raise NotImplementedError(f'bond_store="undirected" {todo} 5')
     if cfg.bond_features == "undirected":
         raise NotImplementedError(f'bond_features="undirected" {todo} 6')
-    if cfg.stress_mode == "bond_virial":
-        raise NotImplementedError(f'stress_mode="bond_virial" {todo} 7')
     if cfg.precision != "f32":
         raise NotImplementedError(f"precision={cfg.precision!r} {todo} 8")
     if cfg.mlp_impl == "pallas":
         raise NotImplementedError(
             'mlp_impl="pallas" is not ported yet: ROADMAP "TPU kernels to '
-            'port" item 5')
+            'port" item 7')
     if cfg.conv_impl == "unfused" and cfg.agg_impl in ("matmul", "pallas"):
         raise NotImplementedError(
             f'agg_impl="{cfg.agg_impl}" on the unfused path {todo} 4')
@@ -133,6 +133,8 @@ def chgnet_init(seed: int | torch.Generator, cfg: CHGNetConfig) -> dict:
         if cfg.stress_mode == "mlp":
             params["stress_head"] = heads.stress_head_init(
                 gen, cfg.dim, cfg.stress_scale)
+        # stress_mode="bond_virial" shares the force head's n_ij: that
+        # tier has no stress parameters (DESIGN.md §7)
     return params
 
 
@@ -156,7 +158,8 @@ def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     four = basis.fourier_basis(theta, cfg.num_fourier)
     packed = linear_apply(params["bond_embed"], rbf)  # (Nb, 3*dim)
     e0, e_a, e_b = packed.chunk(3, dim=-1)
-    v = params["atom_embed"][graph.atom_z] * graph.atom_mask[..., None]
+    v = gather_rows(params["atom_embed"], graph.atom_z) \
+        * graph.atom_mask[..., None]
     a = linear_apply(params["angle_embed"], four) \
         * graph.angle_mask[..., None]
     e = e0 * graph.bond_mask[..., None]
@@ -183,17 +186,29 @@ def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
 def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     """Energy (B,), forces (A,3), stress (B,3,3), magmom (A,), f32.
 
-    One forward pass with the direct Force/Stress heads; no derivatives.
-    ``params`` and ``graph`` must be on the same device.
+    One forward pass with the direct Force/Stress heads; the outputs are
+    differentiable with respect to ``params`` (training backpropagates
+    through the kernels' recompute backwards).  ``stress_mode=
+    "bond_virial"`` takes the stress from the force head's per-bond
+    scalars (DESIGN.md §7).  ``params`` and ``graph`` must be on the same
+    device.
     """
     check_supported(cfg)
     v, e, _a, vec, dist = _trunk(params, cfg, graph)
     energy = heads.energy_head_apply(params["energy_head"], graph, v)
     magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)
-    forces = heads.force_head_apply(
-        params["force_head"], graph, e, vec, dist,
-        agg_impl=cfg.agg_impl, conv_impl=cfg.conv_impl)
-    stress = heads.stress_head_apply(params["stress_head"], graph, v)
+    if cfg.stress_mode == "bond_virial":
+        forces, stress = heads.force_virial_head_apply(
+            params["force_head"], graph, e, vec, dist,
+            agg_impl=cfg.agg_impl, conv_impl=cfg.conv_impl,
+            bond_store=cfg.bond_store)
+    elif cfg.stress_mode == "mlp":
+        forces = heads.force_head_apply(
+            params["force_head"], graph, e, vec, dist,
+            agg_impl=cfg.agg_impl, conv_impl=cfg.conv_impl)
+        stress = heads.stress_head_apply(params["stress_head"], graph, v)
+    else:
+        raise ValueError(f"unknown stress mode {cfg.stress_mode!r}")
     return {"energy": energy, "forces": forces, "stress": stress,
             "magmom": magmom}
 
@@ -225,7 +240,7 @@ class _Tree(nn.Module):
 
 
 class CHGNet(_Tree):
-    """FastCHGNet as an ``nn.Module`` (forward-only in this port so far).
+    """FastCHGNet as an ``nn.Module``.
 
     ``params`` is a parameter tree (``chgnet_init`` or
     ``convert.params_from_numpy``); without it the model is initialized

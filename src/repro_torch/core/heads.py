@@ -4,6 +4,8 @@
   Force head (Eq. 7):  n_ij = MLP(e_ij) in R;  F_i = sum_j n_ij * x_hat_ij
   Stress head (Eq. 9): sigma = sum_i (scale * MLP9(v_i)) ⊙ N(L),
       N(L) = sum_{a,b} L_a/|L_a| ⊗ L_b/|L_b|  (3x3 lattice-normal matrix).
+  Bond-virial stress (DESIGN.md §7): sigma = (1/2V) sum_ij n_ij d_ij
+      x_hat_ij ⊗ x_hat_ij, from the force head's own n_ij (no parameters).
 
 The per-crystal energy/stress reductions are f32 (DESIGN.md §4).
 """
@@ -14,6 +16,8 @@ import torch.nn.functional as F
 
 from .graph import CrystalGraphBatch
 from .interaction import linear_apply, linear_init, segment_aggregate
+
+EV_A3_TO_GPA = 160.21766  # eV/A^3 -> GPa
 
 # one epsilon for every unit-vector normalization in the model, shared by
 # the heads and the kernel wrappers
@@ -113,3 +117,76 @@ def stress_head_apply(p, graph: CrystalGraphBatch, v):
     per_atom = mlp_apply(p["mlp"], v) * graph.atom_mask[..., None]  # (A, 9)
     per_crystal = _per_crystal_sum(per_atom, graph).reshape(-1, 3, 3)
     return p["scale"] * per_crystal * normal
+
+
+# ------------------------- bond-virial stress ------------------------------
+
+def _per_crystal_aggregate(values, ids, num_crystals, mask, agg_impl):
+    """Bond -> crystal reduction through ``segment_aggregate``.
+
+    ``ids`` are sorted over the real prefix (crystals pack in sequence and
+    bonds sort by center), so the "sorted" tier applies; ``"pallas"`` maps
+    to it, as in the JAX package: the crystal axis is a few rows long and
+    has no CSR offsets of its own.
+    """
+    impl = "sorted" if agg_impl == "pallas" else agg_impl
+    return segment_aggregate(values, ids, num_crystals, mask, impl)
+
+
+def _virial_raw_to_gpa(raw, graph: CrystalGraphBatch):
+    """(B, 3, 3) sums of n d x_hat⊗x_hat -> stress [GPa].
+
+    sigma = raw * EV_A3_TO_GPA / (2V), V = |det lattice|; padded crystal
+    slots (identity lattices) are masked to zero.
+    """
+    vol = torch.abs(torch.linalg.det(graph.lattice.float()))
+    scale = EV_A3_TO_GPA / (2.0 * vol + _UNIT_EPS) * graph.crystal_mask
+    return raw.float() * scale[:, None, None]
+
+
+def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
+                            bond_dist, *, agg_impl: str = "scatter",
+                            conv_impl: str = "unfused",
+                            bond_store: str = "directed"):
+    """Force + bond-virial stress from one set of per-bond scalars.
+
+    Returns ``(forces (A, 3), stress (B, 3, 3) [GPa, f32])`` with
+    n_ij = MLP(e_ij):
+
+        F_i   = sum_j n_ij x_hat_ij                          (Eq. 7)
+        sigma = (1/2V) sum_ij n_ij d_ij x_hat_ij ⊗ x_hat_ij  [* GPa]
+
+    The stress has no parameters of its own, so it is symmetric and
+    rotates as R sigma R^T by construction.  ``conv_impl="fused"`` runs
+    both in ``kernels.ops.fused_force_virial_readout``; the unfused path
+    is the same math through ``segment_aggregate``.  Only the directed
+    bond store is ported.
+    """
+    if bond_store != "directed":
+        raise NotImplementedError(
+            f'bond_store="{bond_store}" is not ported yet: ROADMAP '
+            "'Modules to port' item 5")
+    x_hat = bond_unit_vectors(bond_vec, bond_dist)
+    if conv_impl == "fused":
+        from repro_torch.kernels import ops as kops
+
+        l0, l1 = p["mlp"]  # force head is fixed at (dim -> dim -> 1)
+        forces, raw = kops.fused_force_virial_readout(
+            e, x_hat, bond_dist, l0["w"], l0["b"], l1["w"], l1["b"],
+            graph.bond_center, graph.bond_crystal, graph.bond_offsets,
+            graph.atom_cap, graph.num_crystals)
+        forces = forces * graph.atom_mask[..., None].to(forces.dtype)
+        return forces, _virial_raw_to_gpa(raw, graph)
+
+    n_ij = mlp_apply(p["mlp"], e)[..., 0]  # (Nb,); masked by the aggregate
+    contrib = n_ij[..., None] * x_hat
+    forces = segment_aggregate(
+        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+    forces = forces * graph.atom_mask[..., None].to(forces.dtype)
+    w = n_ij.float() * bond_dist.float() * graph.bond_mask
+    xh32 = x_hat.float()
+    outer = (xh32[:, :, None] * xh32[:, None, :]).reshape(-1, 9)
+    raw = _per_crystal_aggregate(w[:, None] * outer, graph.bond_crystal,
+                                 graph.num_crystals, graph.bond_mask,
+                                 agg_impl)
+    return forces, _virial_raw_to_gpa(raw.reshape(-1, 3, 3), graph)

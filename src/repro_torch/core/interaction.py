@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import gather_rows
 from .graph import CrystalGraphBatch
 
 
@@ -81,7 +82,7 @@ def gated_mlp_apply(p, x, impl: str = "packed"):
     if impl == "pallas":
         raise NotImplementedError(
             'mlp_impl="pallas" needs the fused GatedMLP kernel: ROADMAP '
-            "'TPU kernels to port' item 5")
+            "'TPU kernels to port' item 7")
     raise ValueError(f"unknown GatedMLP impl {impl!r}")
 
 
@@ -144,7 +145,8 @@ def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
             graph.bond_center, graph.bond_nbr, graph.bond_offsets,
         )
     elif conv_impl == "unfused":
-        f_v = torch.cat([v[graph.bond_center], v[graph.bond_nbr], e], dim=-1)
+        f_v = torch.cat([gather_rows(v, graph.bond_center),
+                         gather_rows(v, graph.bond_nbr), e], dim=-1)
         msg = gated_mlp_apply(p["atom_mlp"], f_v, mlp_impl) * e_a
         agg = segment_aggregate(
             msg, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
@@ -172,9 +174,11 @@ def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
         )
     elif conv_impl == "unfused":
         f_e = torch.cat(
-            [v_in[center], e[graph.angle_ij], e[graph.angle_ik], a], dim=-1)
+            [gather_rows(v_in, center), gather_rows(e, graph.angle_ij),
+             gather_rows(e, graph.angle_ik), a], dim=-1)
         msg = gated_mlp_apply(p["bond_mlp"], f_e, mlp_impl)
-        msg = msg * e_b[graph.angle_ij] * e_b[graph.angle_ik]
+        msg = msg * gather_rows(e_b, graph.angle_ij) \
+            * gather_rows(e_b, graph.angle_ik)
         agg = segment_aggregate(
             msg, graph.angle_ij, graph.bond_cap, graph.angle_mask, agg_impl)
     else:
@@ -190,7 +194,8 @@ def angle_update(p, graph: CrystalGraphBatch, v_in, e_in, a, *, mlp_impl):
     """
     center = graph.bond_center[graph.angle_ij]
     f_a = torch.cat(
-        [v_in[center], e_in[graph.angle_ij], e_in[graph.angle_ik], a], dim=-1)
+        [gather_rows(v_in, center), gather_rows(e_in, graph.angle_ij),
+         gather_rows(e_in, graph.angle_ik), a], dim=-1)
     upd = gated_mlp_apply(p["angle_mlp"], f_a, mlp_impl)
     return a + upd * graph.angle_mask[..., None].to(a.dtype)
 

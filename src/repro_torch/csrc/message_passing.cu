@@ -1,11 +1,18 @@
 // Message-passing kernels of the FastCHGNet forward, for Hopper (sm_90a).
 //
-// Three kernels, one per TPU megakernel of the serving path:
+// One kernel per TPU megakernel of the serving and training paths:
 //
 //   atom_conv_fwd      replaces _atom_conv_kernel
 //                      (src/repro/kernels/fused_message_passing.py:252)
 //   bond_conv_fwd      replaces _bond_conv_kernel (same file, :488)
 //   force_readout_fwd  replaces _force_kernel (same file, :737), virial=False
+//   force_virial_fwd + virial_crystal_sum
+//                      replace _force_virial_kernel (same file, :758),
+//                      virial=True: two launches, the second a small
+//                      ordered per-crystal sum of the first's row partials
+//
+// Their backward passes are not kernels: kernels/ops.py recomputes the
+// messages chunk by chunk in PyTorch, as the JAX package's custom VJPs do.
 //
 // What each computes is in the comment above its kernel.  Shared rules,
 // the semantics the TPU kernels define (DESIGN.md §1-§3):
@@ -36,7 +43,9 @@
 // reads the x rows as float4 broadcasts from shared memory and each weight
 // once per tile from L2 (W is 96-128 KB and shared by every block, so it
 // stays L2-resident).  The force readout does 2*E*D*D flops on E*(D+3)*4
-// bytes, about 31 flops per byte, and is operation-bound the same way.
+// bytes, about 31 flops per byte, and is operation-bound the same way; its
+// virial epilogue adds ~20 flops and 4 bytes (dist) per bond, and the
+// crystal sum reads the (A, 9) row partials once.
 // Making them fast (wgmma on TF32-free f32 splits, TMA) is later work; this
 // is the simple, right version.
 
@@ -221,27 +230,39 @@ __global__ void conv_fwd_kernel(
   }
 }
 
-// force_readout_fwd, Eq. 7 with virial=False.  Per atom row i, over the
+// force_readout_fwd (VIRIAL = false), Eq. 7.  Per atom row i, over the
 // bonds b in [offs[i], offs[i+1]) in order:
 //   out[i] = sum_b n_b * x_hat[b],   n_b = w2 . silu(e[b] @ W1 + b1) + b2.
 // W1 is (D, D), w2 (D, 1), x_hat (E, 3), out (A, 3).
+//
+// force_virial_fwd (VIRIAL = true) adds the §7 virial epilogue: while n_b
+// and x_hat[b] are in shared memory, the same ordered walk also sums
+//   vir[i] = sum_b (n_b * dist[b]) * (x_hat[b] ⊗ x_hat[b])     (A, 9),
+// the row's share of the per-crystal partials that virial_crystal_sum
+// adds up.  Threads 0-2 reduce the force columns and threads 32-40 the
+// nine virial columns, each in CSR order.
+template <bool VIRIAL>
 __global__ void force_readout_kernel(
     const float* __restrict__ e, const float* __restrict__ xhat,
+    const float* __restrict__ dist,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
-    const int* __restrict__ offs, float* __restrict__ out, int n_rows, int D,
-    int rows_per_block) {
+    const int* __restrict__ offs, float* __restrict__ out,
+    float* __restrict__ vir, int n_rows, int D, int rows_per_block) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* es = smem;              // (TE, D) bond features of the tile
   float* hs = smem + TE * D;     // (TE, D) hidden layer
   float* ns = hs + TE * D;       // (TE * 3) contributions n_b * x_hat[b]
+  float* vs = ns + TE * 3;       // (TE * 9) virial contributions (VIRIAL)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(r0 + rows_per_block, n_rows);
   const int start = offs[r0], end = offs[r1];
+  const bool f_col = tid < 3;
+  const bool v_col = VIRIAL && tid >= 32 && tid < 41;
 
   int row = r0;
   int row_end = offs[r0 + 1];
@@ -279,19 +300,62 @@ __global__ void force_readout_kernel(
       float s = 0.0f;
       for (int j = lane; j < D; j += 32) s += hs[t * D + j] * w2[j];
       s = warp_sum(s) + b2[0];
-      if (lane < 3) ns[t * 3 + lane] = s * xhat[(size_t)(base + t) * 3 + lane];
+      const size_t g = (size_t)(base + t) * 3;
+      if (lane < 3) ns[t * 3 + lane] = s * xhat[g + lane];
+      if (VIRIAL && lane < 9) {
+        const int m = lane / 3, n = lane - 3 * m;
+        const float wv = s * dist[base + t];
+        vs[t * 9 + lane] = wv * (xhat[g + m] * xhat[g + n]);
+      }
     }
     __syncthreads();
 
-    if (tid < 3) accumulate_tile(ns, n_e, base, tid, 3, offs, out, row,
-                                 row_end, acc);
+    if (f_col) accumulate_tile(ns, n_e, base, tid, 3, offs, out, row,
+                               row_end, acc);
+    if (v_col) accumulate_tile(vs, n_e, base, tid - 32, 9, offs, vir, row,
+                               row_end, acc);
     __syncthreads();
   }
-  if (tid < 3) {
+  if (f_col || v_col) {
+    float* dst = f_col ? out : vir;
+    const int width = f_col ? 3 : 9;
+    const int col = f_col ? tid : tid - 32;
     for (; row < r1; ++row) {
-      out[(size_t)row * 3 + tid] = acc;
+      dst[(size_t)row * width + col] = acc;
       acc = 0.0f;
     }
+  }
+}
+
+// virial_crystal_sum: raw[c] = sum of vir[r] over the atom rows r of
+// crystal c.  A row belongs to the crystal of its first bond,
+// cry[offs[r]] (every bond of a row lies in its center atom's crystal, as
+// the packer lays batches out); a row without bonds, every padded row
+// among them, adds nothing, so the padded tail past offs[-1] is never
+// read.  One warp per crystal: lane l takes rows l, l + 32, ... in order,
+// then a butterfly sum, so the order is the same from run to run; a
+// crystal slot with no rows gets zeros.  It takes the place of the TPU
+// kernel's (Bp, 3*128) accumulator carried across its sequential grid.
+__global__ void virial_crystal_sum_kernel(
+    const float* __restrict__ vir, const int* __restrict__ cry,
+    const int* __restrict__ offs, float* __restrict__ raw, int n_rows) {
+  const int c = blockIdx.x;
+  const int lane = threadIdx.x;
+  float acc[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = 0.0f;
+  for (int r = lane; r < n_rows; r += 32) {
+    const int s = offs[r];
+    if (s < offs[r + 1] && cry[s] == c) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) acc[k] += vir[(size_t)r * 9 + k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = warp_sum(acc[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) raw[(size_t)c * 9 + k] = acc[k];
   }
 }
 
@@ -352,12 +416,42 @@ int force_readout_fwd(const float* e, const float* x_hat, const float* w1,
                       int rows_per_block, void* stream) {
   if (n_rows == 0) return 0;
   const size_t smem = sizeof(float) * TE * (2 * dim + 3);
-  cudaError_t err = set_smem(force_readout_kernel, smem);
+  cudaError_t err = set_smem(force_readout_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  force_readout_kernel<<<grid, round_up_warp(dim), smem,
-                         (cudaStream_t)stream>>>(
-      e, x_hat, w1, b1, w2, b2, offs, out, n_rows, dim, rows_per_block);
+  force_readout_kernel<false><<<grid, round_up_warp(dim), smem,
+                                (cudaStream_t)stream>>>(
+      e, x_hat, nullptr, w1, b1, w2, b2, offs, out, nullptr, n_rows, dim,
+      rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+// Forces (A, 3) and the per-row virial partials vir (A, 9); the caller
+// then sums vir per crystal with virial_crystal_sum.
+int force_virial_fwd(const float* e, const float* x_hat, const float* dist,
+                     const float* w1, const float* b1, const float* w2,
+                     const float* b2, const int* offs, float* out,
+                     float* vir, int n_rows, int dim, int rows_per_block,
+                     void* stream) {
+  if (n_rows == 0) return 0;
+  const size_t smem = sizeof(float) * TE * (2 * dim + 3 + 9);
+  cudaError_t err = set_smem(force_readout_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
+  // at least two warps: threads 32-40 reduce the virial columns
+  const int threads = round_up_warp(dim) < 64 ? 64 : round_up_warp(dim);
+  force_readout_kernel<true><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      e, x_hat, dist, w1, b1, w2, b2, offs, out, vir, n_rows, dim,
+      rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+// raw (B, 9) from the per-row partials of force_virial_fwd.
+int virial_crystal_sum(const float* vir, const int* cry, const int* offs,
+                       float* raw, int n_rows, int n_crystals, void* stream) {
+  if (n_crystals == 0) return 0;
+  virial_crystal_sum_kernel<<<n_crystals, 32, 0, (cudaStream_t)stream>>>(
+      vir, cry, offs, raw, n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,8 @@ SIGNATURES = {
         "atom_conv_fwd": [_P] * 11 + [_I, _I, _I, _P],
         "bond_conv_fwd": [_P] * 13 + [_I, _I, _I, _P],
         "force_readout_fwd": [_P] * 8 + [_I, _I, _I, _P],
+        "force_virial_fwd": [_P] * 10 + [_I, _I, _I, _P],
+        "virial_crystal_sum": [_P] * 4 + [_I, _I, _P],
     },
 }
 

@@ -1,21 +1,25 @@
 """Public wrappers of the hand-written CUDA kernels.
 
 Each wrapper has the calling convention of its ``repro.kernels.ops``
-counterpart and picks its path from the device of the tensors it is
-given:
+counterpart and is a ``torch.autograd.Function``.  Its forward picks the
+path from the device of the tensors it is given:
 
   - CPU tensors go to the plain PyTorch version in ``kernels.ref``;
   - CUDA tensors launch the kernel, after checking device, dtype (f32
     features, int32 ids), contiguity and shapes, or raise.  There is no
     fallback from the card to the plain version.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, incremented only where the kernel is launched.
+The backward is the same code on both devices and mirrors the JAX
+package's custom VJPs: it keeps the operands, never the messages, and
+recomputes the messages chunk by chunk of edges in PyTorch, pulling the
+output cotangent back through each chunk with ``torch.autograd.grad``
+(``_recompute_vjp``).  It is no kernel: a hand-written backward kernel is
+an optimization for later.
 
-The wrappers are forward-only so far: an input that would record a
-gradient raises, so that no caller silently gets none.  The mirror-map
-operands of the undirected bond store (``pair``) and the symmetric trunk
-(``und_features``) are not ported yet.
+Each wrapper counts its kernel launches in a plain integer attribute,
+``<wrapper>.launches``, incremented only where a kernel is launched.  The
+mirror-map operands of the undirected bond store (``pair``) and the
+symmetric trunk (``und_features``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,10 +29,16 @@ from . import build, ref
 
 _LIB = "message_passing"
 
+# Bytes of the widest per-edge tensor of one recompute chunk (the
+# concatenated GatedMLP input).  The JAX package's chunk of 256 edges is
+# a TPU tile; here one training batch of ~10^5 bonds takes one to a few
+# chunks, so the backward launches a few hundred ops, not tens of
+# thousands, and no message tensor lives from forward to backward.
+CHUNK_BYTES = 64 << 20
 
-def _forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("backward: next slice")
+
+def _default_chunk(row_floats: int) -> int:
+    return max(1, CHUNK_BYTES // (4 * row_floats))
 
 
 def _no_mirror(pair, und_features: bool) -> None:
@@ -72,21 +82,74 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
-                    bond_center, bond_nbr, bond_offsets,
-                    *, pair=None, und_features: bool = False,
-                    block_rows: int = 1):
-    """Fused Eq. 4 message path: sum_j e^a_ij * phi(v_i, v_j, e_ij) -> (A, D).
+# ---------------------------------------------------------------------------
+# Chunked recompute backward
+# ---------------------------------------------------------------------------
 
-    Requires the sorted-segment layout (DESIGN.md §1): bonds sorted by
-    ``bond_center`` with CSR ``bond_offsets`` whose last entry is the
-    real-bond count.  ``block_rows`` atom rows go to one CUDA block.
+def _recompute_vjp(fn, dense, edge, needs, cotangents, offsets, chunk: int):
+    """Pull output cotangents back through ``fn``, one edge chunk at a time.
+
+    ``fn(dense, edge_chunk, sl)`` recomputes chunk ``sl``'s outputs from
+    the dense operands (whole tensors: their cotangents are summed over the
+    chunks, in chunk order) and the chunk's slices of the per-edge
+    operands (their cotangents are concatenated).  ``cotangents(sl)`` are
+    the outputs' cotangents for the chunk.  ``needs`` flags, dense first
+    then edge, which cotangents to return; the others come back as None.
+
+    Only the real edges, ``[0, offsets[-1])``, are recomputed: the padded
+    tail contributes nothing forward, so its cotangents are zeros.  (The
+    JAX package's loop runs a static trip count over every chunk and masks
+    the tail instead; reading ``offsets[-1]`` costs one device read here,
+    and the batch capacities are several times the real counts.)
+
+    With grad mode on (a double backward), the recompute is recorded
+    against the saved operands themselves, so the cotangents returned are
+    differentiable; otherwise it runs on detached copies.
     """
-    _no_mirror(pair, und_features)
-    _forward_only(v, e, e_a, w, b, ln_scale, ln_bias)
-    if v.device.type == "cpu":
-        return ref.fused_atom_conv_ref(v, e, e_a, w, b, ln_scale, ln_bias,
-                                       bond_center, bond_nbr, bond_offsets)
+    out = [None] * (len(dense) + len(edge))
+    if not any(needs):
+        return out
+    create = torch.is_grad_enabled()
+    n_real = int(offsets[-1])
+
+    def leaf(t, need):
+        return t if create else t.detach().requires_grad_(need)
+
+    nd = len(dense)
+    parts = [[] for _ in edge]
+    with torch.enable_grad():
+        d_in = [leaf(t, n) for t, n in zip(dense, needs[:nd])]
+        for i0 in range(0, n_real, chunk):
+            sl = slice(i0, min(i0 + chunk, n_real))
+            e_in = [leaf(t[sl], n) for t, n in zip(edge, needs[nd:])]
+            wrt = [x for x, n in zip(d_in + e_in, needs) if n]
+            grads = iter(torch.autograd.grad(fn(d_in, e_in, sl), wrt,
+                                             cotangents(sl),
+                                             create_graph=create))
+            for k, need in enumerate(needs):
+                if not need:
+                    continue
+                gk = next(grads)
+                if k >= nd:
+                    parts[k - nd].append(gk)
+                else:
+                    out[k] = gk if out[k] is None else out[k] + gk
+    for k, need in enumerate(needs):
+        if need and k >= nd:
+            t = edge[k - nd]
+            tail = t.new_zeros((t.shape[0] - n_real,) + tuple(t.shape[1:]))
+            out[k] = torch.cat(parts[k - nd] + [tail])
+        elif need and out[k] is None:
+            out[k] = torch.zeros_like(dense[k])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Atom conv (Eq. 4)
+# ---------------------------------------------------------------------------
+
+def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
+                    bond_nbr, bond_offsets, block_rows):
     a_rows, dim = v.shape
     n_edges = bond_center.shape[0]
     dev, f32, i32 = v.device, torch.float32, torch.int32
@@ -111,23 +174,64 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
     return out
 
 
-def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
-                    angle_ij, angle_ik, center_ids, angle_offsets,
-                    *, pair=None, block_rows: int = 32):
-    """Fused Eq. 5 message path:
-    sum_k e^b_ij e^b_ik phi(v_c, e_ij, e_ik, a_ijk) -> (E, D).
+class _AtomConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
+                bond_nbr, offsets, block_rows, chunk):
+        # operands only: the messages are recomputed in the backward
+        ctx.save_for_backward(v, e, e_a, w, b, ln_scale, ln_bias,
+                              bond_center, bond_nbr, offsets)
+        ctx.chunk = chunk or _default_chunk(3 * v.shape[1])
+        if v.device.type == "cpu":
+            return ref.fused_atom_conv_ref(v, e, e_a, w, b, ln_scale,
+                                           ln_bias, bond_center, bond_nbr,
+                                           offsets)
+        return _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias,
+                               bond_center, bond_nbr, offsets, block_rows)
 
-    ``center_ids = bond_center[angle_ij]`` (a cheap int gather the caller
-    performs).  Requires angles sorted by ``angle_ij`` with CSR
-    ``angle_offsets`` (DESIGN.md §1).  Few angles fall on each bond, so
-    ``block_rows`` bond rows share one CUDA block.
+    @staticmethod
+    def backward(ctx, g):
+        v, e, e_a, w, b, lns, lnb, center, nbr, offs = ctx.saved_tensors
+        c = center.long()
+
+        def msgs(dense, edge, sl):
+            vv, ww, bb, ss, oo = dense
+            ec, eac = edge
+            x = torch.cat([ref.gather_rows(vv, center[sl]),
+                           ref.gather_rows(vv, nbr[sl]), ec], dim=-1)
+            return ref.gated_mlp_packed_ref(x, ww, bb, ss, oo) * eac
+
+        nig = ctx.needs_input_grad
+        dv, dw, db, dls, dlb, de, dea = _recompute_vjp(
+            msgs, [v, w, b, lns, lnb], [e, e_a],
+            [nig[0], nig[3], nig[4], nig[5], nig[6], nig[1], nig[2]],
+            lambda sl: g[c[sl]], offs, ctx.chunk)
+        return dv, de, dea, dw, db, dls, dlb, None, None, None, None, None
+
+
+def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
+                    bond_center, bond_nbr, bond_offsets,
+                    *, pair=None, und_features: bool = False,
+                    block_rows: int = 1, chunk: int | None = None):
+    """Fused Eq. 4 message path: sum_j e^a_ij * phi(v_i, v_j, e_ij) -> (A, D).
+
+    Requires the sorted-segment layout (DESIGN.md §1): bonds sorted by
+    ``bond_center`` with CSR ``bond_offsets`` whose last entry is the
+    real-bond count.  ``block_rows`` atom rows go to one CUDA block.
+    The backward recomputes ``chunk`` edges at a time (default: sized by
+    ``CHUNK_BYTES``); the result does not depend on it.
     """
-    _no_mirror(pair, False)
-    _forward_only(v, e, a, e_b, w, b, ln_scale, ln_bias)
-    if v.device.type == "cpu":
-        return ref.fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale,
-                                       ln_bias, angle_ij, angle_ik,
-                                       center_ids, angle_offsets)
+    _no_mirror(pair, und_features)
+    return _AtomConv.apply(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
+                           bond_nbr, bond_offsets, block_rows, chunk)
+
+
+# ---------------------------------------------------------------------------
+# Bond conv (Eq. 5)
+# ---------------------------------------------------------------------------
+
+def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
+                    angle_ik, center_ids, angle_offsets, block_rows):
     a_rows, dim = v.shape
     b_rows = e.shape[0]
     n_ang = angle_ij.shape[0]
@@ -154,21 +258,70 @@ def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
     return out
 
 
-def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                        num_atoms: int, *, block_rows: int = 1):
-    """Fused Eq. 7 direct-force readout: F_i = sum_j n_ij x_hat_ij -> (A, 3).
+class _BondConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
+                angle_ik, center_ids, offsets, block_rows, chunk):
+        ctx.save_for_backward(v, e, a, e_b, w, b, ln_scale, ln_bias,
+                              angle_ij, angle_ik, center_ids, offsets)
+        ctx.chunk = chunk or _default_chunk(4 * v.shape[1])
+        if v.device.type == "cpu":
+            return ref.fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale,
+                                           ln_bias, angle_ij, angle_ik,
+                                           center_ids, offsets)
+        return _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias,
+                               angle_ij, angle_ik, center_ids, offsets,
+                               block_rows)
 
-    The per-bond scalar MLP (w1/b1 -> silu -> w2/b2), the x_hat weighting
-    and the per-atom reduction run in one kernel over the sorted CSR rows;
-    ``n_ij`` never reaches device memory.  The kernel walks rows by
-    ``bond_offsets``; ``bond_center`` is checked and used only by the
-    plain version.
+    @staticmethod
+    def backward(ctx, g):
+        (v, e, a, e_b, w, b, lns, lnb, angle_ij, angle_ik, center_ids,
+         offs) = ctx.saved_tensors
+        ij = angle_ij.long()
+
+        def msgs(dense, edge, sl):
+            vv, ee, eb, ww, bb, ss, oo = dense
+            (ac,) = edge
+            i, k = angle_ij[sl], angle_ik[sl]
+            x = torch.cat([ref.gather_rows(vv, center_ids[sl]),
+                           ref.gather_rows(ee, i), ref.gather_rows(ee, k), ac],
+                          dim=-1)
+            phi = ref.gated_mlp_packed_ref(x, ww, bb, ss, oo)
+            return phi * ref.gather_rows(eb, i) * ref.gather_rows(eb, k)
+
+        nig = ctx.needs_input_grad
+        dv, de, deb, dw, db, dls, dlb, da = _recompute_vjp(
+            msgs, [v, e, e_b, w, b, lns, lnb], [a],
+            [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
+            lambda sl: g[ij[sl]], offs, ctx.chunk)
+        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 6
+
+
+def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
+                    angle_ij, angle_ik, center_ids, angle_offsets,
+                    *, pair=None, block_rows: int = 32,
+                    chunk: int | None = None):
+    """Fused Eq. 5 message path:
+    sum_k e^b_ij e^b_ik phi(v_c, e_ij, e_ik, a_ijk) -> (E, D).
+
+    ``center_ids = bond_center[angle_ij]`` (a cheap int gather the caller
+    performs).  Requires angles sorted by ``angle_ij`` with CSR
+    ``angle_offsets`` (DESIGN.md §1).  Few angles fall on each bond, so
+    ``block_rows`` bond rows share one CUDA block.  ``chunk`` is the
+    backward's recompute chunk, in angles.
     """
-    _forward_only(e, x_hat, w1, b1, w2, b2)
-    if e.device.type == "cpu":
-        return ref.fused_force_readout_ref(e, x_hat, w1, b1, w2, b2,
-                                           bond_center, bond_offsets,
-                                           num_atoms)
+    _no_mirror(pair, False)
+    return _BondConv.apply(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
+                           angle_ik, center_ids, angle_offsets, block_rows,
+                           chunk)
+
+
+# ---------------------------------------------------------------------------
+# Force readout (Eq. 7) and its virial epilogue (§7)
+# ---------------------------------------------------------------------------
+
+def _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
+                  num_atoms):
     n_edges, dim = e.shape
     dev, f32, i32 = e.device, torch.float32, torch.int32
     _check_dim(dim)
@@ -179,16 +332,160 @@ def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
             ("bond_center", bond_center, i32, (n_edges,)),
             ("bond_offsets", bond_offsets, i32, (num_atoms + 1,))):
         _check(name, t, dt, shape, dev)
-    out = torch.empty((num_atoms, 3), dtype=f32, device=dev)
+
+
+def _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
+                        num_atoms, block_rows):
+    _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
+                  num_atoms)
+    out = torch.empty((num_atoms, 3), dtype=torch.float32, device=e.device)
     _launch("force_readout_fwd", e.data_ptr(), x_hat.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            bond_offsets.data_ptr(), out.data_ptr(), num_atoms, dim,
-            block_rows, _stream(dev))
+            bond_offsets.data_ptr(), out.data_ptr(), num_atoms, e.shape[1],
+            block_rows, _stream(e.device))
     fused_force_readout.launches += 1
     return out
 
 
-WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_force_readout)
+def _bond_scalars(e, w1, b1, w2, b2):
+    """n_ij = w2 . silu(e W1 + b1) + b2, as (chunk, 1)."""
+    return torch.nn.functional.silu(e @ w1 + b1) @ w2 + b2
+
+
+class _ForceReadout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, x_hat, w1, b1, w2, b2, bond_center, offsets,
+                num_atoms, block_rows, chunk):
+        ctx.save_for_backward(e, x_hat, w1, b1, w2, b2, bond_center,
+                              offsets)
+        ctx.chunk = chunk or _default_chunk(e.shape[1])
+        if e.device.type == "cpu":
+            return ref.fused_force_readout_ref(e, x_hat, w1, b1, w2, b2,
+                                               bond_center, offsets,
+                                               num_atoms)
+        return _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center,
+                                   offsets, num_atoms, block_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, x_hat, w1, b1, w2, b2, center, offs = ctx.saved_tensors
+        c = center.long()
+
+        def contribs(dense, edge, sl):
+            ec, xc = edge
+            return _bond_scalars(ec, *dense) * xc
+
+        nig = ctx.needs_input_grad
+        dw1, db1, dw2, db2, de, dxh = _recompute_vjp(
+            contribs, [w1, b1, w2, b2], [e, x_hat],
+            [nig[2], nig[3], nig[4], nig[5], nig[0], nig[1]],
+            lambda sl: g[c[sl]], offs, ctx.chunk)
+        return (de, dxh, dw1, db1, dw2, db2) + (None,) * 5
+
+
+def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
+                        num_atoms: int, *, block_rows: int = 1,
+                        chunk: int | None = None):
+    """Fused Eq. 7 direct-force readout: F_i = sum_j n_ij x_hat_ij -> (A, 3).
+
+    The per-bond scalar MLP (w1/b1 -> silu -> w2/b2), the x_hat weighting
+    and the per-atom reduction run in one kernel over the sorted CSR rows;
+    ``n_ij`` never reaches device memory.  The kernel walks rows by
+    ``bond_offsets``; ``bond_center`` is checked and used by the plain
+    version and the backward.
+    """
+    return _ForceReadout.apply(e, x_hat, w1, b1, w2, b2, bond_center,
+                               bond_offsets, num_atoms, block_rows, chunk)
+
+
+def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
+                       bond_crystal, bond_offsets, num_atoms, num_crystals,
+                       block_rows):
+    _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
+                  num_atoms)
+    n_edges, dev = e.shape[0], e.device
+    _check("dist", dist, torch.float32, (n_edges,), dev)
+    _check("bond_crystal", bond_crystal, torch.int32, (n_edges,), dev)
+    out = torch.empty((num_atoms, 3), dtype=torch.float32, device=dev)
+    rows = torch.empty((num_atoms, 9), dtype=torch.float32, device=dev)
+    raw = torch.empty((num_crystals, 3, 3), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    _launch("force_virial_fwd", e.data_ptr(), x_hat.data_ptr(),
+            dist.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), bond_offsets.data_ptr(), out.data_ptr(),
+            rows.data_ptr(), num_atoms, e.shape[1], block_rows, stream)
+    fused_force_virial_readout.launches += 1
+    _launch("virial_crystal_sum", rows.data_ptr(), bond_crystal.data_ptr(),
+            bond_offsets.data_ptr(), raw.data_ptr(), num_atoms, num_crystals,
+            stream)
+    fused_force_virial_readout.launches += 1
+    return out, raw
+
+
+class _ForceVirial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, x_hat, dist, w1, b1, w2, b2, bond_center,
+                bond_crystal, offsets, num_atoms, num_crystals, block_rows,
+                chunk):
+        ctx.save_for_backward(e, x_hat, dist, w1, b1, w2, b2, bond_center,
+                              bond_crystal, offsets)
+        ctx.chunk = chunk or _default_chunk(e.shape[1])
+        ctx.num_crystals = num_crystals
+        if e.device.type == "cpu":
+            return ref.fused_force_virial_readout_ref(
+                e, x_hat, dist, w1, b1, w2, b2, bond_center, bond_crystal,
+                offsets, num_atoms, num_crystals)
+        return _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2,
+                                  bond_center, bond_crystal, offsets,
+                                  num_atoms, num_crystals, block_rows)
+
+    @staticmethod
+    def backward(ctx, g_f, g_s):
+        (e, x_hat, dist, w1, b1, w2, b2, center, crystal,
+         offs) = ctx.saved_tensors
+        c, cr = center.long(), crystal.long()
+        g_s = g_s.reshape(ctx.num_crystals, 9)
+
+        def contribs(dense, edge, sl):
+            ec, xc, dc = edge
+            n = _bond_scalars(ec, *dense)
+            outer = (xc[:, :, None] * xc[:, None, :]).reshape(-1, 9)
+            return n * xc, (n * dc[:, None]) * outer
+
+        nig = ctx.needs_input_grad
+        dw1, db1, dw2, db2, de, dxh, dd = _recompute_vjp(
+            contribs, [w1, b1, w2, b2], [e, x_hat, dist],
+            [nig[3], nig[4], nig[5], nig[6], nig[0], nig[1], nig[2]],
+            lambda sl: (g_f[c[sl]], g_s[cr[sl]]), offs, ctx.chunk)
+        return (de, dxh, dd, dw1, db1, dw2, db2) + (None,) * 7
+
+
+def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
+                               bond_crystal, bond_offsets, num_atoms: int,
+                               num_crystals: int, *, block_rows: int = 1,
+                               chunk: int | None = None):
+    """Force readout + bond-virial partials (DESIGN.md §7).
+
+    Returns the (A, 3) forces of ``fused_force_readout`` and the raw
+    (B, 3, 3) f32 per-crystal sums ``sum n_ij d_ij x_hat ⊗ x_hat`` over the
+    real bonds.  On the card it takes two launches: the force kernel with
+    a virial epilogue that sums each atom row's nine partials while
+    ``n_ij`` and ``x_hat`` are in shared memory (the (E, 3, 3) products
+    never reach device memory), then an ordered per-crystal sum of those
+    rows.  That second step needs the packer's layout: every bond of an
+    atom row lies in the crystal of its center atom (``bond_crystal[b]``
+    is ``atom_crystal[bond_center[b]]``).  Volume normalization and units
+    live in ``core.heads``.  The backward takes both cotangents, the force
+    one gathered through ``bond_center`` and the stress one through
+    ``bond_crystal``.
+    """
+    return _ForceVirial.apply(e, x_hat, dist, w1, b1, w2, b2, bond_center,
+                              bond_crystal, bond_offsets, num_atoms,
+                              num_crystals, block_rows, chunk)
+
+
+WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_force_readout,
+            fused_force_virial_readout)
 for _fn in WRAPPERS:
     _fn.launches = 0
 

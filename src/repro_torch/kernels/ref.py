@@ -28,6 +28,15 @@ def gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias):
     return F.silu(core) * torch.sigmoid(gate)
 
 
+def gather_rows(table, ids):
+    """``table[ids]`` for a 2-D table, as ``F.embedding``.  Same values;
+    on CUDA its backward sums the rows of a repeated id in parallel
+    segments, where indexing's backward (``index_put_`` with accumulation)
+    walks all of them in one warp.  Padded bonds and angles all carry id
+    0, hundreds of thousands of times in a training batch."""
+    return F.embedding(ids, table)
+
+
 def _mask_real_edges(msg, offsets):
     """Zero everything past offsets[-1] (the real-edge count, DESIGN.md §1)."""
     valid = torch.arange(msg.shape[0], device=msg.device) < offsets[-1]
@@ -44,7 +53,8 @@ def fused_atom_conv_ref(v, e, e_a, w, b, ln_scale, ln_bias,
                         bond_center, bond_nbr, offsets):
     """Unfused Eq. 4 message path: gather-concat -> GatedMLP -> envelope ->
     segment reduce -> (A, D)."""
-    x = torch.cat([v[bond_center], v[bond_nbr], e], dim=-1)
+    x = torch.cat([gather_rows(v, bond_center), gather_rows(v, bond_nbr), e],
+                  dim=-1)
     msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) * e_a
     msg = _mask_real_edges(msg, offsets)
     return _segment_sum(msg, bond_center, v.shape[0])
@@ -54,9 +64,10 @@ def fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale, ln_bias,
                         angle_ij, angle_ik, center_ids, offsets):
     """Unfused Eq. 5 message path -> (E, D) (``center_ids =
     bond_center[angle_ij]``, precomputed by the caller)."""
-    x = torch.cat([v[center_ids], e[angle_ij], e[angle_ik], a], dim=-1)
+    x = torch.cat([gather_rows(v, center_ids), gather_rows(e, angle_ij),
+                   gather_rows(e, angle_ik), a], dim=-1)
     msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias)
-    msg = msg * e_b[angle_ij] * e_b[angle_ik]
+    msg = msg * gather_rows(e_b, angle_ij) * gather_rows(e_b, angle_ik)
     msg = _mask_real_edges(msg, offsets)
     return _segment_sum(msg, angle_ij, e.shape[0])
 
@@ -68,3 +79,25 @@ def fused_force_readout_ref(e, x_hat, w1, b1, w2, b2, bond_center, offsets,
     n = (h @ w2 + b2)[..., 0]
     contrib = _mask_real_edges(n[:, None] * x_hat, offsets)
     return _segment_sum(contrib, bond_center, num_atoms)
+
+
+def fused_force_virial_readout_ref(e, x_hat, dist, w1, b1, w2, b2,
+                                   bond_center, bond_crystal, offsets,
+                                   num_atoms, num_crystals):
+    """Unfused force readout + bond-virial partials (DESIGN.md §7).
+
+    Same per-bond scalar n_ij as ``fused_force_readout_ref``; the second
+    output sums, per crystal over the real edges,
+
+        raw_c = sum_{ij in c} n_ij d_ij x_hat_ij ⊗ x_hat_ij   (B, 3, 3) f32.
+
+    Volume normalization and units live in ``core.heads``.
+    """
+    h = F.silu(e @ w1 + b1)
+    n = (h @ w2 + b2)[..., 0]
+    contrib = _mask_real_edges(n[:, None] * x_hat, offsets)
+    forces = _segment_sum(contrib, bond_center, num_atoms)
+    outer = (x_hat[:, :, None] * x_hat[:, None, :]).reshape(-1, 9)
+    s_contrib = _mask_real_edges((n * dist)[:, None] * outer, offsets)
+    raw = _segment_sum(s_contrib, bond_crystal, num_crystals)
+    return forces, raw.reshape(-1, 3, 3)

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: nothing under src/repro_torch, and
 nothing in chip_smoke.py, imports JAX or the JAX package ``repro``, and
-the port's serving path imports in an interpreter where JAX cannot be
-imported at all."""
+the port's serving and training paths import in an interpreter where JAX
+cannot be imported at all."""
 import ast
 import os
 import subprocess
@@ -46,6 +46,7 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch.serve, repro_torch.convert, repro_torch.data\n"
+        "import repro_torch.train, repro_torch.optim\n"
         "import repro_torch.configs.chgnet_mptrj\n"
         "import repro_torch.kernels.build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

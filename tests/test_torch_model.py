@@ -110,9 +110,9 @@ def test_every_config_is_mirrored():
     (TC.REFERENCE, "item 2"),
     (TC.FAST_HALF, "item 5"),
     (TC.FAST_FUSED_SYM, "item 5"),
-    (TC.FAST_VIRIAL, "item 7"),
+    (TC.FAST_FUSED_MIXED, "item 8"),
     (TC.FAST_MIXED, "item 8"),
-    (TC.FAST_FS_HEAD.with_(mlp_impl="pallas"), "item 5"),
+    (TC.FAST_FS_HEAD.with_(mlp_impl="pallas"), "item 7"),
     (TC.FAST_FS_HEAD.with_(agg_impl="pallas"), "item 4"),
     (TC.FAST_FS_HEAD.with_(agg_impl="matmul"), "item 4"),
 ])
