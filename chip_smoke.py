@@ -1,35 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths at full width through their public
-entry points and holds every hand-written CUDA kernel on them against
-its plain PyTorch version:
+Drives the port's main paths at full width through their public entry
+points and holds every hand-written CUDA kernel on them against its plain
+PyTorch version:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: the kernels compile from ``src/repro_torch/csrc`` (nvcc);
   3. kernels: each kernel against its plain version on the card, on the
-     inputs of a real packed batch, within ``1e-4 * max(1, max|plain|)``,
-     and both timed with CUDA events; then ragged CSR layouts;
-  4. backward: the four kernel wrappers' recompute backwards against
-     plain autograd through ``kernels.ref`` on the card, and whether two
-     backward runs give bitwise equal gradients;
-  5. serve: ``ServeEngine`` / ``BatchedMD`` at ``FAST_FUSED``, one warm-up
-     MD step, then 5 steps of 16 replicas; the launch counters must show
-     every kernel on the path, the outputs must be finite, and one batch
-     through the plain path (the unfused model) must agree;
-  6. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
-     at batch 128, at ``FAST_FUSED`` (1 + 5 steps) and
-     ``FAST_FUSED_VIRIAL`` (1 + 3 steps); the launch counters must show
-     every kernel of each path, losses and gradient norms must be finite,
-     and on the first batch the loss and every gradient leaf must agree
-     with the plain path; then the time of a step taken apart;
-  7. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
+     inputs of the first training batch and of the largest serving group,
+     within ``1e-4 * max(1, max|plain|)``, and both timed with CUDA events
+     (the segment sum also beside ``torch.segment_reduce``); then ragged
+     layouts and edge values;
+  4. backward: the kernel wrappers' backwards (recompute, or a gather for
+     the segment sum) against plain autograd through ``kernels.ref`` on
+     the card, and whether two backward runs give bitwise equal gradients;
+  5. serve: ``ServeEngine`` / ``BatchedMD`` with 16 replicas, one warm-up
+     MD step then counted steps, at ``FAST_FUSED`` (5 steps), at
+     ``FAST_PALLAS`` (the unfused Pallas tier: segment sum, GatedMLP, RBF
+     and Fourier kernels; 5 steps) and at ``WO_HEAD_PALLAS`` (the same tier
+     with the autodiff readout: forces and stress are derivatives of the
+     energy through the wrappers' backwards; 2 steps); the launch counters
+     must show every kernel of the path, the outputs must be finite, and
+     one batch through the plain path must agree;
+  6. ``FAST_FUSED`` with ``mlp_impl="pallas"``: one forward and backward on
+     the first training batch against the plain path, with launch counts;
+  7. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
+     at batch 128, at ``FAST_FUSED`` (1 + 5 steps), ``FAST_FUSED_VIRIAL``
+     (1 + 3), ``FAST_PALLAS`` (1 + 3), ``WO_HEAD_PALLAS`` (1 + 2: a double
+     backward through the wrappers) and ``REFERENCE`` (1 + 2, no kernels:
+     the paper's baseline); the launch counters must show every kernel of
+     each path, losses and gradient norms must be finite, on the first
+     batch the loss and every gradient leaf of a kernels' path must agree
+     with its plain path; then the time of a step taken apart and the
+     peak memory;
+  8. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
      batch's loss below 0.6x its value before.
 
-Prints ``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}``
-JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits nonzero; without CUDA it exits nonzero before printing a
-result.
+``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
+this script for tiers that are no named config of the package.  Prints
+``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}`` JSON
+lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits nonzero; without CUDA it exits nonzero before printing a result.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 """
@@ -51,7 +63,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.batching import batch_crystals, capacity_for  # noqa: E402
 from repro_torch.configs import chgnet_mptrj  # noqa: E402
-from repro_torch.core import chgnet, heads  # noqa: E402
+from repro_torch.core import basis, chgnet, heads  # noqa: E402
 from repro_torch.core.neighbors import build_graph  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     BatchIterator,
@@ -68,6 +80,7 @@ from repro_torch.train.trainer import (  # noqa: E402
     apply_grads,
     chgnet_loss_fn,
     grads_of,
+    params_on,
 )
 
 REPLICAS = 16
@@ -76,14 +89,54 @@ STEPS = 5
 # cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-SOURCE = "src/repro_torch/csrc/message_passing.cu"
-TPU_FILE = "src/repro/kernels/fused_message_passing.py"
+CSRC = "src/repro_torch/csrc"
+SOURCE = f"{CSRC}/message_passing.cu"
+TPU_DIR = "src/repro/kernels"
+TPU_FILE = f"{TPU_DIR}/fused_message_passing.py"
+TRAIN_BATCH = chgnet_mptrj.BATCH_SIZE
+
+# the tiers of this slice (labels of this script, not package configs)
+_PALLAS = dict(mlp_impl="pallas", agg_impl="pallas")
+FAST_PALLAS = chgnet_mptrj.FAST_FS_HEAD.with_(**_PALLAS)
+WO_HEAD_PALLAS = chgnet_mptrj.FAST_WO_HEAD.with_(**_PALLAS)
+FUSED_MLP_PALLAS = chgnet_mptrj.FAST_FUSED.with_(mlp_impl="pallas")
+
+# kernel launches per forward, by wrapper; every other counter must stay 0
 PER_FORWARD = {"fused_atom_conv": 4, "fused_bond_conv": 3,
                "fused_force_readout": 1}
 # FAST_FUSED_VIRIAL: the force+virial wrapper launches two kernels
 PER_FORWARD_VIRIAL = {"fused_atom_conv": 4, "fused_bond_conv": 3,
                       "fused_force_virial_readout": 2}
-TRAIN_BATCH = chgnet_mptrj.BATCH_SIZE
+# FAST_PALLAS: the bases once; the GatedMLP in 4 atom convs, 3 bond convs
+# and 3 angle updates; the segment sum in the 7 convs and the force head
+# (the energy and stress heads pool per crystal with their own scatter)
+PER_FORWARD_PALLAS = {"fused_rbf": 1, "fused_fourier": 1,
+                      "fused_gated_mlp_packed": 10, "fused_segment_sum": 8}
+# WO_HEAD_PALLAS: no force head; the backward launches no kernel
+PER_FORWARD_WO_HEAD = dict(PER_FORWARD_PALLAS, fused_segment_sum=7)
+# FUSED_MLP_PALLAS: the fused convs subsume the MLP and the aggregation;
+# the angle updates and the bases take the unfused tier's kernels
+PER_FORWARD_FUSED_MLP = dict(PER_FORWARD, fused_rbf=1, fused_fourier=1,
+                             fused_gated_mlp_packed=3)
+
+
+def plain_config(cfg):
+    """The same function with no kernel: unfused convs, scatter sums and
+    the packed GatedMLP in plain PyTorch."""
+    return cfg.with_(conv_impl="unfused", agg_impl="scatter",
+                     mlp_impl="packed" if cfg.mlp_impl == "pallas"
+                     else cfg.mlp_impl)
+
+
+def check_launches(name: str, counts: dict, per_forward: dict,
+                   forwards: int) -> None:
+    """Every wrapper launched ``per_forward`` times per forward, every other
+    wrapper never."""
+    for fn, n in counts.items():
+        want = per_forward.get(fn, 0) * forwards
+        if n != want:
+            raise RuntimeError(f"{name}: {fn} launched {n} times in "
+                               f"{forwards} forwards, expected {want}")
 
 
 def _time_ms(fn, reps: int = 20, inner: int = 10) -> float:
@@ -206,8 +259,98 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
     ]
 
 
+def tier_kernel_cases(params, cfg, batch) -> list[dict]:
+    """The unfused tier's four kernels on one real packed batch, at the
+    inputs the ``FAST_PALLAS`` path gives them (``cfg`` is a config with the
+    same parameter tree, used for the embedding): the segment sum at the
+    bond convs' shape, the widest (its atom-conv and force-head shapes are
+    extra cases), the GatedMLP at the bond convs' and angle updates'
+    shape (its atom-conv shape extra), the RBF over every bond and the
+    Fourier basis over every angle.  The segment sum reads only the real
+    edges, so its work is counted at the real counts; the others compute
+    every row, so theirs is counted at the capacities.  Flops: the GatedMLP
+    counts its GEMM and bias only; the bases count a sine or cosine as one
+    operation (16 per RBF element, 3 per Fourier element)."""
+    with torch.inference_mode():
+        v, e, a, e_a, _e_b, vec, dist = chgnet.embed(params, cfg, batch)
+        theta = basis.compute_geometry(batch)[3]
+        bmask = batch.bond_mask[:, None]
+        center = batch.bond_center[batch.angle_ij]
+        x_bond = torch.cat([ref.gather_rows(v, center),
+                            ref.gather_rows(e, batch.angle_ij),
+                            ref.gather_rows(e, batch.angle_ik), a], dim=-1)
+        x_atom = torch.cat([ref.gather_rows(v, batch.bond_center),
+                            ref.gather_rows(v, batch.bond_nbr), e], dim=-1)
+        x_hat = heads.bond_unit_vectors(vec, dist) * bmask
+        e_a = e_a * bmask
+    blk = params["blocks"][0]
+    n_atoms, dim = v.shape
+    n_bonds, n_ang = e.shape[0], a.shape[0]
+    real_bonds = int(batch.bond_offsets[-1])
+    real_angles = int(batch.angle_offsets[-1])
+    f = 4
+
+    def seg_case(name, values, ids, offsets, rows, real, primary):
+        d = values.shape[1]
+        offs64 = offsets.long()
+        return dict(
+            name=name, primary=primary, wrapper=ops.fused_segment_sum,
+            plain=ref.sorted_segment_sum_ref,
+            args=(values, ids, offsets, rows),
+            library=lambda: torch.segment_reduce(
+                values[:real], "sum", offsets=offs64, axis=0),
+            source=f"{CSRC}/segment_sum.cu",
+            replaces=f"{TPU_DIR}/fused_segment_sum.py:99",
+            flops=real * d, bytes=f * (real * d + rows + 1 + rows * d),
+            shape={"edges": values.shape[0], "real_edges": real,
+                   "rows": rows, "dim": d})
+
+    def mlp_case(name, x, p, primary):
+        m, d_in = x.shape
+        d2 = p["w"].shape[1]
+        return dict(
+            name=name, primary=primary, wrapper=ops.fused_gated_mlp_packed,
+            plain=ref.gated_mlp_packed_ref,
+            args=(x, p["w"], p["b"], p["ln_scale"], p["ln_bias"]),
+            source=f"{CSRC}/gated_mlp.cu",
+            replaces=f"{TPU_DIR}/fused_gated_mlp.py:52",
+            flops=2 * m * d_in * d2 + m * d2,
+            bytes=f * (m * d_in + d_in * d2 + 3 * d2 + m * d2 // 2),
+            shape={"rows": m, "d_in": d_in, "dim": d2 // 2})
+
+    k_rbf, k_four = params["rbf_freqs"].shape[0], cfg.num_fourier
+    return [
+        seg_case("segment_sum_fwd", a, batch.angle_ij, batch.angle_offsets,
+                 n_bonds, real_angles, True),
+        seg_case("segment_sum_fwd[atom conv]", e_a, batch.bond_center,
+                 batch.bond_offsets, n_atoms, real_bonds, False),
+        seg_case("segment_sum_fwd[force head, D=3]", x_hat,
+                 batch.bond_center, batch.bond_offsets, n_atoms, real_bonds,
+                 False),
+        mlp_case("gated_mlp_fwd", x_bond, blk["bond_mlp"], True),
+        mlp_case("gated_mlp_fwd[atom conv]", x_atom, blk["atom_mlp"], False),
+        dict(name="rbf_fwd", primary=True, wrapper=ops.fused_rbf,
+             plain=ref.fused_rbf_ref,
+             args=(dist, params["rbf_freqs"], cfg.r_cut_atom,
+                   cfg.envelope_p),
+             source=f"{CSRC}/basis.cu",
+             replaces=f"{TPU_DIR}/fused_rbf.py:36",
+             flops=16 * n_bonds * k_rbf,
+             bytes=f * (n_bonds + k_rbf + n_bonds * k_rbf),
+             shape={"bonds": n_bonds, "basis": k_rbf}),
+        dict(name="fourier_fwd", primary=True, wrapper=ops.fused_fourier,
+             plain=ref.fused_fourier_ref, args=(theta, k_four),
+             source=f"{CSRC}/basis.cu",
+             replaces=f"{TPU_DIR}/fused_fourier.py:39",
+             flops=3 * n_ang * k_four, bytes=f * (n_ang + n_ang * k_four),
+             shape={"angles": n_ang, "basis": k_four}),
+    ]
+
+
 def kernel_phase(cases) -> list[dict]:
-    """Each kernel against its plain version, both timed."""
+    """Each kernel against its plain version, both timed, and beside the
+    one PyTorch call that computes the same function where there is one
+    (a yardstick only: the port never calls it)."""
     rows = []
     with torch.inference_mode():
         for c in cases:
@@ -218,18 +361,25 @@ def kernel_phase(cases) -> list[dict]:
             err, tol = _check_close(c["name"], got, want)
             k_ms = _time_ms(lambda: kernel(*args))
             p_ms = _time_ms(lambda: plain(*args))
+            lib_ms = None
+            if c.get("library"):
+                _check_close(f"{c['name']} library call", c["library"](),
+                             want)
+                lib_ms = _time_ms(c["library"])
             bound_ms, bound_by = _bound(c["flops"], c["bytes"])
             rows.append({
-                "name": c["name"], "route": "cuda", "source": SOURCE,
+                "name": c["name"], "route": "cuda",
+                "source": c.get("source", SOURCE),
                 "replaces": c["replaces"], "wrapper": kernel.__name__,
                 "max_abs_err": err, "tolerance": tol, "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "flops": c["flops"], "bytes": c["bytes"],
-                "shape": c["shape"],
+                "library_ms": lib_ms, "flops": c["flops"],
+                "bytes": c["bytes"], "shape": c["shape"],
             })
+            lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
             print(f"kernel {c['name']}: max|k-p| {err:.3e} (tolerance "
-                  f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), shape "
+                  f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                  f"{lib}, bound {bound_ms:.4f} ms ({bound_by}), shape "
                   f"{c['shape']}", flush=True)
     return rows
 
@@ -239,8 +389,8 @@ def backward_phase(cases, seed: int) -> list[dict]:
     its ``kernels.ref`` version on the same CUDA tensors: the gradients of
     ``sum(out * r)`` for every float input, ``r`` from a seeded
     generator.  Each backward runs twice; whether the two runs give
-    bitwise equal gradients is reported, not required (the recompute's
-    gathers transpose to ``index_add_``, whose CUDA order varies)."""
+    bitwise equal gradients is reported, not required (a sum whose CUDA
+    order may vary from run to run can sit in a backward)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for c in cases:
@@ -279,7 +429,8 @@ def edge_case_phase(seed: int) -> int:
     """Each kernel against its plain version on ragged CSR layouts: a
     padded tail, unaligned rows without padding, every edge padded, and
     several rows per block; the force+virial kernel also with an empty
-    crystal slot.  Returns the number of cases checked."""
+    crystal slot; then the unfused tier's cases (``tier_edge_cases``).
+    Returns the number of cases checked."""
     rng = np.random.default_rng(seed)
 
     def f(*shape, scale=1.0):
@@ -340,7 +491,57 @@ def edge_case_phase(seed: int) -> int:
             _check_close(f"bond_conv case {n}", ops.fused_bond_conv(
                 *args, block_rows=per_block), ref.fused_bond_conv_ref(*args))
             n += 1
+        n += tier_edge_cases(f, ids, csr)
     torch.cuda.synchronize()
+    return n
+
+
+def tier_edge_cases(f, ids, csr) -> int:
+    """The unfused tier's kernels against their plain versions on ragged
+    and edge inputs: the segment sum at D = 3 and 64 with empty rows,
+    every edge padded and S of 1, 7 and 1000, and once from a view that is
+    not 16-byte aligned (the scalar path at D = 64); the GatedMLP at M = 1,
+    255 and 257 and an input width that is no multiple of 4; the RBF at
+    r = 0, 1e-9, r_cut and beyond; the Fourier basis at 0 and pi."""
+    n = 0
+    for d in (3, 64):
+        for rows, n_edges, n_real in ((1, 10, 10), (7, 40, 0), (7, 50, 31),
+                                      (1000, 3000, 2500)):
+            seg, offs = csr(rows, n_edges, n_real)
+            args = (f(n_edges, d), seg, offs, rows)
+            _check_close(f"segment_sum case {n}", ops.fused_segment_sum(
+                *args), ref.sorted_segment_sum_ref(*args))
+            n += 1
+    seg, offs = csr(37, 300, 260)
+    unaligned = f(300 * 64 + 1)[1:].view(300, 64)
+    args = (unaligned, seg, offs, 37)
+    _check_close(f"segment_sum case {n}", ops.fused_segment_sum(*args),
+                 ref.sorted_segment_sum_ref(*args))
+    n += 1
+    for m, d_in, d in ((1, 192, 64), (255, 256, 64), (257, 192, 64),
+                       (33, 13, 16)):
+        args = (f(m, d_in), f(d_in, 2 * d, scale=0.1), f(2 * d),
+                f(2 * d).abs() + 0.5, f(2 * d))
+        _check_close(f"gated_mlp case {n}", ops.fused_gated_mlp_packed(
+            *args), ref.gated_mlp_packed_ref(*args))
+        n += 1
+    r_cut = 6.0
+    dist = torch.cat([torch.tensor([0.0, 1e-9, r_cut, r_cut + 0.5, 1.0],
+                                   device="cuda"), f(400).abs() * 2.0])
+    freqs = torch.arange(1, 32, dtype=torch.float32, device="cuda") * math.pi
+    freqs = freqs + f(31, scale=0.05)
+    got = ops.fused_rbf(dist, freqs, r_cut, 8)
+    _check_close(f"rbf case {n}", got,
+                 ref.fused_rbf_ref(dist, freqs, r_cut, 8))
+    if got[0].any():
+        raise RuntimeError("rbf: a padded bond (r = 0) must give exactly 0")
+    n += 1
+    for k in (7, 31, 127):
+        theta = torch.cat([torch.tensor([0.0, math.pi], device="cuda"),
+                           f(300).abs().clamp(max=math.pi)])
+        _check_close(f"fourier case {n}", ops.fused_fourier(theta, k),
+                     ref.fused_fourier_ref(theta, k))
+        n += 1
     return n
 
 
@@ -421,15 +622,16 @@ def _epochs(ds, caps, batch: int, seed: int, log: list | None = None):
 
 def plain_path_check(params, cfg, batch) -> dict:
     """Loss and every gradient leaf of the kernels' path against the plain
-    path (the same config unfused, ``agg_impl="scatter"``) on the card."""
-    plain_cfg = cfg.with_(conv_impl="unfused", agg_impl="scatter")
+    path (``plain_config``) on the card; also the launches of the kernels'
+    forward (its backward launches none)."""
     ops.reset_launch_counts()
     loss_k, _ = chgnet_loss_fn(params, cfg, batch, chgnet_mptrj.LOSS)
     g_k = grads_of(loss_k, params)
     launched = ops.launch_counts()
     if not any(launched.values()):
         raise RuntimeError("the kernels' path launched no kernel")
-    loss_p, _ = chgnet_loss_fn(params, plain_cfg, batch, chgnet_mptrj.LOSS)
+    loss_p, _ = chgnet_loss_fn(params, plain_config(cfg), batch,
+                               chgnet_mptrj.LOSS)
     g_p = grads_of(loss_p, params)
     torch.cuda.synchronize()
     err_l, tol_l = _check_close("train loss", loss_k.detach(),
@@ -439,7 +641,21 @@ def plain_path_check(params, cfg, batch) -> dict:
     return {"loss": loss_p.item(), "loss_max_abs_err": err_l,
             "loss_tolerance": tol_l, "grad_leaves": len(errs),
             "grad_max_abs_err": max(e for e, _ in errs),
-            "grad_worst_err_over_tolerance": max(e / t for e, t in errs)}
+            "grad_worst_err_over_tolerance": max(e / t for e, t in errs),
+            "launches": launched}
+
+
+def fused_mlp_pallas_phase(seed: int, batch) -> dict:
+    """``FAST_FUSED`` with ``mlp_impl="pallas"``: one forward and backward
+    on the first training batch against the plain path; the fused convs
+    and readout beside the GatedMLP (angle updates) and basis kernels."""
+    params = params_on(chgnet.chgnet_init(seed, FUSED_MLP_PALLAS), "cuda")
+    row = plain_path_check(params, FUSED_MLP_PALLAS, batch)
+    check_launches("FUSED_MLP_PALLAS", row["launches"], PER_FORWARD_FUSED_MLP,
+                   1)
+    print(f"FUSED_MLP_PALLAS: launches {row['launches']}; plain path {row}",
+          flush=True)
+    return row
 
 
 def step_split(tr, batches, n: int) -> dict:
@@ -484,17 +700,23 @@ def step_split(tr, batches, n: int) -> dict:
 
 def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
                 seed: int, profile: str | None) -> dict:
-    """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals: the
-    plain-path check on the first batch, 1 warm-up step, ``steps``
-    counted steps of the main path, then two steps taken apart and, with
-    ``profile``, one traced step."""
+    """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals: on a
+    kernels' path the plain-path check on the first batch; then 1 warm-up
+    step, ``steps`` counted steps of the main path, two steps taken apart
+    and, with ``profile``, one traced step.  ``per_forward`` empty means a
+    path without kernels (``REFERENCE``), which must launch none."""
     tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
                        loss=chgnet_mptrj.LOSS)
     tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
     log = []
     batches = _epochs(ds, caps, TRAIN_BATCH, seed, log)
-    first = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps, seed=seed)))
-    plain = plain_path_check(tr.params, cfg, first.to("cuda"))
+    plain = None
+    if per_forward:
+        first = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps,
+                                        seed=seed)))
+        plain = plain_path_check(tr.params, cfg, first.to("cuda"))
+        check_launches(f"{name} plain-path check", plain["launches"],
+                       per_forward, 1)
     tr.train(itertools.islice(batches, 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -506,10 +728,7 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
     elapsed = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for fn, per in per_forward.items():
-        if counts[fn] != per * steps:
-            raise RuntimeError(f"{name}: {fn} launched {counts[fn]} times in "
-                               f"{steps} steps, expected {per * steps}")
+    check_launches(name, counts, per_forward, steps)
     for h in hist:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             raise RuntimeError(f"{name}: non-finite loss or grad norm {h}")
@@ -536,6 +755,86 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
           f"atoms/s, peak {peak / 2**20:.1f} MiB, launches {counts}, losses "
           f"{row['losses']}; plain path {plain}; split {row['split']}",
           flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
+                per_forward: dict, profile: str | None = None) -> dict:
+    """``ServeEngine`` / ``BatchedMD`` at ``cfg`` over the replicas: one
+    warm-up MD step, then ``steps`` counted steps of the main path (launch
+    counts, finite outputs); the largest group's batch (``probe``) against
+    the plain path; one forward per group timed on both paths; one step
+    taken apart on the host clock and, with ``profile``, one traced."""
+    autodiff = cfg.readout == "autodiff"
+    # the autodiff readout differentiates: no inference tensors
+    mode = torch.no_grad if autodiff else torch.inference_mode
+    serve = ServeEngine.for_structures(params, cfg, crystals, device="cuda")
+    md = BatchedMD(serve, crystals)
+    md.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    packed0 = serve.engine.batches_packed
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = md.step(steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    forwards = serve.engine.batches_packed - packed0
+    check_launches(f"serve {name}", counts, per_forward, forwards)
+    if not (np.isfinite(out["energy"]).all()
+            and all(np.isfinite(f).all() for f in out["forces"])):
+        raise RuntimeError(f"serve {name}: outputs are not finite")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the kernels' path against the plain path on the card
+    sizes = [int(b.bond_offsets[-1]) for b in probe]
+    big = probe[sizes.index(max(sizes))]
+    tree = serve.model.tree()
+    plain_cfg = plain_config(cfg)
+    keys = ("energy", "forces", "stress") if autodiff \
+        else ("energy", "forces")
+    ops.reset_launch_counts()
+    with mode():
+        got = serve.model(big)
+        check_launches(f"serve {name} plain-path check",
+                       ops.launch_counts(), per_forward, 1)
+        want = chgnet.chgnet_apply(tree, plain_cfg, big)
+    errs = {k: _check_close(f"serve {name} {k}", got[k], want[k])
+            for k in keys}
+
+    forward_ms, plain_forward_ms = [], []
+    with mode():
+        for b in probe:
+            forward_ms.append(_time_ms(lambda: serve.model(b), 10, 3))
+            plain_forward_ms.append(_time_ms(
+                lambda: chgnet.chgnet_apply(tree, plain_cfg, b), 10, 3))
+    breakdown = serve_breakdown(md, serve)
+    if profile:
+        prof = breakdown["profile"] = profile_step(
+            lambda: md.step(1),
+            Path(profile) / f"serve_step_profile_{name}.txt")
+        # device time of one traced step over the untraced step's wall time
+        prof["busy_share"] = prof["device_ms"] / (elapsed / steps * 1e3)
+    row = {
+        "config": name, "replicas": len(crystals), "steps": steps,
+        "forwards": forwards, "groups_per_step": forwards / steps,
+        "ms_per_batched_step": elapsed / steps * 1e3,
+        "replica_steps_per_s": len(crystals) * steps / elapsed,
+        "peak_mem_bytes": peak, "launches": counts,
+        "plain_path_max_abs_err": {k: e for k, (e, _) in errs.items()},
+        "plain_path_tolerance": {k: t for k, (_, t) in errs.items()},
+        "forward_ms": forward_ms, "plain_forward_ms": plain_forward_ms,
+        "breakdown": breakdown, "stats": md.stats(),
+    }
+    print(f"serve {name}: {row['ms_per_batched_step']:.2f} ms per batched "
+          f"step, {row['replica_steps_per_s']:.1f} replica-steps/s, "
+          f"peak {peak / 2**20:.1f} MiB, launches {counts}; forward per "
+          f"group {forward_ms} ms (plain path {plain_forward_ms} ms); "
+          f"plain-path errors {row['plain_path_max_abs_err']}; one step "
+          f"{breakdown}", flush=True)
     return row
 
 
@@ -594,7 +893,8 @@ def main() -> None:
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # serving set-up: full-width FAST_FUSED, 16-64-atom synthetic crystals
+    # serving set-up: 16-64-atom synthetic crystals; full-width parameters
+    # from the seed (FAST_FUSED and FAST_PALLAS share one tree)
     cfg = chgnet_mptrj.FAST_FUSED
     params = chgnet.chgnet_init(args.seed, cfg)
     syn = SyntheticConfig(min_atoms=16, max_atoms=64,
@@ -641,109 +941,71 @@ def main() -> None:
     big = max(range(len(probe)), key=lambda i: group_sizes[i]["bonds"])
     tree = serve.model.tree()
     train_cases = kernel_cases(tree, cfg, train_b0)
+    tier_cases = tier_kernel_cases(tree, cfg, train_b0)
     rows = kernel_phase(train_cases)
+    tier_rows = kernel_phase(tier_cases)
     serve_kernel_rows = kernel_phase(kernel_cases(tree, cfg, probe[big]))
-    print(f"kernels: {edge_case_phase(args.seed)} ragged-layout "
+    serve_tier_rows = kernel_phase(tier_kernel_cases(tree, cfg, probe[big]))
+    print(f"kernels: {edge_case_phase(args.seed)} ragged-layout and edge "
           "cases agree with the plain versions", flush=True)
 
-    # 4. the four backwards against plain autograd, on the training batch
-    backward_rows = backward_phase(train_cases, args.seed)
+    # 4. the wrappers' backwards against plain autograd, on the training
+    # batch
+    backward_rows = backward_phase(train_cases + tier_cases, args.seed)
 
-    # 5. serve: warm-up, then the counted run of the main path
-    md.step(1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    packed0 = serve.engine.batches_packed
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = md.step(STEPS)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    forwards = serve.engine.batches_packed - packed0
-    for fn, per in PER_FORWARD.items():
-        if counts[fn] != per * forwards:
-            raise RuntimeError(f"{fn} launched {counts[fn]} times in "
-                               f"{forwards} forwards, expected "
-                               f"{per * forwards}")
+    # 5. serve: each path driven with the counters set to 0 just before it
+    serve_rows = {
+        "FAST_FUSED": serve_phase("FAST_FUSED", cfg, params, crystals, probe,
+                                  STEPS, PER_FORWARD, args.profile),
+        "FAST_PALLAS": serve_phase("FAST_PALLAS", FAST_PALLAS, params,
+                                   crystals, probe, STEPS,
+                                   PER_FORWARD_PALLAS, args.profile),
+        "WO_HEAD_PALLAS": serve_phase(
+            "WO_HEAD_PALLAS", WO_HEAD_PALLAS,
+            chgnet.chgnet_init(args.seed, WO_HEAD_PALLAS), crystals, probe,
+            2, PER_FORWARD_WO_HEAD),
+    }
     for row in serve_kernel_rows:
-        row["launches"] = counts[row["wrapper"]]
-    if not (np.isfinite(out["energy"]).all()
-            and all(np.isfinite(f).all() for f in out["forces"])):
-        raise RuntimeError("serve outputs are not finite")
-    peak = torch.cuda.max_memory_allocated()
+        row["launches"] = serve_rows["FAST_FUSED"]["launches"][row["wrapper"]]
+    for row in serve_tier_rows:
+        row["launches"] = serve_rows["FAST_PALLAS"]["launches"][row["wrapper"]]
+    serve_rows["FAST_FUSED"]["groups"] = group_sizes
+    serve_rows["kernels_at_serve_batch"] = serve_kernel_rows + serve_tier_rows
+    print(json.dumps({"serve": serve_rows}))
 
-    # the kernels' path against the plain path (unfused model) on the card
-    plain_cfg = cfg.with_(conv_impl="unfused", agg_impl="scatter")
-    ops.reset_launch_counts()
-    with torch.inference_mode():
-        got = serve.model(probe[big])
-        want = chgnet.chgnet_apply(tree, plain_cfg, probe[big])
-    err_e, tol_e = _check_close("serve energy", got["energy"],
-                                want["energy"])
-    err_f, tol_f = _check_close("serve forces", got["forces"],
-                                want["forces"])
-    if ops.launch_counts()["fused_bond_conv"] != PER_FORWARD["fused_bond_conv"]:
-        raise RuntimeError("the kernels' path did not launch the kernels")
+    # 6. the fused convs beside the unfused tier's GatedMLP and bases
+    fused_mlp = fused_mlp_pallas_phase(args.seed, train_b0)
 
-    # one forward per group on the CUDA-event clock, kernels' path and
-    # plain path, then one step taken apart on the host clock
-    forward_ms, plain_forward_ms = [], []
-    with torch.inference_mode():
-        for b in probe:
-            forward_ms.append(_time_ms(lambda: serve.model(b), 10, 3))
-            plain_forward_ms.append(_time_ms(
-                lambda: chgnet.chgnet_apply(tree, plain_cfg, b), 10, 3))
-    breakdown = serve_breakdown(md, serve)
-    if args.profile:
-        prof = breakdown["profile"] = profile_step(
-            lambda: md.step(1), Path(args.profile) / "serve_step_profile.txt")
-        # device time of one traced step over the untraced step's wall time
-        prof["busy_share"] = prof["device_ms"] / (elapsed / STEPS * 1e3)
-
-    serve_row = {
-        "config": "FAST_FUSED", "replicas": len(crystals),
-        "steps": STEPS, "forwards": forwards,
-        "groups_per_step": forwards / STEPS, "groups": group_sizes,
-        "ms_per_batched_step": elapsed / STEPS * 1e3,
-        "replica_steps_per_s": len(crystals) * STEPS / elapsed,
-        "peak_mem_bytes": peak, "launches": counts,
-        "plain_path_max_abs_err": {"energy": err_e, "forces": err_f},
-        "plain_path_tolerance": {"energy": tol_e, "forces": tol_f},
-        "forward_ms": forward_ms, "plain_forward_ms": plain_forward_ms,
-        "breakdown": breakdown, "stats": md.stats(),
-        "kernels_at_serve_batch": serve_kernel_rows,
-    }
-    print(f"serve: {serve_row['ms_per_batched_step']:.2f} ms per batched "
-          f"step, {serve_row['replica_steps_per_s']:.1f} replica-steps/s, "
-          f"peak {peak / 2**20:.1f} MiB, launches {counts}; forward per "
-          f"group {forward_ms} ms (plain path {plain_forward_ms} ms); "
-          f"one step {breakdown}", flush=True)
-    print(json.dumps({"serve": serve_row}))
-
-    # 6. train: each path driven with the counters set to 0 just before it
-    train_rows = {
-        "FAST_FUSED": train_phase(
-            "FAST_FUSED", chgnet_mptrj.FAST_FUSED, ds, train_caps, 5,
-            PER_FORWARD, args.seed, args.profile),
-        "FAST_FUSED_VIRIAL": train_phase(
-            "FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL, ds,
-            train_caps, 3, PER_FORWARD_VIRIAL, args.seed, args.profile),
-    }
-    for row in rows:
-        path = ("FAST_FUSED_VIRIAL" if row["wrapper"]
-                == "fused_force_virial_readout" else "FAST_FUSED")
+    # 7. train: each path driven with the counters set to 0 just before it
+    train_rows = {}
+    for name, tcfg, steps, per in (
+            ("FAST_FUSED", chgnet_mptrj.FAST_FUSED, 5, PER_FORWARD),
+            ("FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL, 3,
+             PER_FORWARD_VIRIAL),
+            ("FAST_PALLAS", FAST_PALLAS, 3, PER_FORWARD_PALLAS),
+            ("WO_HEAD_PALLAS", WO_HEAD_PALLAS, 2, PER_FORWARD_WO_HEAD),
+            ("REFERENCE", chgnet_mptrj.REFERENCE, 2, {})):
+        train_rows[name] = train_phase(name, tcfg, ds, train_caps, steps,
+                                       per, args.seed, args.profile)
+    for row in rows + tier_rows:
+        path = {"fused_force_virial_readout": "FAST_FUSED_VIRIAL",
+                "fused_segment_sum": "FAST_PALLAS",
+                "fused_gated_mlp_packed": "FAST_PALLAS",
+                "fused_rbf": "FAST_PALLAS", "fused_fourier": "FAST_PALLAS",
+                }.get(row["wrapper"], "FAST_FUSED")
         row["launches"] = train_rows[path]["launches"][row["wrapper"]]
         if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on {path}")
 
-    # 7. learns
+    # 8. learns
     learns = learns_phase(args.seed)
-    print(json.dumps({"train": dict(train_rows, backward=backward_rows,
-                                    learns=learns, dataset={
-                                        "crystals": len(ds),
-                                        "caps": vars(train_caps)})}))
-    print(json.dumps({"kernels": rows}))
+    primary = [r for r, c in zip(tier_rows, tier_cases) if c["primary"]]
+    extra = [r for r, c in zip(tier_rows, tier_cases) if not c["primary"]]
+    print(json.dumps({"train": dict(
+        train_rows, FUSED_MLP_PALLAS=fused_mlp, backward=backward_rows,
+        learns=learns, kernel_extra_shapes=extra,
+        dataset={"crystals": len(ds), "caps": vars(train_caps)})}))
+    print(json.dumps({"kernels": rows + primary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

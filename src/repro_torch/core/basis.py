@@ -17,21 +17,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import ref
 from .graph import CrystalGraphBatch
-
-
-def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x**n (n >= 1) by repeated squaring, in the multiplication order of
-    JAX's ``integer_pow``: the envelopes cancel to ~1e-4 near the cutoff,
-    where the rounding of the powers shows."""
-    acc = None
-    while n > 0:
-        if n & 1:
-            acc = x if acc is None else acc * x
-        n >>= 1
-        if n > 0:
-            x = x * x
-    return acc
 
 
 def envelope_reference(xi: torch.Tensor, p: int = 8) -> torch.Tensor:
@@ -40,15 +27,13 @@ def envelope_reference(xi: torch.Tensor, p: int = 8) -> torch.Tensor:
     a = -(p + 1) * (p + 2) / 2.0
     b = float(p * (p + 2))
     c = -p * (p + 1) / 2.0
-    return 1.0 + a * _integer_pow(xi, p) + b * _integer_pow(xi, p + 1) \
-        + c * _integer_pow(xi, p + 2)
+    return 1.0 + a * ref.integer_pow(xi, p) + b * ref.integer_pow(xi, p + 1) \
+        + c * ref.integer_pow(xi, p + 2)
 
 
 def envelope_factored(xi: torch.Tensor, p: int = 8) -> torch.Tensor:
     """Eq. 13: u = 1 - xi^p/2 * [(p+1)(p+2) - 2p(p+2) xi + p(p+1) xi^2]."""
-    inner = (p + 1.0) * (p + 2.0) + xi * (
-        -2.0 * p * (p + 2.0) + xi * (p * (p + 1.0)))
-    return 1.0 - 0.5 * _integer_pow(xi, p) * inner
+    return ref.envelope(xi, p)
 
 
 def rbf_frequencies(num_basis: int) -> torch.Tensor:
@@ -86,14 +71,16 @@ def fourier_basis(theta: torch.Tensor, num_basis: int = 31) -> torch.Tensor:
     """
     if num_basis % 2 != 1:
         raise ValueError("fourier num_basis must be odd (DC + pairs)")
-    theta = theta.float()
-    harmonics = (num_basis - 1) // 2
-    n = torch.arange(1, harmonics + 1, dtype=theta.dtype, device=theta.device)
-    ang = theta[..., None] * n
-    dc = torch.full(theta.shape + (1,), 1.0 / math.sqrt(2.0),
-                    dtype=theta.dtype, device=theta.device)
-    feats = torch.cat([dc, torch.cos(ang), torch.sin(ang)], dim=-1)
-    return feats / math.sqrt(math.pi)
+    flat = ref.fused_fourier_ref(theta.float().reshape(-1), num_basis)
+    return flat.reshape(theta.shape + (num_basis,))
+
+
+def _rows(table, ids):
+    """``table[ids]`` over the first axis through ``ref.gather_rows``: the
+    autodiff readout differentiates these gathers, and indexing's CUDA
+    backward sums the ~300k padded rows that share id 0 in one warp."""
+    flat = ref.gather_rows(table.reshape(table.shape[0], -1), ids)
+    return flat.reshape((ids.shape[0],) + tuple(table.shape[1:]))
 
 
 def _cart_positions(graph: CrystalGraphBatch, displacement, strain):
@@ -103,7 +90,7 @@ def _cart_positions(graph: CrystalGraphBatch, displacement, strain):
         eye = torch.eye(3, dtype=lattice.dtype, device=lattice.device)
         lattice = torch.einsum("bij,bjk->bik", lattice, eye + strain)
     cart = torch.einsum(
-        "ai,aij->aj", graph.frac_coords, lattice[graph.atom_crystal])
+        "ai,aij->aj", graph.frac_coords, _rows(lattice, graph.atom_crystal))
     if displacement is not None:
         cart = cart + displacement
     return cart, lattice
@@ -111,8 +98,8 @@ def _cart_positions(graph: CrystalGraphBatch, displacement, strain):
 
 def _bond_vectors(cart, lattice, center, nbr, image, crystal):
     """r_ij = r_j + image @ L - r_i and its length."""
-    shift = torch.einsum("bi,bij->bj", image, lattice[crystal])
-    vec = cart[nbr] + shift - cart[center]
+    shift = torch.einsum("bi,bij->bj", image, _rows(lattice, crystal))
+    vec = _rows(cart, nbr) + shift - _rows(cart, center)
     dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-16)
     return vec, dist
 
@@ -120,10 +107,10 @@ def _bond_vectors(cart, lattice, center, nbr, image, crystal):
 def _angle_cosines(vec, dist, idx_ij, idx_ik):
     """Angle cosines (clipped to ±(1 - 1e-7)) and angles between the bonds
     selected by two index arrays."""
-    v_ij = vec[idx_ij]
-    v_ik = vec[idx_ik]
-    d_ij = dist[idx_ij]
-    d_ik = dist[idx_ik]
+    v_ij = _rows(vec, idx_ij)
+    v_ik = _rows(vec, idx_ik)
+    d_ij = _rows(dist, idx_ij)
+    d_ik = _rows(dist, idx_ik)
     cos_t = torch.sum(v_ij * v_ik, dim=-1) / (d_ij * d_ik + 1e-12)
     cos_t = torch.clamp(cos_t, -1.0 + 1e-7, 1.0 - 1e-7)
     return cos_t, torch.arccos(cos_t)

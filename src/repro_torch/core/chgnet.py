@@ -4,9 +4,10 @@
 ``chgnet_init`` builds the parameter tree (nested dicts and lists of
 tensors, the names and layout of the JAX package's pytree) and
 ``chgnet_apply`` runs the forward pass with the direct Force/Stress heads
-(FastCHGNet C1), or the bond-virial stress (DESIGN.md §7).  ``CHGNet``
-wraps the same tree as an ``nn.Module`` whose parameter names follow it
-(``blocks.0.atom_mlp.w``, ...).
+(FastCHGNet C1), the bond-virial stress (DESIGN.md §7) or the autodiff
+readout of reference CHGNet.  ``CHGNet`` wraps the same tree as an
+``nn.Module`` whose parameter names follow it (``blocks.0.atom_mlp.w``,
+...).
 
 ``CHGNetConfig`` mirrors the JAX config field for field.  Values this
 port does not implement yet raise ``NotImplementedError`` naming the
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ref import gather_rows
+from repro_torch.optim.tree import leaves
 from . import basis, heads
 from .graph import CrystalGraphBatch
 from .interaction import (
@@ -83,21 +85,12 @@ class CHGNetConfig:
 def check_supported(cfg: CHGNetConfig) -> None:
     """Raise ``NotImplementedError`` for a tier this port lacks so far."""
     todo = "is not ported yet: ROADMAP 'Modules to port' item"
-    if cfg.readout == "autodiff":
-        raise NotImplementedError(f'readout="autodiff" {todo} 2')
     if cfg.bond_store == "undirected":
         raise NotImplementedError(f'bond_store="undirected" {todo} 5')
     if cfg.bond_features == "undirected":
         raise NotImplementedError(f'bond_features="undirected" {todo} 6')
     if cfg.precision != "f32":
         raise NotImplementedError(f"precision={cfg.precision!r} {todo} 8")
-    if cfg.mlp_impl == "pallas":
-        raise NotImplementedError(
-            'mlp_impl="pallas" is not ported yet: ROADMAP "TPU kernels to '
-            'port" item 7')
-    if cfg.conv_impl == "unfused" and cfg.agg_impl in ("matmul", "pallas"):
-        raise NotImplementedError(
-            f'agg_impl="{cfg.agg_impl}" on the unfused path {todo} 4')
 
 
 def resolve_device(device) -> torch.device:
@@ -142,20 +135,32 @@ def chgnet_init(seed: int | torch.Generator, cfg: CHGNetConfig) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
-def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
+def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
+          displacement=None, strain=None):
     """Geometry, bases and feature embedding (Eq. 2).
 
     Returns ``(v, e, a, e_a, e_b, vec, dist)``: atom, bond and angle
     features, the two envelope tables, and the bond geometry the heads
     read.  The envelope tables are made contiguous once here, because
-    every block's kernels read them row by row.
+    every block's kernels read them row by row.  ``mlp_impl="pallas"``
+    takes the bases from their kernels, whose envelope is always the
+    factored one, as in the JAX package.  ``displacement`` / ``strain``
+    perturb the geometry for the autodiff readout.
     """
-    env = (basis.envelope_factored if cfg.envelope_impl == "factored"
-           else basis.envelope_reference)
-    vec, dist, _cos, theta = basis.compute_geometry(graph)
-    rbf = basis.smooth_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
-                           cfg.envelope_p, envelope=env)
-    four = basis.fourier_basis(theta, cfg.num_fourier)
+    vec, dist, _cos, theta = basis.compute_geometry(
+        graph, displacement=displacement, strain=strain)
+    if cfg.mlp_impl == "pallas":
+        from repro_torch.kernels import ops as kops
+
+        rbf = kops.fused_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
+                             cfg.envelope_p)
+        four = kops.fused_fourier(theta, cfg.num_fourier)
+    else:
+        env = (basis.envelope_factored if cfg.envelope_impl == "factored"
+               else basis.envelope_reference)
+        rbf = basis.smooth_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
+                               cfg.envelope_p, envelope=env)
+        four = basis.fourier_basis(theta, cfg.num_fourier)
     packed = linear_apply(params["bond_embed"], rbf)  # (Nb, 3*dim)
     e0, e_a, e_b = packed.chunk(3, dim=-1)
     v = gather_rows(params["atom_embed"], graph.atom_z) \
@@ -166,8 +171,10 @@ def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     return v, e, a, e_a.contiguous(), e_b.contiguous(), vec, dist
 
 
-def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
-    v, e, a, e_a, e_b, vec, dist = embed(params, cfg, graph)
+def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
+           displacement=None, strain=None):
+    v, e, a, e_a, e_b, vec, dist = embed(
+        params, cfg, graph, displacement=displacement, strain=strain)
     for blk in params["blocks"]:
         v, e, a = interaction_block_apply(
             blk, graph, v, e, a, e_a, e_b,
@@ -183,17 +190,55 @@ def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     return v, e, a, vec, dist
 
 
+def _autodiff_readout(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
+    """Energy, and forces and stress as its derivatives (reference CHGNet):
+    F = -dE/dx and sigma = dE/d(strain) / V, with x displaced by zeros
+    (atom_cap, 3) and the lattice strained by zeros (B, 3, 3).
+
+    Autograd is on for the trunk whatever the caller's grad mode, so the
+    readout also runs under ``torch.no_grad()`` (serving, evaluation).
+    The derivative's own graph is kept only where a loss will be
+    differentiated through it: grad mode on and parameters that record
+    gradients (a training step's second-order backward); otherwise the
+    outputs come back detached.
+    """
+    create = torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves(params))
+    with torch.enable_grad():
+        disp = torch.zeros_like(graph.frac_coords, requires_grad=True)
+        strain = torch.zeros_like(graph.lattice, requires_grad=True)
+        v = _trunk(params, cfg, graph, displacement=disp, strain=strain)[0]
+        energy = heads.energy_head_apply(params["energy_head"], graph, v)
+        de_ddisp, de_dstrain = torch.autograd.grad(
+            energy.sum(), (disp, strain), create_graph=create)
+    if not create:
+        v, energy = v.detach(), energy.detach()
+    magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)
+    forces = -de_ddisp * graph.atom_mask[..., None]
+    vol = torch.abs(torch.linalg.det(graph.lattice))[:, None, None]
+    stress = de_dstrain / (vol + 1e-12) * heads.EV_A3_TO_GPA
+    stress = stress * graph.crystal_mask[:, None, None]
+    return {"energy": energy, "forces": forces, "stress": stress,
+            "magmom": magmom}
+
+
 def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     """Energy (B,), forces (A,3), stress (B,3,3), magmom (A,), f32.
 
-    One forward pass with the direct Force/Stress heads; the outputs are
-    differentiable with respect to ``params`` (training backpropagates
-    through the kernels' recompute backwards).  ``stress_mode=
-    "bond_virial"`` takes the stress from the force head's per-bond
-    scalars (DESIGN.md §7).  ``params`` and ``graph`` must be on the same
-    device.
+    ``readout="direct"``: one forward pass with the direct Force/Stress
+    heads (FastCHGNet); ``stress_mode="bond_virial"`` takes the stress
+    from the force head's per-bond scalars (DESIGN.md §7).
+    ``readout="autodiff"``: forces and stress by differentiating the
+    energy (reference CHGNet), so training through them is second order.
+    The outputs are differentiable with respect to ``params`` (training
+    backpropagates through the kernels' recompute backwards).  ``params``
+    and ``graph`` must be on the same device.
     """
     check_supported(cfg)
+    if cfg.readout == "autodiff":
+        return _autodiff_readout(params, cfg, graph)
+    if cfg.readout != "direct":
+        raise ValueError(f"unknown readout {cfg.readout!r}")
     v, e, _a, vec, dist = _trunk(params, cfg, graph)
     energy = heads.energy_head_apply(params["energy_head"], graph, v)
     magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)

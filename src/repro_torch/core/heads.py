@@ -96,7 +96,8 @@ def force_head_apply(p, graph: CrystalGraphBatch, e, bond_vec, bond_dist,
     n_ij = mlp_apply(p["mlp"], e)[..., 0]  # (Nb,); masked by the aggregate
     contrib = n_ij[..., None] * x_hat
     out = segment_aggregate(
-        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl,
+        offsets=graph.bond_offsets)
     return out * graph.atom_mask[..., None].to(out.dtype)
 
 
@@ -181,7 +182,8 @@ def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
     n_ij = mlp_apply(p["mlp"], e)[..., 0]  # (Nb,); masked by the aggregate
     contrib = n_ij[..., None] * x_hat
     forces = segment_aggregate(
-        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+        contrib, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl,
+        offsets=graph.bond_offsets)
     forces = forces * graph.atom_mask[..., None].to(forces.dtype)
     w = n_ij.float() * bond_dist.float() * graph.bond_mask
     xh32 = x_hat.float()

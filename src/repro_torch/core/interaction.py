@@ -12,7 +12,9 @@ GatedMLP phi(x) = sigmoid(LN(x@Wg+bg)) * silu(LN(x@Wc+bc)), with its
 parameters stored packed as in the JAX package (``w = [Wc ‖ Wg]`` of
 shape (d_in, 2d), applied as ``x @ w + b``), so the weight bridge is a
 copy.  ``conv_impl="fused"`` routes the whole message path of atom_conv /
-bond_conv to the hand-written kernels in ``repro_torch.kernels.ops``.
+bond_conv to the hand-written kernels in ``repro_torch.kernels.ops``; on
+the unfused path ``mlp_impl="pallas"`` and ``agg_impl="pallas"`` route
+the GatedMLP and the segment sum to theirs.
 """
 from __future__ import annotations
 
@@ -80,9 +82,10 @@ def gated_mlp_apply(p, x, impl: str = "packed"):
         gate = layer_norm(y[..., d:], p["ln_scale"][d:], p["ln_bias"][d:])
         return (core * torch.sigmoid(core)) * torch.sigmoid(gate)
     if impl == "pallas":
-        raise NotImplementedError(
-            'mlp_impl="pallas" needs the fused GatedMLP kernel: ROADMAP '
-            "'TPU kernels to port' item 7")
+        from repro_torch.kernels import ops as kops
+
+        return kops.fused_gated_mlp_packed(x, w, b, p["ln_scale"],
+                                           p["ln_bias"])
     raise ValueError(f"unknown GatedMLP impl {impl!r}")
 
 
@@ -91,23 +94,34 @@ def gated_mlp_apply(p, x, impl: str = "packed"):
 # ---------------------------------------------------------------------------
 
 def segment_aggregate(values, segment_ids, num_segments, mask,
-                      impl="scatter"):
+                      impl="scatter", *, offsets=None):
     """sum_{e : seg(e)=s} values[e] * mask[e]  -> (num_segments, D).
 
     impl="scatter": ``index_add_`` (the reference).
+    impl="matmul" : one-hot matmul, O(E*S) flops, in plain torch (the JAX
+        package runs it on the MXU outside any kernel).
     impl="sorted" : requires real ids sorted by segment (DESIGN.md §1);
         the padded tail is pointed at the last segment (its payload is
         masked to zero), as the JAX package does before its sorted
         segment sum.  Same sum as "scatter".
+    impl="pallas" : the sorted-segment kernel
+        (``kernels.ops.fused_segment_sum``); needs the CSR ``offsets``.
     """
     v = values * mask[..., None].to(values.dtype)
+    if impl == "matmul":
+        onehot = F.one_hot(segment_ids.long(), num_segments).to(v.dtype)
+        return torch.einsum("es,ed->sd", onehot, v)
+    if impl == "pallas":
+        if offsets is None:
+            raise ValueError(
+                'impl="pallas" needs CSR offsets (sorted-segment layout); '
+                "pack batches through repro_torch.batching to get them")
+        from repro_torch.kernels import ops as kops
+
+        return kops.fused_segment_sum(v, segment_ids, offsets, num_segments)
     if impl == "sorted":
         segment_ids = torch.where(mask > 0, segment_ids.long(),
                                   num_segments - 1)
-    elif impl in ("matmul", "pallas"):
-        raise NotImplementedError(
-            f'agg_impl="{impl}" on the unfused path is ROADMAP "Modules to '
-            'port" item 4 (with "TPU kernels to port" item 1 for "pallas")')
     elif impl != "scatter":
         raise ValueError(f"unknown aggregate impl {impl!r}")
     out = v.new_zeros((num_segments,) + tuple(v.shape[1:]))
@@ -149,7 +163,8 @@ def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
                          gather_rows(v, graph.bond_nbr), e], dim=-1)
         msg = gated_mlp_apply(p["atom_mlp"], f_v, mlp_impl) * e_a
         agg = segment_aggregate(
-            msg, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl)
+            msg, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl,
+            offsets=graph.bond_offsets)
     else:
         raise ValueError(f"unknown conv impl {conv_impl!r}")
     mask = graph.atom_mask[..., None].to(v.dtype)
@@ -180,7 +195,8 @@ def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
         msg = msg * gather_rows(e_b, graph.angle_ij) \
             * gather_rows(e_b, graph.angle_ik)
         agg = segment_aggregate(
-            msg, graph.angle_ij, graph.bond_cap, graph.angle_mask, agg_impl)
+            msg, graph.angle_ij, graph.bond_cap, graph.angle_mask, agg_impl,
+            offsets=graph.angle_offsets)
     else:
         raise ValueError(f"unknown conv impl {conv_impl!r}")
     mask = graph.bond_mask[..., None].to(e.dtype)

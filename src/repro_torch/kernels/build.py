@@ -23,7 +23,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point, by library
 SIGNATURES = {
     "message_passing": {
@@ -32,6 +32,16 @@ SIGNATURES = {
         "force_readout_fwd": [_P] * 8 + [_I, _I, _I, _P],
         "force_virial_fwd": [_P] * 10 + [_I, _I, _I, _P],
         "virial_crystal_sum": [_P] * 4 + [_I, _I, _P],
+    },
+    "segment_sum": {
+        "segment_sum_fwd": [_P] * 3 + [_I, _I, _I, _P],
+    },
+    "gated_mlp": {
+        "gated_mlp_fwd": [_P] * 6 + [_I, _I, _I, _P],
+    },
+    "basis": {
+        "rbf_fwd": [_P] * 3 + [_I, _I, _F, _F, _I, _P],
+        "fourier_fwd": [_P] * 2 + [_I, _I, _P],
     },
 }
 

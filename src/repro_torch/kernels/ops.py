@@ -11,10 +11,19 @@ path from the device of the tensors it is given:
 
 The backward is the same code on both devices and mirrors the JAX
 package's custom VJPs: it keeps the operands, never the messages, and
-recomputes the messages chunk by chunk of edges in PyTorch, pulling the
-output cotangent back through each chunk with ``torch.autograd.grad``
-(``_recompute_vjp``).  It is no kernel: a hand-written backward kernel is
-an optimization for later.
+recomputes the messages (or the GatedMLP, or the basis) chunk by chunk of
+rows in PyTorch, pulling the output cotangent back through each chunk
+with ``torch.autograd.grad`` (``_recompute_vjp``); the segment sum's
+backward is a gather.  No backward is a kernel: a hand-written backward
+kernel is an optimization for later.  Every backward is built from torch
+ops, so it is itself differentiable: the autodiff readout trains through
+a double backward.
+
+Two tiers use them: the fused convs and force readouts
+(``conv_impl="fused"``, ``csrc/message_passing.cu``) and the unfused
+tier's segment sum, GatedMLP and bases (``agg_impl="pallas"``,
+``mlp_impl="pallas"``; ``csrc/segment_sum.cu``, ``gated_mlp.cu``,
+``basis.cu``).
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, incremented only where a kernel is launched.  The
@@ -22,6 +31,8 @@ mirror-map operands of the undirected bond store (``pair``) and the
 symmetric trunk (``und_features``) are not ported yet.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -72,8 +83,8 @@ def _check_dim(dim: int) -> None:
                          "[4, 256] for the CUDA kernels")
 
 
-def _launch(fn: str, *args) -> None:
-    err = build.entry(_LIB, fn)(*args)
+def _launch(lib: str, fn: str, *args) -> None:
+    err = build.entry(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
@@ -86,7 +97,8 @@ def _stream(device) -> int:
 # Chunked recompute backward
 # ---------------------------------------------------------------------------
 
-def _recompute_vjp(fn, dense, edge, needs, cotangents, offsets, chunk: int):
+def _recompute_vjp(fn, dense, edge, needs, cotangents, n_real: int,
+                   chunk: int):
     """Pull output cotangents back through ``fn``, one edge chunk at a time.
 
     ``fn(dense, edge_chunk, sl)`` recomputes chunk ``sl``'s outputs from
@@ -96,11 +108,13 @@ def _recompute_vjp(fn, dense, edge, needs, cotangents, offsets, chunk: int):
     the outputs' cotangents for the chunk.  ``needs`` flags, dense first
     then edge, which cotangents to return; the others come back as None.
 
-    Only the real edges, ``[0, offsets[-1])``, are recomputed: the padded
-    tail contributes nothing forward, so its cotangents are zeros.  (The
-    JAX package's loop runs a static trip count over every chunk and masks
-    the tail instead; reading ``offsets[-1]`` costs one device read here,
-    and the batch capacities are several times the real counts.)
+    Only the first ``n_real`` edges are recomputed: the convs pass the
+    real-edge count ``offsets[-1]``, since the padded tail contributes
+    nothing forward and its cotangents are zeros.  (The JAX package's loop
+    runs a static trip count over every chunk and masks the tail instead;
+    reading ``offsets[-1]`` costs one device read here, and the batch
+    capacities are several times the real counts.)  Row-wise ops with no
+    padding of their own (the GatedMLP, the bases) pass every row.
 
     With grad mode on (a double backward), the recompute is recorded
     against the saved operands themselves, so the cotangents returned are
@@ -110,7 +124,6 @@ def _recompute_vjp(fn, dense, edge, needs, cotangents, offsets, chunk: int):
     if not any(needs):
         return out
     create = torch.is_grad_enabled()
-    n_real = int(offsets[-1])
 
     def leaf(t, need):
         return t if create else t.detach().requires_grad_(need)
@@ -165,8 +178,8 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
             ("bond_offsets", bond_offsets, i32, (a_rows + 1,))):
         _check(name, t, dt, shape, dev)
     out = torch.empty((a_rows, dim), dtype=f32, device=dev)
-    _launch("atom_conv_fwd", v.data_ptr(), e.data_ptr(), e_a.data_ptr(),
-            w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
+    _launch(_LIB, "atom_conv_fwd", v.data_ptr(), e.data_ptr(),
+            e_a.data_ptr(), w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), bond_center.data_ptr(), bond_nbr.data_ptr(),
             bond_offsets.data_ptr(), out.data_ptr(), a_rows, dim, block_rows,
             _stream(dev))
@@ -205,7 +218,7 @@ class _AtomConv(torch.autograd.Function):
         dv, dw, db, dls, dlb, de, dea = _recompute_vjp(
             msgs, [v, w, b, lns, lnb], [e, e_a],
             [nig[0], nig[3], nig[4], nig[5], nig[6], nig[1], nig[2]],
-            lambda sl: g[c[sl]], offs, ctx.chunk)
+            lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
         return dv, de, dea, dw, db, dls, dlb, None, None, None, None, None
 
 
@@ -249,11 +262,12 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
             ("angle_offsets", angle_offsets, i32, (b_rows + 1,))):
         _check(name, t, dt, shape, dev)
     out = torch.empty((b_rows, dim), dtype=f32, device=dev)
-    _launch("bond_conv_fwd", v.data_ptr(), e.data_ptr(), a.data_ptr(),
-            e_b.data_ptr(), w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), angle_ij.data_ptr(), angle_ik.data_ptr(),
-            center_ids.data_ptr(), angle_offsets.data_ptr(), out.data_ptr(),
-            b_rows, dim, block_rows, _stream(dev))
+    _launch(_LIB, "bond_conv_fwd", v.data_ptr(), e.data_ptr(),
+            a.data_ptr(), e_b.data_ptr(), w.data_ptr(), b.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), angle_ij.data_ptr(),
+            angle_ik.data_ptr(), center_ids.data_ptr(),
+            angle_offsets.data_ptr(), out.data_ptr(), b_rows, dim,
+            block_rows, _stream(dev))
     fused_bond_conv.launches += 1
     return out
 
@@ -293,7 +307,7 @@ class _BondConv(torch.autograd.Function):
         dv, de, deb, dw, db, dls, dlb, da = _recompute_vjp(
             msgs, [v, e, e_b, w, b, lns, lnb], [a],
             [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
-            lambda sl: g[ij[sl]], offs, ctx.chunk)
+            lambda sl: g[ij[sl]], int(offs[-1]), ctx.chunk)
         return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 6
 
 
@@ -339,7 +353,7 @@ def _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
     _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
                   num_atoms)
     out = torch.empty((num_atoms, 3), dtype=torch.float32, device=e.device)
-    _launch("force_readout_fwd", e.data_ptr(), x_hat.data_ptr(),
+    _launch(_LIB, "force_readout_fwd", e.data_ptr(), x_hat.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             bond_offsets.data_ptr(), out.data_ptr(), num_atoms, e.shape[1],
             block_rows, _stream(e.device))
@@ -379,7 +393,7 @@ class _ForceReadout(torch.autograd.Function):
         dw1, db1, dw2, db2, de, dxh = _recompute_vjp(
             contribs, [w1, b1, w2, b2], [e, x_hat],
             [nig[2], nig[3], nig[4], nig[5], nig[0], nig[1]],
-            lambda sl: g[c[sl]], offs, ctx.chunk)
+            lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
         return (de, dxh, dw1, db1, dw2, db2) + (None,) * 5
 
 
@@ -410,14 +424,14 @@ def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
     rows = torch.empty((num_atoms, 9), dtype=torch.float32, device=dev)
     raw = torch.empty((num_crystals, 3, 3), dtype=torch.float32, device=dev)
     stream = _stream(dev)
-    _launch("force_virial_fwd", e.data_ptr(), x_hat.data_ptr(),
+    _launch(_LIB, "force_virial_fwd", e.data_ptr(), x_hat.data_ptr(),
             dist.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), bond_offsets.data_ptr(), out.data_ptr(),
             rows.data_ptr(), num_atoms, e.shape[1], block_rows, stream)
     fused_force_virial_readout.launches += 1
-    _launch("virial_crystal_sum", rows.data_ptr(), bond_crystal.data_ptr(),
-            bond_offsets.data_ptr(), raw.data_ptr(), num_atoms, num_crystals,
-            stream)
+    _launch(_LIB, "virial_crystal_sum", rows.data_ptr(),
+            bond_crystal.data_ptr(), bond_offsets.data_ptr(), raw.data_ptr(),
+            num_atoms, num_crystals, stream)
     fused_force_virial_readout.launches += 1
     return out, raw
 
@@ -456,7 +470,7 @@ class _ForceVirial(torch.autograd.Function):
         dw1, db1, dw2, db2, de, dxh, dd = _recompute_vjp(
             contribs, [w1, b1, w2, b2], [e, x_hat, dist],
             [nig[3], nig[4], nig[5], nig[6], nig[0], nig[1], nig[2]],
-            lambda sl: (g_f[c[sl]], g_s[cr[sl]]), offs, ctx.chunk)
+            lambda sl: (g_f[c[sl]], g_s[cr[sl]]), int(offs[-1]), ctx.chunk)
         return (de, dxh, dd, dw1, db1, dw2, db2) + (None,) * 7
 
 
@@ -484,8 +498,228 @@ def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
                               num_crystals, block_rows, chunk)
 
 
+# ---------------------------------------------------------------------------
+# The unfused tier's kernels: segment sum, GatedMLP, RBF and Fourier bases
+# ---------------------------------------------------------------------------
+
+def _segment_sum_cuda(values, segment_ids, offsets, num_segments):
+    n_edges, dim = values.shape
+    dev, f32, i32 = values.device, torch.float32, torch.int32
+    for name, t, dt, shape in (
+            ("values", values, f32, (n_edges, dim)),
+            ("segment_ids", segment_ids, i32, (n_edges,)),
+            ("offsets", offsets, i32, (num_segments + 1,))):
+        _check(name, t, dt, shape, dev)
+    out = torch.empty((num_segments, dim), dtype=f32, device=dev)
+    # 16-byte loads where rows are whole float4s (not the force head's D=3)
+    vec4 = int(dim % 4 == 0 and values.data_ptr() % 16 == 0)
+    _launch("segment_sum", "segment_sum_fwd", values.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), num_segments, dim, vec4,
+            _stream(dev))
+    fused_segment_sum.launches += 1
+    return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, segment_ids, offsets, num_segments):
+        ctx.save_for_backward(segment_ids, offsets)
+        ctx.num_segments = num_segments
+        if values.device.type == "cpu":
+            return ref.sorted_segment_sum_ref(values, segment_ids, offsets,
+                                              num_segments)
+        return _segment_sum_cuda(values, segment_ids, offsets, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        # d/dv[e] of a sum into rows is a gather: g[seg[e]] on the real
+        # edges [0, offsets[S]), zero on the padded tail.  gather_rows, not
+        # indexing: its backward (a double backward's) splits a repeated
+        # id's rows into parallel segments
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        seg, offs = ctx.saved_tensors
+        n_real = int(offs[ctx.num_segments])
+        dv = ref.gather_rows(g, seg[:n_real])
+        tail = dv.new_zeros((seg.shape[0] - n_real, g.shape[1]))
+        return torch.cat([dv, tail]), None, None, None
+
+
+def fused_segment_sum(values, segment_ids, offsets, num_segments: int):
+    """Sorted-segment reduction: (E, D) edges -> (num_segments, D) rows.
+
+    Requires the sorted-segment layout (DESIGN.md §1): real edges sorted
+    by ``segment_ids`` with CSR ``offsets`` of shape (num_segments + 1,),
+    ``offsets[-1]`` the number of real edges; the padded tail past it is
+    never read.  Any width D >= 1 (the force head reduces D = 3).  The
+    backward is the gather ``g[segment_ids]`` over the real edges.
+    """
+    return _SegmentSum.apply(values, segment_ids, offsets, num_segments)
+
+
+def _gated_mlp_cuda(x, w, b, ln_scale, ln_bias):
+    m, d_in = x.shape
+    dim = w.shape[1] // 2
+    dev, f32 = x.device, torch.float32
+    if not 0 < 2 * dim <= 1024 or w.shape[1] % 2:
+        raise ValueError(f"packed width {w.shape[1]} must be even and in "
+                         "[2, 1024] for the CUDA kernel")
+    if 4 * 32 * ((d_in + 3) // 4 * 4 + 2 * dim) > 227 * 1024:
+        raise ValueError(f"d_in {d_in} and width {dim}: the row tile does "
+                         "not fit a block's shared memory")
+    for name, t, shape in (
+            ("x", x, (m, d_in)), ("w", w, (d_in, 2 * dim)),
+            ("b", b, (2 * dim,)), ("ln_scale", ln_scale, (2 * dim,)),
+            ("ln_bias", ln_bias, (2 * dim,))):
+        _check(name, t, f32, shape, dev)
+    out = torch.empty((m, dim), dtype=f32, device=dev)
+    _launch("gated_mlp", "gated_mlp_fwd", x.data_ptr(), w.data_ptr(),
+            b.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            out.data_ptr(), m, d_in, dim, _stream(dev))
+    fused_gated_mlp_packed.launches += 1
+    return out
+
+
+class _GatedMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, ln_scale, ln_bias, chunk):
+        # operands only: the backward recomputes the MLP chunk by chunk
+        ctx.save_for_backward(x, w, b, ln_scale, ln_bias)
+        ctx.chunk = chunk or _default_chunk(x.shape[1])
+        if x.device.type == "cpu":
+            return ref.gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias)
+        return _gated_mlp_cuda(x, w, b, ln_scale, ln_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, lns, lnb = ctx.saved_tensors
+
+        def mlp(dense, edge, sl):
+            return ref.gated_mlp_packed_ref(edge[0], *dense)
+
+        nig = ctx.needs_input_grad
+        dw, db, dls, dlb, dx = _recompute_vjp(
+            mlp, [w, b, lns, lnb], [x],
+            [nig[1], nig[2], nig[3], nig[4], nig[0]],
+            lambda sl: g[sl], x.shape[0], ctx.chunk)
+        return dx, dw, db, dls, dlb, None
+
+
+def fused_gated_mlp_packed(x, w, b, ln_scale, ln_bias, *,
+                           chunk: int | None = None):
+    """CHGNet GatedMLP from packed parameters: (M, d_in) -> (M, D),
+    ``silu(LN(x Wc + bc)) * sigmoid(LN(x Wg + bg))`` with ``w = [Wc ‖ Wg]``
+    (d_in, 2D) and ``b`` / ``ln_*`` packed [core ‖ gate] (2D,).  Every row
+    is computed.  The backward recomputes ``chunk`` rows at a time
+    (default: sized by ``CHUNK_BYTES``) through the plain version."""
+    return _GatedMLP.apply(x, w, b, ln_scale, ln_bias, chunk)
+
+
+def fused_gated_mlp(x, wc, bc, wg, bg, sc, oc, sg, og, *,
+                    chunk: int | None = None):
+    """GatedMLP from separate core/gate parameters (the legacy calling
+    convention): packs them and calls ``fused_gated_mlp_packed``, whose
+    counter counts the launch."""
+    return fused_gated_mlp_packed(
+        x, torch.cat([wc, wg], dim=1), torch.cat([bc, bg]),
+        torch.cat([sc, sg]), torch.cat([oc, og]), chunk=chunk)
+
+
+def _rbf_cuda(dist, freqs, r_cut, p):
+    (n,), (k,) = dist.shape, freqs.shape
+    dev = dist.device
+    _check("dist", dist, torch.float32, (n,), dev)
+    _check("freqs", freqs, torch.float32, (k,), dev)
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    _launch("basis", "rbf_fwd", dist.data_ptr(), freqs.data_ptr(),
+            out.data_ptr(), n, k, float(r_cut), math.sqrt(2.0 / r_cut), p,
+            _stream(dev))
+    fused_rbf.launches += 1
+    return out
+
+
+class _RBF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dist, freqs, r_cut, p, chunk):
+        ctx.save_for_backward(dist, freqs)
+        ctx.r_cut, ctx.p = r_cut, p
+        ctx.chunk = chunk or _default_chunk(freqs.shape[0])
+        if dist.device.type == "cpu":
+            return ref.fused_rbf_ref(dist, freqs, r_cut, p)
+        return _rbf_cuda(dist, freqs, r_cut, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, freqs = ctx.saved_tensors
+
+        def basis(dense, edge, sl):
+            return ref.fused_rbf_ref(edge[0], dense[0], ctx.r_cut, ctx.p)
+
+        nig = ctx.needs_input_grad
+        dfreqs, ddist = _recompute_vjp(
+            basis, [freqs], [dist], [nig[1], nig[0]], lambda sl: g[sl],
+            dist.shape[0], ctx.chunk)
+        return ddist, dfreqs, None, None, None
+
+
+def fused_rbf(dist, freqs, r_cut: float, p: int = 8, *,
+              chunk: int | None = None):
+    """(N,) x (K,) -> (N, K) smooth-RBF basis with the factored envelope.
+
+    Differentiable with respect to the distances and the trainable
+    frequencies: the forces/stress autodiff readout and training at
+    ``mlp_impl="pallas"`` both pass through its recompute backward.
+    """
+    return _RBF.apply(dist, freqs, r_cut, p, chunk)
+
+
+def _fourier_cuda(theta, num_basis):
+    (n,) = theta.shape
+    dev = theta.device
+    _check("theta", theta, torch.float32, (n,), dev)
+    out = torch.empty((n, num_basis), dtype=torch.float32, device=dev)
+    _launch("basis", "fourier_fwd", theta.data_ptr(), out.data_ptr(), n,
+            num_basis, _stream(dev))
+    fused_fourier.launches += 1
+    return out
+
+
+class _Fourier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, theta, num_basis, chunk):
+        ctx.save_for_backward(theta)
+        ctx.num_basis = num_basis
+        ctx.chunk = chunk or _default_chunk(num_basis)
+        if theta.device.type == "cpu":
+            return ref.fused_fourier_ref(theta, num_basis)
+        return _fourier_cuda(theta, num_basis)
+
+    @staticmethod
+    def backward(ctx, g):
+        (theta,) = ctx.saved_tensors
+
+        def basis(dense, edge, sl):
+            return ref.fused_fourier_ref(edge[0], ctx.num_basis)
+
+        (dtheta,) = _recompute_vjp(
+            basis, [], [theta], [ctx.needs_input_grad[0]], lambda sl: g[sl],
+            theta.shape[0], ctx.chunk)
+        return dtheta, None, None
+
+
+def fused_fourier(theta, num_basis: int, *, chunk: int | None = None):
+    """(N,) -> (N, num_basis) Fourier angle basis, ``num_basis`` odd and at
+    most 127 (the JAX kernel's bound); differentiable with respect to
+    ``theta``."""
+    if num_basis % 2 != 1 or not 0 < num_basis <= 127:
+        raise ValueError(f"num_basis must be odd and at most 127, got "
+                         f"{num_basis}")
+    return _Fourier.apply(theta, num_basis, chunk)
+
+
 WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_force_readout,
-            fused_force_virial_readout)
+            fused_force_virial_readout, fused_segment_sum,
+            fused_gated_mlp_packed, fused_rbf, fused_fourier)
 for _fn in WRAPPERS:
     _fn.launches = 0
 

@@ -8,6 +8,8 @@ correctness, never used by a kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +19,61 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, correction=0)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def integer_pow(x, n: int):
+    """x**n (n >= 1) by repeated squaring, in the multiplication order of
+    JAX's ``integer_pow`` and of the CUDA RBF kernel: the envelopes cancel
+    to ~1e-4 near the cutoff, where the rounding of the powers shows."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def envelope(xi, p: int = 8):
+    """Factored smooth-cutoff envelope (Eq. 13, Horner form)."""
+    inner = (p + 1.0) * (p + 2.0) + xi * (
+        -2.0 * p * (p + 2.0) + xi * (p * (p + 1.0)))
+    return 1.0 - 0.5 * integer_pow(xi, p) * inner
+
+
+def fused_rbf_ref(dist, freqs, r_cut: float, p: int = 8):
+    """(N,) x (K,) -> (N, K) smooth radial Bessel basis."""
+    xi = dist / r_cut
+    u = envelope(xi, p)
+    r_safe = torch.where(dist > 1e-8, dist, torch.ones_like(dist))
+    val = math.sqrt(2.0 / r_cut) * torch.sin(xi[:, None] * freqs[None, :])
+    return val / r_safe[:, None] * u[:, None]
+
+
+def fused_fourier_ref(theta, num_basis: int):
+    """(N,) -> (N, num_basis): [1/sqrt(2), cos(n t), sin(n t)] / sqrt(pi)."""
+    harmonics = (num_basis - 1) // 2
+    n = torch.arange(1, harmonics + 1, dtype=theta.dtype, device=theta.device)
+    ang = theta[:, None] * n
+    dc = torch.full((theta.shape[0], 1), 1.0 / math.sqrt(2.0),
+                    dtype=theta.dtype, device=theta.device)
+    out = torch.cat([dc, torch.cos(ang), torch.sin(ang)], dim=-1)
+    return out / math.sqrt(math.pi)
+
+
+def sorted_segment_sum_ref(values, seg_ids, offsets, num_segments):
+    """(E, D) x (E,) x (S+1,) -> (S, D) sorted-segment reduction.
+
+    ``offsets[num_segments]`` delimits the real edges; the padded tail
+    (whatever its segment ids) contributes nothing: it is zeroed before
+    the scatter-add.
+    """
+    valid = torch.arange(values.shape[0], device=values.device) \
+        < offsets[num_segments]
+    v = torch.where(valid[:, None], values,
+                    torch.zeros((), dtype=values.dtype, device=values.device))
+    return _segment_sum(v, seg_ids, num_segments)
 
 
 def gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias):

@@ -111,10 +111,17 @@ class ServeEngine:
         """Serve step for (bucket, slots, config): a packed CPU batch in,
         device outputs out (not synchronized)."""
         model, device = self.model, self.device
+        # the autodiff readout differentiates the energy with respect to
+        # the positions and the strain: its batch must not be made of
+        # inference tensors, which autograd refuses, so it runs under
+        # no_grad (the readout turns autograd on for itself); the direct
+        # readout keeps inference_mode
+        mode = (torch.no_grad if self.model_cfg.readout == "autodiff"
+                else torch.inference_mode)
 
         def build():
             def step(batch):
-                with torch.inference_mode():
+                with mode():
                     return model(batch.to(device))
             return step
 

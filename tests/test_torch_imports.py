@@ -32,6 +32,20 @@ def test_port_files_exist():
             "src/repro_torch/kernels/ops.py", "chip_smoke.py"} <= names
 
 
+def test_every_library_has_its_source():
+    """Each library that kernels/build.py loads is a source under csrc/ that
+    defines every C entry point it binds (the CUDA build runs only on the
+    card; this holds the table to the sources here)."""
+    from repro_torch.kernels import build
+
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == \
+        sorted(build.SIGNATURES)
+    for lib, entries in build.SIGNATURES.items():
+        text = (build.CSRC / f"{lib}.cu").read_text()
+        for fn in entries:
+            assert f"int {fn}(" in text, (lib, fn)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
                          .as_posix())
 def test_no_jax_or_repro_imports(path):

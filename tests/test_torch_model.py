@@ -1,7 +1,9 @@
 """The port's model against the JAX package on the CPU: the bases, the
-FastCHGNet forward at FAST_FUSED and FAST_FS_HEAD (narrowed), the
-configs, and the rotation/translation checks of test_equivariance.py on
-the port alone."""
+forward (narrowed) at FAST_FUSED and FAST_FS_HEAD, at the unfused Pallas
+tier and its neighbours, and with the autodiff readout at REFERENCE and
+WO_HEAD_PALLAS; the configs; the finite-difference force check of
+test_chgnet.py and the rotation/translation checks of test_equivariance.py
+on the port alone."""
 import dataclasses
 
 import numpy as np
@@ -71,10 +73,36 @@ def test_bases_match_jax():
         np.asarray(jbasis.fourier_basis(jnp.asarray(theta), 31)), **TOL)
 
 
-@pytest.mark.parametrize("name", ["FAST_FUSED", "FAST_FS_HEAD"])
+# tiers that are no named config of the package: labels of the tests and
+# chip_smoke.py only
+TIERS = {
+    "FAST_PALLAS": lambda m: m.FAST_FS_HEAD.with_(mlp_impl="pallas",
+                                                  agg_impl="pallas"),
+    "FS_HEAD_MATMUL": lambda m: m.FAST_FS_HEAD.with_(agg_impl="matmul"),
+    "FUSED_MLP_PALLAS": lambda m: m.FAST_FUSED.with_(mlp_impl="pallas"),
+    "WO_HEAD_PALLAS": lambda m: m.FAST_WO_HEAD.with_(mlp_impl="pallas",
+                                                     agg_impl="pallas"),
+}
+# the autodiff readout differentiates through the trunk: one block keeps
+# the JAX side's compile short
+AUTODIFF_SMALL = dict(SMALL, num_blocks=1)
+
+
+def _config(mod, name):
+    cfg = TIERS[name](mod) if name in TIERS else getattr(mod, name)
+    return cfg.with_(**(AUTODIFF_SMALL if cfg.readout == "autodiff"
+                        else SMALL))
+
+
+@pytest.mark.parametrize("name", ["FAST_FUSED", "FAST_FS_HEAD", "FAST_PALLAS",
+                                  "FS_HEAD_MATMUL", "FUSED_MLP_PALLAS",
+                                  "REFERENCE", "WO_HEAD_PALLAS"])
 def test_forward_matches_jax(name):
-    jcfg = getattr(JC, name).with_(**SMALL)
-    tcfg = getattr(TC, name).with_(**SMALL)
+    """Energy, forces, stress and magmom against the JAX package's forward
+    (its Pallas kernels in interpret mode); at REFERENCE and WO_HEAD_PALLAS
+    forces and stress are derivatives of the energy."""
+    jcfg = _config(JC, name)
+    tcfg = _config(TC, name)
     params = j_init(jax.random.PRNGKey(1), jcfg)
     jcr = [_crystal(jn, n, 20 + n) for n in (7, 9)]
     tcr = [_crystal(tn, n, 20 + n) for n in (7, 9)]
@@ -107,18 +135,54 @@ def test_every_config_is_mirrored():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (TC.REFERENCE, "item 2"),
     (TC.FAST_HALF, "item 5"),
     (TC.FAST_FUSED_SYM, "item 5"),
     (TC.FAST_FUSED_MIXED, "item 8"),
     (TC.FAST_MIXED, "item 8"),
-    (TC.FAST_FS_HEAD.with_(mlp_impl="pallas"), "item 7"),
-    (TC.FAST_FS_HEAD.with_(agg_impl="pallas"), "item 4"),
-    (TC.FAST_FS_HEAD.with_(agg_impl="matmul"), "item 4"),
 ])
 def test_unported_tiers_fail_loudly(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
         CHGNet(cfg, device="cpu")
+
+
+def test_pallas_aggregation_needs_offsets():
+    from repro_torch.core.interaction import segment_aggregate
+
+    with pytest.raises(ValueError, match="offsets"):
+        segment_aggregate(torch.ones(4, 2), torch.zeros(4, dtype=torch.int32),
+                          3, torch.ones(4), "pallas")
+
+
+@pytest.mark.parametrize("name", ["REFERENCE", "WO_HEAD_PALLAS"])
+def test_autodiff_force_matches_finite_difference(name):
+    """tests/test_chgnet.py's check on the port alone: F = -dE/dx against
+    centered finite differences of the energy, through the plain ops
+    (REFERENCE) and through the unfused tier's kernel wrappers, whose
+    backwards give the derivative (WO_HEAD_PALLAS)."""
+    rng = np.random.default_rng(7)
+    c = tn.Crystal(lattice=np.eye(3) * 4.5, frac_coords=rng.random((4, 3)),
+                   atomic_numbers=rng.integers(1, 20, 4))
+    g = tn.build_graph(c)
+    caps = TCaps(8, g.num_bonds + 4, g.num_angles + 4)
+    cfg = _config(TC, name)
+    model = CHGNet(cfg, seed=0, device="cpu")
+
+    def energy_at(cart_shift):
+        c2 = tn.Crystal(lattice=c.lattice,
+                        frac_coords=(c.cart_coords() + cart_shift)
+                        @ np.linalg.inv(c.lattice),
+                        atomic_numbers=c.atomic_numbers)
+        with torch.no_grad():  # same topology, moved atoms
+            return float(model(t_pack([c2], [g], caps))["energy"][0])
+
+    with torch.no_grad():
+        forces = model(t_pack([c], [g], caps))["forces"].numpy()
+    eps = 1e-3
+    for (i, k) in [(0, 0), (1, 2), (3, 1)]:
+        dx = np.zeros((4, 3))
+        dx[i, k] = eps
+        f_num = -(energy_at(dx) - energy_at(-dx)) / (2 * eps)
+        assert abs(f_num - forces[i, k]) < 5e-3 * max(1, abs(f_num)) + 1e-3
 
 
 def test_model_defaults_to_the_card():

@@ -100,3 +100,28 @@ def test_serve_engine_defaults_to_the_card(params):
     _, tp = params
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine.for_structures(tp, TCFG, [make_crystal(tn, 6)])
+
+
+def test_predict_with_autodiff_readout_matches_jax():
+    """ServeEngine.predict at WO_HEAD_PALLAS: forces and stress are
+    derivatives of the energy, taken through the unfused tier's wrappers.
+    The direct readout serves under inference_mode, whose tensors autograd
+    refuses; this one serves under no_grad and must still differentiate."""
+    pallas = dict(SMALL, num_blocks=1, mlp_impl="pallas", agg_impl="pallas")
+    jcfg = JC.FAST_WO_HEAD.with_(**pallas)
+    tcfg = TC.FAST_WO_HEAD.with_(**pallas)
+    jp = j_init(jax.random.PRNGKey(2), jcfg)
+    sizes = (6, 9)
+    want = JServe.for_structures(
+        jp, jcfg, [make_crystal(jn, n, seed=n) for n in sizes]).predict(
+        [make_crystal(jn, n, seed=n) for n in sizes])
+    serve = ServeEngine.for_structures(
+        params_from_numpy(jax.tree.map(np.asarray, jp)), tcfg,
+        [make_crystal(tn, n, seed=n) for n in sizes], device="cpu")
+    got = serve.predict([make_crystal(tn, n, seed=n) for n in sizes])
+    for k in ("energy", "stress"):
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+    for k in ("forces", "magmom"):
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_allclose(g, w, err_msg=k, **TOL)
+    assert np.abs(np.concatenate(got["forces"])).max() > 0

@@ -134,14 +134,33 @@ def test_losses_match_jax(datasets):
         np.testing.assert_allclose(_np(t_mm[k]), _np(t_m[k]), rtol=1e-6)
 
 
+def _config(mod, name):
+    """A named config, or the unfused Pallas tier with the direct
+    (FAST_PALLAS) or the autodiff readout (WO_HEAD_PALLAS): labels of the
+    tests and chip_smoke.py only."""
+    pallas = dict(mlp_impl="pallas", agg_impl="pallas")
+    if name == "FAST_PALLAS":
+        return mod.FAST_FS_HEAD.with_(**pallas)
+    if name == "WO_HEAD_PALLAS":
+        return mod.FAST_WO_HEAD.with_(**pallas)
+    return getattr(mod, name)
+
+
 @pytest.mark.parametrize("port,twin", [("FAST_FUSED", "FAST_FS_HEAD"),
-                                       ("FAST_FUSED_VIRIAL", "FAST_VIRIAL")])
+                                       ("FAST_FUSED_VIRIAL", "FAST_VIRIAL"),
+                                       ("FAST_PALLAS", "FAST_PALLAS"),
+                                       ("REFERENCE", "REFERENCE"),
+                                       ("WO_HEAD_PALLAS", "WO_HEAD_PALLAS")])
 def test_loss_and_param_grads_match_jax(datasets, port, twin):
     """The loss and the gradient of every parameter leaf through the
-    port's kernels' path against jax.grad of the same loss."""
+    port's kernels' path against jax.grad of the same loss.  FAST_PALLAS
+    runs the unfused tier's wrappers on both sides (the Pallas kernels in
+    interpret mode on the JAX side); REFERENCE and WO_HEAD_PALLAS train
+    through the autodiff readout, a second-order gradient, the latter
+    through the wrappers' backwards twice."""
     jb, tb = _batches(datasets)
-    jcfg = getattr(JC, twin).with_(**SMALL)
-    tcfg = getattr(TC, port).with_(**SMALL)
+    jcfg = _config(JC, twin).with_(**SMALL)
+    tcfg = _config(TC, port).with_(**SMALL)
     jp = j_init(jax.random.PRNGKey(4), jcfg)
 
     def j_loss(p):
