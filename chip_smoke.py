@@ -10,8 +10,12 @@ PyTorch version:
   3. kernels: each kernel against its plain version on the card, on the
      inputs of the first training batch and of the largest serving group,
      within ``1e-4 * max(1, max|plain|)``, and both timed with CUDA events
-     (the segment sum also beside ``torch.segment_reduce``); then ragged
-     layouts and edge values;
+     (the segment sum also beside ``torch.segment_reduce``, the symmetric
+     conv's phase B beside a sparse product); the convs also with the
+     mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
+     and the symmetric conv's two kernels; then ragged layouts and edge
+     values, and batches with self-image pairs and singleton undirected
+     entries;
   4. backward: the kernel wrappers' backwards (recompute, or a gather for
      the segment sum) against plain autograd through ``kernels.ref`` on
      the card, and whether two backward runs give bitwise equal gradients;
@@ -20,21 +24,27 @@ PyTorch version:
      ``FAST_PALLAS`` (the unfused Pallas tier: segment sum, GatedMLP, RBF
      and Fourier kernels; 5 steps) and at ``WO_HEAD_PALLAS`` (the same tier
      with the autodiff readout: forces and stress are derivatives of the
-     energy through the wrappers' backwards; 2 steps); the launch counters
-     must show every kernel of the path, the outputs must be finite, and
-     one batch through the plain path must agree;
+     energy through the wrappers' backwards; 2 steps), at
+     ``FAST_FUSED_SYM`` (the symmetric half-graph trunk; 5 steps) and at
+     ``FAST_FUSED_HALF`` (the undirected store; 2 steps); the launch
+     counters must show every kernel of the path, the outputs must be
+     finite, and one batch through the plain path must agree;
   6. ``FAST_FUSED`` with ``mlp_impl="pallas"``: one forward and backward on
      the first training batch against the plain path, with launch counts;
   7. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
      at batch 128, at ``FAST_FUSED`` (1 + 5 steps), ``FAST_FUSED_VIRIAL``
      (1 + 3), ``FAST_PALLAS`` (1 + 3), ``WO_HEAD_PALLAS`` (1 + 2: a double
-     backward through the wrappers) and ``REFERENCE`` (1 + 2, no kernels:
+     backward through the wrappers), ``FAST_FUSED_SYM`` (1 + 3),
+     ``FAST_FUSED_HALF`` (1 + 2) and ``REFERENCE`` (1 + 2, no kernels:
      the paper's baseline); the launch counters must show every kernel of
      each path, losses and gradient norms must be finite, on the first
      batch the loss and every gradient leaf of a kernels' path must agree
      with its plain path; then the time of a step taken apart and the
      peak memory;
-  8. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
+  8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
+     §5): on the first training batch and one parameter tree every output
+     and the loss must agree;
+  9. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
      batch's loss below 0.6x its value before.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
@@ -61,10 +71,14 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-from repro_torch.batching import batch_crystals, capacity_for  # noqa: E402
+from repro_torch.batching import (  # noqa: E402
+    BatchCapacities,
+    batch_crystals,
+    capacity_for,
+)
 from repro_torch.configs import chgnet_mptrj  # noqa: E402
 from repro_torch.core import basis, chgnet, heads  # noqa: E402
-from repro_torch.core.neighbors import build_graph  # noqa: E402
+from repro_torch.core.neighbors import Crystal, build_graph  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     BatchIterator,
     SyntheticConfig,
@@ -118,6 +132,11 @@ PER_FORWARD_WO_HEAD = dict(PER_FORWARD_PALLAS, fused_segment_sum=7)
 # the angle updates and the bases take the unfused tier's kernels
 PER_FORWARD_FUSED_MLP = dict(PER_FORWARD, fused_rbf=1, fused_fourier=1,
                              fused_gated_mlp_packed=3)
+# FAST_FUSED_SYM: the 3 bond convs are symmetric ones, two kernels each
+# (phase A sym_msg, phase B sym_accum); FAST_FUSED_HALF launches as
+# FAST_FUSED (PER_FORWARD), its convs with the mirror operands
+PER_FORWARD_SYM = {"fused_atom_conv": 4, "fused_sym_bond_conv": 6,
+                   "sym_msg": 3, "sym_accum": 3, "fused_force_readout": 1}
 
 
 def plain_config(cfg):
@@ -196,7 +215,8 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
     offsets read whole, each output row written once, padded rows
     included)."""
     with torch.inference_mode():
-        v, e, a, e_a, e_b, vec, dist = chgnet.embed(params, cfg, batch)
+        v, e, a, e_a, e_b, vec, dist, _, _ = chgnet.embed(params, cfg,
+                                                          batch)
     blk = params["blocks"][0]
     am, bm = blk["atom_mlp"], blk["bond_mlp"]
     (l0, l1) = params["force_head"]["mlp"]
@@ -259,6 +279,215 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
     ]
 
 
+def sym_kernel_cases(params, batch) -> list[dict]:
+    """The kernels of the undirected store and the symmetric trunk on one
+    real packed batch, at the inputs ``FAST_FUSED_HALF`` / ``FAST_FUSED_SYM``
+    give them: the atom conv with ``pair`` (e^a at Eu rows) and with
+    ``pair`` + ``und`` (e too), the bond conv with ``pair`` (e^b at Eu rows
+    through ``pair[angle_*]``), and phases A (``sym_msg``) and B
+    (``sym_accum``) of the symmetric bond conv.  Phase A writes the real
+    dedup rows only, so it is compared there; phase B reads the plain phase
+    A's messages.  Work at the real counts: each table row the real
+    edges reach read once (Eu tables: the real Eu rows), ids read once per
+    real edge, outputs written once (phase A: the real rows only)."""
+    half = chgnet_mptrj.FAST_FUSED_HALF
+    sym = chgnet_mptrj.FAST_FUSED_SYM
+    with torch.inference_mode():
+        v, e_h, a_h, e_a, e_b = chgnet.embed(params, half, batch)[:5]
+        _, e_u, a_u = chgnet.embed(params, sym, batch)[:3]
+    # ids outside inference mode: the backward phase saves them
+    ij, ik = batch.und_angle_ij.long(), batch.und_angle_ik.long()
+    ctr = batch.bond_center[ij]
+    du1, du2 = batch.bond_pair[ij], batch.bond_pair[ik]
+    blk = params["blocks"][0]
+    am, bm = blk["atom_mlp"], blk["bond_mlp"]
+    amlp = (am["w"], am["b"], am["ln_scale"], am["ln_bias"])
+    bmlp = (bm["w"], bm["b"], bm["ln_scale"], bm["ln_bias"])
+    n_atoms, dim = v.shape
+    n_bonds, n_eu = batch.bond_cap, batch.und_cap
+    real_atoms = int(batch.atom_mask.sum())
+    real_bonds = int(batch.bond_offsets[-1])
+    real_angles = int(batch.angle_offsets[-1])
+    real_eu = int(batch.und_mask.sum())
+    n_incid = int(batch.sym_offsets[-1])
+    real_au = n_incid // 2
+    f = 4
+    w_bytes = 6 * dim  # b, ln_scale, ln_bias
+    pair = batch.bond_pair
+    atom_ids = (batch.bond_center, batch.bond_nbr, batch.bond_offsets)
+    atom_flops = 2 * real_bonds * 3 * dim * 2 * dim
+    atom_tail = f * (real_atoms * dim + 3 * dim * 2 * dim + w_bytes
+                     + 3 * real_bonds + n_atoms + 1 + n_atoms * dim)
+    center = batch.bond_center[batch.angle_ij]
+    sym_args = (v, e_u, a_u, e_b) + bmlp + (ctr, du1, du2,
+                                             batch.sym_offsets)
+    with torch.inference_mode():
+        msg = ref.sym_msg_ref(*sym_args[:11])
+    accum_args = (msg, batch.sym_rep, batch.sym_dest, batch.sym_offsets,
+                  n_eu)
+    # the incidences as an (Eu, Au) matrix, a self-image row's two
+    # incidences summed into one entry of 2
+    spmat = torch.sparse_coo_tensor(
+        torch.stack([batch.sym_dest[:n_incid], batch.sym_rep[:n_incid]]),
+        torch.ones(n_incid, device=msg.device),
+        size=(n_eu, msg.shape[0]),
+        check_invariants=True).coalesce().to_sparse_csr()
+    return [
+        dict(name="atom_conv_fwd[pair]", counter="fused_atom_conv",
+             path="FAST_FUSED_HALF",
+             wrapper=lambda *a: ops.fused_atom_conv(*a, pair=pair),
+             plain=lambda *a: ref.fused_atom_conv_ref(*a, pair),
+             args=(v, e_h, e_a) + amlp + atom_ids,
+             replaces=f"{TPU_FILE}:252", flops=atom_flops,
+             bytes=atom_tail + f * (real_bonds * dim + real_eu * dim),
+             shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
+                    "real_bonds": real_bonds, "real_und": real_eu,
+                    "dim": dim}),
+        dict(name="atom_conv_fwd[pair+und]", counter="fused_atom_conv",
+             path="FAST_FUSED_SYM",
+             wrapper=lambda *a: ops.fused_atom_conv(*a, pair=pair,
+                                                    und_features=True),
+             plain=lambda *a: ref.fused_atom_conv_ref(*a, pair, True),
+             args=(v, e_u, e_a) + amlp + atom_ids,
+             replaces=f"{TPU_FILE}:252", flops=atom_flops,
+             bytes=atom_tail + f * 2 * real_eu * dim,
+             shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
+                    "real_bonds": real_bonds, "real_und": real_eu,
+                    "dim": dim}),
+        dict(name="bond_conv_fwd[pair]", counter="fused_bond_conv",
+             path="FAST_FUSED_HALF",
+             wrapper=lambda *a: ops.fused_bond_conv(*a, pair=pair),
+             plain=lambda *a: ref.fused_bond_conv_ref(*a, pair),
+             args=(v, e_h, a_h, e_b) + bmlp + (batch.angle_ij,
+                                                batch.angle_ik, center,
+                                                batch.angle_offsets),
+             replaces=f"{TPU_FILE}:488",
+             flops=2 * real_angles * 4 * dim * 2 * dim,
+             bytes=f * (real_atoms * dim + real_bonds * dim + real_eu * dim
+                        + real_angles * dim + 4 * dim * 2 * dim + w_bytes
+                        + 5 * real_angles + n_bonds + 1 + n_bonds * dim),
+             shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
+                    "angles": batch.angle_cap, "real_angles": real_angles,
+                    "dim": dim}),
+        # phase A's GEMM runs at K = 3D (w2 + w3 added once per call)
+        dict(name="sym_msg_fwd", counter="sym_msg", path="FAST_FUSED_SYM",
+             wrapper=lambda *a: ops.sym_msg(*a)[:real_au],
+             plain=lambda *a: ref.sym_msg_ref(*a[:11])[:real_au],
+             args=sym_args, replaces=f"{TPU_FILE}:1002",
+             flops=2 * real_au * 3 * dim * 2 * dim,
+             bytes=f * (real_atoms * dim + 2 * real_eu * dim + real_au * dim
+                        + 3 * dim * 2 * dim + w_bytes + 3 * real_au + 1
+                        + real_au * dim),
+             shape={"atoms": n_atoms, "und": n_eu, "und_angles":
+                    a_u.shape[0], "real_und_angles": real_au, "dim": dim}),
+        dict(name="sym_accum_fwd", counter="sym_accum",
+             path="FAST_FUSED_SYM", wrapper=ops.sym_accum,
+             plain=ref.sym_accum_ref, args=accum_args,
+             library=lambda: torch.sparse.mm(spmat, msg),
+             source=f"{CSRC}/segment_sum.cu", replaces=f"{TPU_FILE}:1112",
+             flops=n_incid * dim,
+             bytes=f * (real_au * dim + n_incid + n_eu + 1 + n_eu * dim),
+             shape={"und": n_eu, "real_und": real_eu,
+                    "incidences": n_incid, "dim": dim}),
+    ]
+
+
+def sym_backward_cases(cases) -> list[dict]:
+    """The backward cases of the undirected store and the symmetric trunk,
+    from ``sym_kernel_cases``: the convs with their mirror operands and the
+    whole symmetric bond conv (``_SymBondConv``: phases A and B forward,
+    the recompute backward).  Their gradients must be bitwise repeatable."""
+    by_counter = {c["counter"]: c for c in cases}
+    rep, dest, offs = by_counter["sym_accum"]["args"][1:4]
+    convs = [dict(c, require_bitwise=True) for c in cases
+             if c["counter"] in ("fused_atom_conv", "fused_bond_conv")]
+    return convs + [dict(
+        name="fused_sym_bond_conv", counter="fused_sym_bond_conv",
+        wrapper=ops.fused_sym_bond_conv, plain=ref.fused_sym_bond_conv_ref,
+        args=by_counter["sym_msg"]["args"][:11] + (rep, dest, offs),
+        require_bitwise=True)]
+
+
+def sym_edge_batches(seed: int) -> dict:
+    """Packed batches of the undirected store's edge cases, on the card: a
+    one-atom crystal (every bond a self-image pair, du1 == du2 on its
+    angles) beside a small one, in capacities four times the real counts
+    (a long all-padded tail); and crystals whose per-center neighbor cap
+    breaks pair symmetry, so some undirected entries are singletons
+    (tests/test_bond_store.py:112, :167)."""
+    rng = np.random.default_rng(seed)
+    small = Crystal(lattice=np.eye(3) * 4.2 + rng.normal(0, .05, (3, 3)),
+                    frac_coords=rng.random((5, 3)),
+                    atomic_numbers=rng.integers(1, 60, 5))
+    one = Crystal(lattice=np.eye(3) * 2.8, frac_coords=np.zeros((1, 3)),
+                  atomic_numbers=np.array([8]))
+    out = {}
+    cs = [one, small]
+    gs = [build_graph(c) for c in cs]
+    out["self-image, padded tail"] = batch_crystals(cs, gs, BatchCapacities(
+        4 * 6, 4 * sum(g.num_bonds for g in gs),
+        4 * sum(g.num_angles for g in gs)), num_crystal_slots=4)
+    cs = [Crystal(lattice=np.eye(3) * 4.0 + rng.normal(0, .05, (3, 3)),
+                  frac_coords=rng.random((8, 3)),
+                  atomic_numbers=rng.integers(1, 60, 8)) for _ in range(4)]
+    gs = [build_graph(c, max_nbr_per_atom=3, cap_mode="per_center")
+          for c in cs]
+    und = sum(g.num_undirected for g in gs)
+    if 2 * und == sum(g.num_bonds for g in gs):
+        raise RuntimeError("the capped crystals kept pair symmetry")
+    out["singleton entries"] = batch_crystals(cs, gs, BatchCapacities(
+        40, sum(g.num_bonds for g in gs) + 16,
+        sum(g.num_angles for g in gs) + 16, und_bonds=und + 8))
+    return {k: b.to("cuda") for k, b in out.items()}
+
+
+def sym_edge_cases(params, f, ids, seed: int) -> int:
+    """The mirror-operand convs and the symmetric conv's kernels against
+    their plain versions on the edge batches of ``sym_edge_batches`` and on
+    random layouts: a self-image dedup row (du1 == du2), an Eu row with no
+    incidences, a padded tail, every dedup row padded, and several rows
+    per block.  Returns the number of cases checked."""
+    n = 0
+    for label, batch in sym_edge_batches(seed).items():
+        for c in sym_kernel_cases(params, batch):
+            _check_close(f"{c['name']} on {label}", c["wrapper"](*c["args"]),
+                         c["plain"](*c["args"]))
+            n += 1
+    rng = np.random.default_rng(seed + 1)
+    for a_rows, eu, au, n_real, d, per_block in (
+            (7, 13, 24, 17, 8, 32), (30, 200, 400, 0, 64, 32),
+            (50, 300, 500, 333, 64, 5), (9, 40, 64, 64, 16, 1)):
+        du1 = rng.integers(0, eu - 1, au).astype(np.int32)
+        du2 = rng.integers(0, eu - 1, au).astype(np.int32)
+        du2[: max(1, n_real // 7)] = du1[: max(1, n_real // 7)]
+        du1[n_real:] = du2[n_real:] = 0
+        dest = np.concatenate([du1[:n_real], du2[:n_real]])
+        rep = np.concatenate([np.arange(n_real, dtype=np.int32)] * 2)
+        order = np.argsort(dest, kind="stable")
+        sym_dest = np.zeros(2 * au, np.int32)
+        sym_rep = np.zeros(2 * au, np.int32)
+        sym_dest[:2 * n_real] = dest[order]
+        sym_rep[:2 * n_real] = rep[order]
+        offs = np.searchsorted(sym_dest[:2 * n_real], np.arange(eu + 1))
+        cuda = [torch.from_numpy(x.astype(np.int32)).cuda()
+                for x in (du1, du2, sym_rep, sym_dest, offs)]
+        args = (f(a_rows, d), f(eu, d), f(au, d), f(eu, d),
+                f(4 * d, 2 * d, scale=0.1), f(2 * d), f(2 * d).abs() + 0.5,
+                f(2 * d), ids(a_rows, au), cuda[0], cuda[1], cuda[2],
+                cuda[3], cuda[4])
+        got = ops.fused_sym_bond_conv(*args, msg_block=per_block)
+        want = ref.fused_sym_bond_conv_ref(*args)
+        _check_close(f"sym_bond_conv case {n}", got, want)
+        if got[-1].any():
+            raise RuntimeError("sym_accum: an Eu row with no incidences "
+                               "must be 0")
+        msg = ops.sym_msg(*args[:11], cuda[4], block_rows=per_block)
+        _check_close(f"sym_msg case {n}", msg[:n_real],
+                     ref.sym_msg_ref(*args[:11])[:n_real])
+        n += 2
+    return n
+
+
 def tier_kernel_cases(params, cfg, batch) -> list[dict]:
     """The unfused tier's four kernels on one real packed batch, at the
     inputs the ``FAST_PALLAS`` path gives them (``cfg`` is a config with the
@@ -272,7 +501,8 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
     counts its GEMM and bias only; the bases count a sine or cosine as one
     operation (16 per RBF element, 3 per Fourier element)."""
     with torch.inference_mode():
-        v, e, a, e_a, _e_b, vec, dist = chgnet.embed(params, cfg, batch)
+        v, e, a, e_a, _e_b, vec, dist, _, _ = chgnet.embed(params, cfg,
+                                                           batch)
         theta = basis.compute_geometry(batch)[3]
         bmask = batch.bond_mask[:, None]
         center = batch.bond_center[batch.angle_ij]
@@ -370,7 +600,8 @@ def kernel_phase(cases) -> list[dict]:
             rows.append({
                 "name": c["name"], "route": "cuda",
                 "source": c.get("source", SOURCE),
-                "replaces": c["replaces"], "wrapper": kernel.__name__,
+                "replaces": c["replaces"],
+                "wrapper": c.get("counter", kernel.__name__),
                 "max_abs_err": err, "tolerance": tol, "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms, "flops": c["flops"],
@@ -416,21 +647,26 @@ def backward_phase(cases, seed: int) -> list[dict]:
         err, tol = _check_close(f"{c['name']} backward", tuple(got),
                                 tuple(want))
         bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
-        rows.append({"name": c["name"], "wrapper": c["wrapper"].__name__,
+        if c.get("require_bitwise") and not bitwise:
+            raise RuntimeError(f"{c['name']} backward: two runs gave "
+                               "different gradients")
+        wrapper = c.get("counter", c["wrapper"].__name__)
+        rows.append({"name": c["name"], "wrapper": wrapper,
                      "inputs": len(idx), "max_abs_err": err,
                      "tolerance": tol, "bitwise_repeatable": bitwise})
-        print(f"backward {c['wrapper'].__name__}: {len(idx)} input grads, "
+        print(f"backward {c['name']}: {len(idx)} input grads, "
               f"max|k-p| {err:.3e} (tolerance {tol:.3e}), bitwise "
               f"repeatable: {bitwise}", flush=True)
     return rows
 
 
-def edge_case_phase(seed: int) -> int:
+def edge_case_phase(params, seed: int) -> int:
     """Each kernel against its plain version on ragged CSR layouts: a
     padded tail, unaligned rows without padding, every edge padded, and
     several rows per block; the force+virial kernel also with an empty
-    crystal slot; then the unfused tier's cases (``tier_edge_cases``).
-    Returns the number of cases checked."""
+    crystal slot; then the unfused tier's cases (``tier_edge_cases``) and
+    those of the undirected store and the symmetric trunk
+    (``sym_edge_cases``).  Returns the number of cases checked."""
     rng = np.random.default_rng(seed)
 
     def f(*shape, scale=1.0):
@@ -492,6 +728,7 @@ def edge_case_phase(seed: int) -> int:
                 *args, block_rows=per_block), ref.fused_bond_conv_ref(*args))
             n += 1
         n += tier_edge_cases(f, ids, csr)
+        n += sym_edge_cases(params, f, ids, seed)
     torch.cuda.synchronize()
     return n
 
@@ -655,6 +892,34 @@ def fused_mlp_pallas_phase(seed: int, batch) -> dict:
                    1)
     print(f"FUSED_MLP_PALLAS: launches {row['launches']}; plain path {row}",
           flush=True)
+    return row
+
+
+def half_equals_fused_phase(seed: int, batch) -> dict:
+    """``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
+    §5): one parameter tree, one batch, every output and the loss within
+    the bound, each path launching its kernels."""
+    params = params_on(chgnet.chgnet_init(seed, chgnet_mptrj.FAST_FUSED),
+                       "cuda")
+    outs, losses = {}, {}
+    with torch.inference_mode():
+        for name, cfg in (("FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF),
+                          ("FAST_FUSED", chgnet_mptrj.FAST_FUSED)):
+            ops.reset_launch_counts()
+            outs[name] = chgnet.chgnet_apply(params, cfg, batch)
+            check_launches(f"{name} same-function check", ops.launch_counts(),
+                           PER_FORWARD, 1)
+            losses[name] = chgnet_loss_fn(params, cfg, batch,
+                                          chgnet_mptrj.LOSS)[0]
+    torch.cuda.synchronize()
+    errs = {k: _check_close(f"FAST_FUSED_HALF {k}", outs["FAST_FUSED_HALF"][k],
+                            outs["FAST_FUSED"][k])
+            for k in ("energy", "forces", "stress", "magmom")}
+    errs["loss"] = _check_close("FAST_FUSED_HALF loss",
+                                losses["FAST_FUSED_HALF"],
+                                losses["FAST_FUSED"])
+    row = {k: {"max_abs_err": e, "tolerance": t} for k, (e, t) in errs.items()}
+    print(f"FAST_FUSED_HALF against FAST_FUSED: {row}", flush=True)
     return row
 
 
@@ -942,16 +1207,21 @@ def main() -> None:
     tree = serve.model.tree()
     train_cases = kernel_cases(tree, cfg, train_b0)
     tier_cases = tier_kernel_cases(tree, cfg, train_b0)
+    sym_cases = sym_kernel_cases(tree, train_b0)
     rows = kernel_phase(train_cases)
     tier_rows = kernel_phase(tier_cases)
+    sym_rows = kernel_phase(sym_cases)
     serve_kernel_rows = kernel_phase(kernel_cases(tree, cfg, probe[big]))
     serve_tier_rows = kernel_phase(tier_kernel_cases(tree, cfg, probe[big]))
-    print(f"kernels: {edge_case_phase(args.seed)} ragged-layout and edge "
-          "cases agree with the plain versions", flush=True)
+    serve_sym_cases = sym_kernel_cases(tree, probe[big])
+    serve_sym_rows = kernel_phase(serve_sym_cases)
+    print(f"kernels: {edge_case_phase(tree, args.seed)} ragged-layout and "
+          "edge cases agree with the plain versions", flush=True)
 
     # 4. the wrappers' backwards against plain autograd, on the training
     # batch
-    backward_rows = backward_phase(train_cases + tier_cases, args.seed)
+    backward_rows = backward_phase(
+        train_cases + tier_cases + sym_backward_cases(sym_cases), args.seed)
 
     # 5. serve: each path driven with the counters set to 0 just before it
     serve_rows = {
@@ -964,17 +1234,28 @@ def main() -> None:
             "WO_HEAD_PALLAS", WO_HEAD_PALLAS,
             chgnet.chgnet_init(args.seed, WO_HEAD_PALLAS), crystals, probe,
             2, PER_FORWARD_WO_HEAD),
+        "FAST_FUSED_SYM": serve_phase(
+            "FAST_FUSED_SYM", chgnet_mptrj.FAST_FUSED_SYM, params, crystals,
+            probe, STEPS, PER_FORWARD_SYM, args.profile),
+        "FAST_FUSED_HALF": serve_phase(
+            "FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, params,
+            crystals, probe, 2, PER_FORWARD),
     }
     for row in serve_kernel_rows:
         row["launches"] = serve_rows["FAST_FUSED"]["launches"][row["wrapper"]]
     for row in serve_tier_rows:
         row["launches"] = serve_rows["FAST_PALLAS"]["launches"][row["wrapper"]]
+    for row, c in zip(serve_sym_rows, serve_sym_cases):
+        row["launches"] = serve_rows[c["path"]]["launches"][row["wrapper"]]
     serve_rows["FAST_FUSED"]["groups"] = group_sizes
-    serve_rows["kernels_at_serve_batch"] = serve_kernel_rows + serve_tier_rows
+    serve_rows["kernels_at_serve_batch"] = serve_kernel_rows \
+        + serve_tier_rows + serve_sym_rows
     print(json.dumps({"serve": serve_rows}))
 
     # 6. the fused convs beside the unfused tier's GatedMLP and bases
     fused_mlp = fused_mlp_pallas_phase(args.seed, train_b0)
+    # the undirected store against the directed one: the same function
+    half_vs_fused = half_equals_fused_phase(args.seed, train_b0)
 
     # 7. train: each path driven with the counters set to 0 just before it
     train_rows = {}
@@ -984,6 +1265,10 @@ def main() -> None:
              PER_FORWARD_VIRIAL),
             ("FAST_PALLAS", FAST_PALLAS, 3, PER_FORWARD_PALLAS),
             ("WO_HEAD_PALLAS", WO_HEAD_PALLAS, 2, PER_FORWARD_WO_HEAD),
+            ("FAST_FUSED_SYM", chgnet_mptrj.FAST_FUSED_SYM, 3,
+             PER_FORWARD_SYM),
+            ("FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, 2,
+             PER_FORWARD),
             ("REFERENCE", chgnet_mptrj.REFERENCE, 2, {})):
         train_rows[name] = train_phase(name, tcfg, ds, train_caps, steps,
                                        per, args.seed, args.profile)
@@ -996,16 +1281,22 @@ def main() -> None:
         row["launches"] = train_rows[path]["launches"][row["wrapper"]]
         if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on {path}")
+    for row, c in zip(sym_rows, sym_cases):
+        row["launches"] = train_rows[c["path"]]["launches"][row["wrapper"]]
+        if not row["launches"]:
+            raise RuntimeError(f"{row['name']} was not launched on "
+                               f"{c['path']}")
 
-    # 8. learns
+    # 9. learns
     learns = learns_phase(args.seed)
     primary = [r for r, c in zip(tier_rows, tier_cases) if c["primary"]]
     extra = [r for r, c in zip(tier_rows, tier_cases) if not c["primary"]]
     print(json.dumps({"train": dict(
-        train_rows, FUSED_MLP_PALLAS=fused_mlp, backward=backward_rows,
+        train_rows, FUSED_MLP_PALLAS=fused_mlp,
+        FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
         learns=learns, kernel_extra_shapes=extra,
         dataset={"crystals": len(ds), "caps": vars(train_caps)})}))
-    print(json.dumps({"kernels": rows + primary}))
+    print(json.dumps({"kernels": rows + primary + sym_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,10 @@ PyTorch port of ``repro.core.basis``:
   - ``smooth_rbf``          : trainable-frequency smooth radial Bessel basis
   - ``fourier_basis``       : angle Fourier expansion [DC, cos(n t), sin(n t)]
   - ``compute_geometry``    : bond vectors / distances / angle cosines of a
-                              padded batch.
+                              padded batch;
+  - ``compute_geometry_undirected`` : the same once per undirected pair
+                              (DESIGN.md §5), the angles optionally at the
+                              angle-pair dedup rows.
 
 Geometry and every basis expansion stay f32 (DESIGN.md §4).
 """
@@ -136,3 +139,41 @@ def compute_geometry(
     )
     cos_t, theta = _angle_cosines(vec, dist, graph.angle_ij, graph.angle_ik)
     return vec, dist, cos_t, theta
+
+
+def compute_geometry_undirected(
+    graph: CrystalGraphBatch,
+    *,
+    displacement: torch.Tensor | None = None,
+    strain: torch.Tensor | None = None,
+    angle_rows: str = "directed",
+):
+    """Geometry on the undirected half-graph store (DESIGN.md §5).
+
+    Bond vectors and lengths are computed once per undirected pair; the
+    directed views go through the mirror maps,
+    ``vec = bond_sign * vec_und[bond_pair]`` and
+    ``dist = dist_und[bond_pair]`` (padded bonds carry sign 0 and pair 0).
+    ``angle_rows="undirected"`` takes the angle cosines at the angle-pair
+    dedup rows (``und_angle_ij`` / ``und_angle_ik``, Au rows), where the
+    swap-symmetric cosine equals both directed rows it stands for;
+    ``"directed"`` at the ordered angle list.
+
+    Returns (vec_und (Eu,3), dist_und (Eu,), vec (Nb,3), dist (Nb,),
+    cos_theta, theta), the angle outputs at Na or Au rows.
+    """
+    cart, lattice = _cart_positions(graph, displacement, strain)
+    vec_und, dist_und = _bond_vectors(
+        cart, lattice, graph.und_center, graph.und_nbr, graph.und_image,
+        graph.und_crystal,
+    )
+    vec = graph.bond_sign[..., None] * _rows(vec_und, graph.bond_pair)
+    dist = _rows(dist_und, graph.bond_pair)
+    if angle_rows == "undirected":
+        ij, ik = graph.und_angle_ij, graph.und_angle_ik
+    elif angle_rows == "directed":
+        ij, ik = graph.angle_ij, graph.angle_ik
+    else:
+        raise ValueError(f"unknown angle_rows {angle_rows!r}")
+    cos_t, theta = _angle_cosines(vec, dist, ij, ik)
+    return vec_und, dist_und, vec, dist, cos_t, theta

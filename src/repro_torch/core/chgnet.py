@@ -10,9 +10,9 @@ readout of reference CHGNet.  ``CHGNet`` wraps the same tree as an
 ...).
 
 ``CHGNetConfig`` mirrors the JAX config field for field.  Values this
-port does not implement yet raise ``NotImplementedError`` naming the
-ROADMAP item that adds them; ``table_residency`` is a TPU mechanic and is
-accepted and ignored.
+port does not implement yet (``precision`` other than f32) raise
+``NotImplementedError`` naming the ROADMAP item that adds them;
+``table_residency`` is a TPU mechanic and is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -84,13 +84,10 @@ class CHGNetConfig:
 
 def check_supported(cfg: CHGNetConfig) -> None:
     """Raise ``NotImplementedError`` for a tier this port lacks so far."""
-    todo = "is not ported yet: ROADMAP 'Modules to port' item"
-    if cfg.bond_store == "undirected":
-        raise NotImplementedError(f'bond_store="undirected" {todo} 5')
-    if cfg.bond_features == "undirected":
-        raise NotImplementedError(f'bond_features="undirected" {todo} 6')
     if cfg.precision != "f32":
-        raise NotImplementedError(f"precision={cfg.precision!r} {todo} 8")
+        raise NotImplementedError(
+            f"precision={cfg.precision!r} is not ported yet: ROADMAP "
+            "'Modules to port' item 8")
 
 
 def resolve_device(device) -> torch.device:
@@ -139,41 +136,74 @@ def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
           displacement=None, strain=None):
     """Geometry, bases and feature embedding (Eq. 2).
 
-    Returns ``(v, e, a, e_a, e_b, vec, dist)``: atom, bond and angle
-    features, the two envelope tables, and the bond geometry the heads
-    read.  The envelope tables are made contiguous once here, because
-    every block's kernels read them row by row.  ``mlp_impl="pallas"``
-    takes the bases from their kernels, whose envelope is always the
-    factored one, as in the JAX package.  ``displacement`` / ``strain``
-    perturb the geometry for the autodiff readout.
+    Returns ``(v, e, a, e_a, e_b, vec, dist, vec_und, dist_und)``: atom,
+    bond and angle features, the two envelope tables, the directed bond
+    geometry the heads read and, on the undirected store, its once-per-pair
+    geometry (else ``None``).  The envelope tables are made contiguous once
+    here, because every block's kernels read them row by row.
+    ``mlp_impl="pallas"`` takes the bases from their kernels, whose
+    envelope is always the factored one, as in the JAX package.
+    ``displacement`` / ``strain`` perturb the geometry for the autodiff
+    readout.
+
+    ``bond_store="undirected"`` (DESIGN.md §5): the RBF and the bond
+    embedding run once per undirected pair (Eu rows), the Fourier basis
+    and the angle embedding once per angle-pair dedup row (Au rows); e^a
+    and e^b stay at Eu.  With ``bond_features="directed"`` e and a expand
+    to the directed rows through ``bond_pair`` / ``angle_pair``; with
+    ``"undirected"`` (§10) e stays at Eu and a at Au.
     """
-    vec, dist, _cos, theta = basis.compute_geometry(
-        graph, displacement=displacement, strain=strain)
+    undirected = cfg.bond_store == "undirected"
+    if undirected:
+        vec_und, dist_und, vec, dist, _cos, theta = \
+            basis.compute_geometry_undirected(
+                graph, displacement=displacement, strain=strain,
+                angle_rows="undirected")
+        rbf_dist = dist_und
+    elif cfg.bond_store == "directed":
+        vec, dist, _cos, theta = basis.compute_geometry(
+            graph, displacement=displacement, strain=strain)
+        vec_und = dist_und = None
+        rbf_dist = dist
+    else:
+        raise ValueError(f"unknown bond store {cfg.bond_store!r}")
     if cfg.mlp_impl == "pallas":
         from repro_torch.kernels import ops as kops
 
-        rbf = kops.fused_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
+        rbf = kops.fused_rbf(rbf_dist, params["rbf_freqs"], cfg.r_cut_atom,
                              cfg.envelope_p)
         four = kops.fused_fourier(theta, cfg.num_fourier)
     else:
         env = (basis.envelope_factored if cfg.envelope_impl == "factored"
                else basis.envelope_reference)
-        rbf = basis.smooth_rbf(dist, params["rbf_freqs"], cfg.r_cut_atom,
+        rbf = basis.smooth_rbf(rbf_dist, params["rbf_freqs"], cfg.r_cut_atom,
                                cfg.envelope_p, envelope=env)
         four = basis.fourier_basis(theta, cfg.num_fourier)
-    packed = linear_apply(params["bond_embed"], rbf)  # (Nb, 3*dim)
+    packed = linear_apply(params["bond_embed"], rbf)  # (Nb or Eu, 3*dim)
     e0, e_a, e_b = packed.chunk(3, dim=-1)
     v = gather_rows(params["atom_embed"], graph.atom_z) \
         * graph.atom_mask[..., None]
-    a = linear_apply(params["angle_embed"], four) \
-        * graph.angle_mask[..., None]
-    e = e0 * graph.bond_mask[..., None]
-    return v, e, a, e_a.contiguous(), e_b.contiguous(), vec, dist
+    a = linear_apply(params["angle_embed"], four)
+    if undirected:
+        umask = graph.und_mask[..., None]
+        e_a, e_b = e_a * umask, e_b * umask
+        a = a * graph.und_angle_mask[..., None]
+        if cfg.bond_features == "undirected":
+            e = e0 * umask
+        else:
+            # padded angles and bonds carry pair 0: re-mask after expanding
+            a = gather_rows(a, graph.angle_pair) * graph.angle_mask[..., None]
+            e = gather_rows(e0, graph.bond_pair) * graph.bond_mask[..., None]
+    else:
+        a = a * graph.angle_mask[..., None]
+        e = e0 * graph.bond_mask[..., None]
+    return (v, e, a, e_a.contiguous(), e_b.contiguous(), vec, dist, vec_und,
+            dist_und)
 
 
 def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
            displacement=None, strain=None):
-    v, e, a, e_a, e_b, vec, dist = embed(
+    v, e, a, e_a, e_b, vec, dist, vec_und, dist_und = embed(
         params, cfg, graph, displacement=displacement, strain=strain)
     for blk in params["blocks"]:
         v, e, a = interaction_block_apply(
@@ -182,12 +212,15 @@ def _trunk(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
             mlp_impl=cfg.mlp_impl,
             agg_impl=cfg.agg_impl,
             conv_impl=cfg.conv_impl,
+            bond_store=cfg.bond_store,
+            bond_features=cfg.bond_features,
         )
     # last block updates atoms only (matches CHGNet's final atom conv)
     v = atom_conv(params["final_block"], graph, v, e, e_a,
                   mlp_impl=cfg.mlp_impl, agg_impl=cfg.agg_impl,
-                  conv_impl=cfg.conv_impl)
-    return v, e, a, vec, dist
+                  conv_impl=cfg.conv_impl, bond_store=cfg.bond_store,
+                  bond_features=cfg.bond_features)
+    return v, e, a, vec, dist, vec_und, dist_und
 
 
 def _autodiff_readout(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
@@ -239,12 +272,17 @@ def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
         return _autodiff_readout(params, cfg, graph)
     if cfg.readout != "direct":
         raise ValueError(f"unknown readout {cfg.readout!r}")
-    v, e, _a, vec, dist = _trunk(params, cfg, graph)
+    v, e, _a, vec, dist, vec_und, dist_und = _trunk(params, cfg, graph)
+    if cfg.bond_features == "undirected":
+        # the heads read per-directed-bond features: expand the Eu-resident
+        # e once, at the heads boundary (DESIGN.md §10)
+        e = gather_rows(e, graph.bond_pair) * graph.bond_mask[..., None]
     energy = heads.energy_head_apply(params["energy_head"], graph, v)
     magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)
     if cfg.stress_mode == "bond_virial":
         forces, stress = heads.force_virial_head_apply(
             params["force_head"], graph, e, vec, dist,
+            vec_und=vec_und, dist_und=dist_und,
             agg_impl=cfg.agg_impl, conv_impl=cfg.conv_impl,
             bond_store=cfg.bond_store)
     elif cfg.stress_mode == "mlp":

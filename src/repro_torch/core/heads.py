@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import scatter_rows
 from .graph import CrystalGraphBatch
 from .interaction import linear_apply, linear_init, segment_aggregate
 
@@ -146,7 +147,8 @@ def _virial_raw_to_gpa(raw, graph: CrystalGraphBatch):
 
 
 def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
-                            bond_dist, *, agg_impl: str = "scatter",
+                            bond_dist, *, vec_und=None, dist_und=None,
+                            agg_impl: str = "scatter",
                             conv_impl: str = "unfused",
                             bond_store: str = "directed"):
     """Force + bond-virial stress from one set of per-bond scalars.
@@ -159,14 +161,15 @@ def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
 
     The stress has no parameters of its own, so it is symmetric and
     rotates as R sigma R^T by construction.  ``conv_impl="fused"`` runs
-    both in ``kernels.ops.fused_force_virial_readout``; the unfused path
-    is the same math through ``segment_aggregate``.  Only the directed
-    bond store is ported.
+    both in ``kernels.ops.fused_force_virial_readout`` (it reads the
+    directed ``e``, whatever the store); the unfused path is the same math
+    through ``segment_aggregate``.  With ``bond_store="undirected"``
+    (DESIGN.md §5) the unfused path takes the outer products once per
+    undirected pair from ``vec_und`` / ``dist_und`` (x_hat⊗x_hat does not
+    depend on the bond's sign): the directed n d weights are summed onto
+    the Eu rows through ``bond_pair`` first, in a fixed order
+    (``kernels.ref.scatter_rows``: ``bond_pair`` is not sorted).
     """
-    if bond_store != "directed":
-        raise NotImplementedError(
-            f'bond_store="{bond_store}" is not ported yet: ROADMAP '
-            "'Modules to port' item 5")
     x_hat = bond_unit_vectors(bond_vec, bond_dist)
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
@@ -186,9 +189,19 @@ def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
         offsets=graph.bond_offsets)
     forces = forces * graph.atom_mask[..., None].to(forces.dtype)
     w = n_ij.float() * bond_dist.float() * graph.bond_mask
-    xh32 = x_hat.float()
-    outer = (xh32[:, :, None] * xh32[:, None, :]).reshape(-1, 9)
-    raw = _per_crystal_aggregate(w[:, None] * outer, graph.bond_crystal,
-                                 graph.num_crystals, graph.bond_mask,
-                                 agg_impl)
+    if bond_store == "undirected":
+        w_u = scatter_rows(w[:, None], graph.bond_pair, graph.und_cap)
+        xh_u = bond_unit_vectors(vec_und.float(), dist_und.float())
+        outer = (xh_u[:, :, None] * xh_u[:, None, :]).reshape(-1, 9)
+        raw = _per_crystal_aggregate(w_u * outer, graph.und_crystal,
+                                     graph.num_crystals, graph.und_mask,
+                                     agg_impl)
+    elif bond_store == "directed":
+        xh32 = x_hat.float()
+        outer = (xh32[:, :, None] * xh32[:, None, :]).reshape(-1, 9)
+        raw = _per_crystal_aggregate(w[:, None] * outer, graph.bond_crystal,
+                                     graph.num_crystals, graph.bond_mask,
+                                     agg_impl)
+    else:
+        raise ValueError(f"unknown bond store {bond_store!r}")
     return forces, _virial_raw_to_gpa(raw.reshape(-1, 3, 3), graph)

@@ -12,9 +12,15 @@ GatedMLP phi(x) = sigmoid(LN(x@Wg+bg)) * silu(LN(x@Wc+bc)), with its
 parameters stored packed as in the JAX package (``w = [Wc ‖ Wg]`` of
 shape (d_in, 2d), applied as ``x @ w + b``), so the weight bridge is a
 copy.  ``conv_impl="fused"`` routes the whole message path of atom_conv /
-bond_conv to the hand-written kernels in ``repro_torch.kernels.ops``; on
-the unfused path ``mlp_impl="pallas"`` and ``agg_impl="pallas"`` route
-the GatedMLP and the segment sum to theirs.
+bond_conv / sym_bond_conv to the hand-written kernels in
+``repro_torch.kernels.ops``; on the unfused path ``mlp_impl="pallas"`` and
+``agg_impl="pallas"`` route the GatedMLP and the segment sum to theirs.
+
+``bond_store="undirected"`` (DESIGN.md §5) keeps the envelopes e^a / e^b
+at the undirected rows (Eu), read through ``graph.bond_pair``;
+``bond_features="undirected"`` (§10, the symmetric trunk) keeps e at Eu
+and a at the angle-pair dedup rows (Au) too, with the symmetrized bond
+conv and angle update below.
 """
 from __future__ import annotations
 
@@ -143,13 +149,19 @@ def interaction_block_init(gen: torch.Generator, dim: int = 64) -> dict:
 
 
 def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
-              conv_impl: str = "unfused"):
+              conv_impl: str = "unfused", bond_store: str = "directed",
+              bond_features: str = "directed"):
     """Eq. 4: v_i <- v_i + L_v[ sum_j e^a_ij * phi(v_i, v_j, e_ij) ].
 
     ``conv_impl="fused"`` runs the message path (gather -> GatedMLP ->
     envelope -> reduce) as one kernel over the sorted CSR rows (DESIGN.md
-    §3); ``mlp_impl``/``agg_impl`` are then subsumed.
+    §3); ``mlp_impl``/``agg_impl`` are then subsumed.  The undirected
+    store reads ``e_a`` (and, with ``bond_features="undirected"``, ``e``)
+    at Eu rows through ``bond_pair``: the envelope is a function of |r_ij|
+    and e_ij == e_ji in the symmetric trunk, so no sign is applied.
     """
+    mirror = bond_store == "undirected"
+    und = bond_features == "undirected"
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
@@ -157,11 +169,14 @@ def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
         agg = kops.fused_atom_conv(
             v, e, e_a, mlp["w"], mlp["b"], mlp["ln_scale"], mlp["ln_bias"],
             graph.bond_center, graph.bond_nbr, graph.bond_offsets,
+            pair=graph.bond_pair if mirror else None, und_features=und,
         )
     elif conv_impl == "unfused":
+        e_dir = gather_rows(e, graph.bond_pair) if und else e
         f_v = torch.cat([gather_rows(v, graph.bond_center),
-                         gather_rows(v, graph.bond_nbr), e], dim=-1)
-        msg = gated_mlp_apply(p["atom_mlp"], f_v, mlp_impl) * e_a
+                         gather_rows(v, graph.bond_nbr), e_dir], dim=-1)
+        env = gather_rows(e_a, graph.bond_pair) if mirror else e_a
+        msg = gated_mlp_apply(p["atom_mlp"], f_v, mlp_impl) * env
         agg = segment_aggregate(
             msg, graph.bond_center, graph.atom_cap, graph.bond_mask, agg_impl,
             offsets=graph.bond_offsets)
@@ -172,12 +187,16 @@ def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
 
 
 def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
-              agg_impl, conv_impl: str = "unfused"):
+              agg_impl, conv_impl: str = "unfused",
+              bond_store: str = "directed"):
     """Eq. 5: e_ij <- e_ij + L_e[ sum_k e^b_ij * e^b_ik * phi(f_e) ].
 
     ``v_in`` is v^{t+1} in the reference variant, v^t in the fast variant.
+    The undirected store reads both envelope factors at Eu rows through
+    ``bond_pair[angle_*]``.
     """
     center = graph.bond_center[graph.angle_ij]
+    mirror = bond_store == "undirected"
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
@@ -185,15 +204,18 @@ def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
         agg = kops.fused_bond_conv(
             v_in, e, a, e_b, mlp["w"], mlp["b"], mlp["ln_scale"],
             mlp["ln_bias"], graph.angle_ij, graph.angle_ik, center,
-            graph.angle_offsets,
+            graph.angle_offsets, pair=graph.bond_pair if mirror else None,
         )
     elif conv_impl == "unfused":
         f_e = torch.cat(
             [gather_rows(v_in, center), gather_rows(e, graph.angle_ij),
              gather_rows(e, graph.angle_ik), a], dim=-1)
         msg = gated_mlp_apply(p["bond_mlp"], f_e, mlp_impl)
-        msg = msg * gather_rows(e_b, graph.angle_ij) \
-            * gather_rows(e_b, graph.angle_ik)
+        env_ij, env_ik = graph.angle_ij, graph.angle_ik
+        if mirror:
+            env_ij = graph.bond_pair[env_ij.long()]
+            env_ik = graph.bond_pair[env_ik.long()]
+        msg = msg * gather_rows(e_b, env_ij) * gather_rows(e_b, env_ik)
         agg = segment_aggregate(
             msg, graph.angle_ij, graph.bond_cap, graph.angle_mask, agg_impl,
             offsets=graph.angle_offsets)
@@ -216,6 +238,77 @@ def angle_update(p, graph: CrystalGraphBatch, v_in, e_in, a, *, mlp_impl):
     return a + upd * graph.angle_mask[..., None].to(a.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Symmetric half-graph trunk (DESIGN.md §10, bond_features="undirected")
+# ---------------------------------------------------------------------------
+
+def _sym_ids(graph: CrystalGraphBatch):
+    """Per dedup angle row: its center atom and the undirected ids of its
+    two bonds."""
+    ij, ik = graph.und_angle_ij.long(), graph.und_angle_ik.long()
+    return graph.bond_center[ij], graph.bond_pair[ij], graph.bond_pair[ik]
+
+
+def _sym_inputs(graph: CrystalGraphBatch, v_in, e_in, a_u):
+    """Swap-symmetrized f over Au rows: [v_center, e_s, e_s, a_u].
+
+    e_s = e[du1] + e[du2] is invariant under swapping the pair's two
+    bonds, so both directed orientations of a dedup angle give the same
+    row and one GatedMLP evaluation stands in for both.  The width is the
+    directed f = [v, e_ij, e_ik, a]'s, so the parameters are shared.
+    """
+    ctr, du1, du2 = _sym_ids(graph)
+    e_s = gather_rows(e_in, du1) + gather_rows(e_in, du2)
+    f = torch.cat([gather_rows(v_in, ctr), e_s, e_s, a_u], dim=-1)
+    return f, du1, du2
+
+
+def sym_bond_conv(p, graph: CrystalGraphBatch, v_in, e, a_u, e_b, *,
+                  mlp_impl, agg_impl, conv_impl: str = "unfused"):
+    """Symmetrized Eq. 5 over Eu rows (DESIGN.md §10).
+
+    ``e`` / ``e_b`` live at Eu, ``a_u`` at Au.  One message per real dedup
+    angle, phi([v_ctr, e_s, e_s, a_u]) * e^b[du1] * e^b[du2], goes to both
+    undirected bonds of its pair through the dest-sorted incidence store
+    (``sym_dest`` / ``sym_rep`` / ``sym_offsets``).  ``conv_impl="fused"``
+    runs ``kernels.ops.fused_sym_bond_conv`` (two kernels).
+    """
+    if conv_impl == "fused":
+        from repro_torch.kernels import ops as kops
+
+        mlp = p["bond_mlp"]
+        ctr, du1, du2 = _sym_ids(graph)
+        agg = kops.fused_sym_bond_conv(
+            v_in, e, a_u, e_b, mlp["w"], mlp["b"], mlp["ln_scale"],
+            mlp["ln_bias"], ctr, du1, du2, graph.sym_rep, graph.sym_dest,
+            graph.sym_offsets)
+    elif conv_impl == "unfused":
+        f, du1, du2 = _sym_inputs(graph, v_in, e, a_u)
+        msg = gated_mlp_apply(p["bond_mlp"], f, mlp_impl)
+        msg = msg * gather_rows(e_b, du1) * gather_rows(e_b, du2)
+        # incidences are valid by position: the padded ones carry rep 0,
+        # a real Au row, so und_angle_mask[sym_rep] would let them through
+        incid_mask = (torch.arange(graph.angle_cap, device=e.device)
+                      < graph.sym_offsets[-1]).to(e.dtype)
+        agg = segment_aggregate(
+            gather_rows(msg, graph.sym_rep), graph.sym_dest, graph.und_cap,
+            incid_mask, agg_impl, offsets=graph.sym_offsets)
+    else:
+        raise ValueError(f"unknown conv impl {conv_impl!r}")
+    mask = graph.und_mask[..., None].to(e.dtype)
+    return e + linear_apply(p["bond_out"], agg) * mask
+
+
+def sym_angle_update(p, graph: CrystalGraphBatch, v_in, e_in, a_u, *,
+                     mlp_impl):
+    """Symmetrized Eq. 6 at Au rows (DESIGN.md §10): one update per dedup
+    angle stands in for both directed orientations.  ``e_in`` is the
+    Eu-resident bond table."""
+    f_a, _, _ = _sym_inputs(graph, v_in, e_in, a_u)
+    upd = gated_mlp_apply(p["angle_mlp"], f_a, mlp_impl)
+    return a_u + upd * graph.und_angle_mask[..., None].to(a_u.dtype)
+
+
 def interaction_block_apply(
     p,
     graph: CrystalGraphBatch,
@@ -229,22 +322,41 @@ def interaction_block_apply(
     mlp_impl: str = "packed",
     agg_impl: str = "scatter",
     conv_impl: str = "unfused",
+    bond_store: str = "directed",
+    bond_features: str = "directed",
 ):
-    """One interaction block IB^t (paper Eq. 3), either variant."""
+    """One interaction block IB^t (paper Eq. 3), either variant.
+
+    ``bond_features="undirected"`` (DESIGN.md §10) takes the symmetric
+    trunk's updates: ``e`` is Eu-resident, ``a`` Au-resident.
+    """
+    sym = bond_features == "undirected"
     v_new = atom_conv(p, graph, v, e, e_a, mlp_impl=mlp_impl,
-                      agg_impl=agg_impl, conv_impl=conv_impl)
+                      agg_impl=agg_impl, conv_impl=conv_impl,
+                      bond_store=bond_store, bond_features=bond_features)
 
     def _bond(v_in):
+        if sym:
+            return sym_bond_conv(p, graph, v_in, e, a, e_b,
+                                 mlp_impl=mlp_impl, agg_impl=agg_impl,
+                                 conv_impl=conv_impl)
         return bond_conv(p, graph, v_in, e, a, e_b, mlp_impl=mlp_impl,
-                         agg_impl=agg_impl, conv_impl=conv_impl)
+                         agg_impl=agg_impl, conv_impl=conv_impl,
+                         bond_store=bond_store)
+
+    def _angle(v_in, e_in):
+        if sym:
+            return sym_angle_update(p, graph, v_in, e_in, a,
+                                    mlp_impl=mlp_impl)
+        return angle_update(p, graph, v_in, e_in, a, mlp_impl=mlp_impl)
 
     if variant == "reference":
         e_new = _bond(v_new)
-        a_new = angle_update(p, graph, v_new, e_new, a, mlp_impl=mlp_impl)
+        a_new = _angle(v_new, e_new)
     elif variant == "fast":
         # dependency elimination (Eq. 11): all three read layer-t features
         e_new = _bond(v)
-        a_new = angle_update(p, graph, v, e, a, mlp_impl=mlp_impl)
+        a_new = _angle(v, e)
     else:
         raise ValueError(f"unknown block variant {variant!r}")
     return v_new, e_new, a_new

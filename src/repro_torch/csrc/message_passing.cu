@@ -3,8 +3,13 @@
 // One kernel per TPU megakernel of the serving and training paths:
 //
 //   atom_conv_fwd      replaces _atom_conv_kernel
-//                      (src/repro/kernels/fused_message_passing.py:252)
-//   bond_conv_fwd      replaces _bond_conv_kernel (same file, :488)
+//                      (src/repro/kernels/fused_message_passing.py:252),
+//                      with its mirror operands (pair, und)
+//   bond_conv_fwd      replaces _bond_conv_kernel (same file, :488), with
+//                      its mirror operands (pij, pik)
+//   sym_msg_fwd        replaces _sym_msg_kernel (same file, :1002), phase A
+//                      of the symmetric bond conv; phase B, _sym_accum_kernel
+//                      (:1112), is sym_accum_fwd in segment_sum.cu
 //   force_readout_fwd  replaces _force_kernel (same file, :737), virial=False
 //   force_virial_fwd + virial_crystal_sum
 //                      replace _force_virial_kernel (same file, :758),
@@ -46,6 +51,10 @@
 // bytes, about 31 flops per byte, and is operation-bound the same way; its
 // virial epilogue adds ~20 flops and 4 bytes (dist) per bond, and the
 // crystal sum reads the (A, 9) row partials once.
+// sym_msg_fwd is the same GEMM with K = 3D (the two e slots of the bond
+// MLP read the same swap-symmetric row, so the wrapper adds their weight
+// blocks once per call) over the real dedup-angle rows only: at batch 128
+// about 2 GFLOP, also bound by operations.
 // Making them fast (wgmma on TF32-free f32 splits, TMA) is later work; this
 // is the simple, right version.
 
@@ -86,44 +95,71 @@ __device__ __forceinline__ void accumulate_tile(
   }
 }
 
-// atom_conv_fwd (BOND = false), Eq. 4 message path.  Per atom row i, over
+enum ConvMode { ATOM = 0, BOND = 1, SYM = 2 };
+
+// MODE = ATOM: atom_conv_fwd, Eq. 4 message path.  Per atom row i, over
 // the bonds b in [offs[i], offs[i+1]) in order:
-//   out[i] = sum_b e_a[b] * silu(LN(y_c)) * sigmoid(LN(y_g)),
-//   y = [v[center[b]] | v[nbr[b]] | e[b]] @ W + bias,  y = [y_c | y_g].
-// W is (3D, 2D) packed [Wc | Wg], applied as x @ W.
+//   out[i] = sum_b e_a[b'] * silu(LN(y_c)) * sigmoid(LN(y_g)),
+//   y = [v[center[b]] | v[nbr[b]] | e[b"]] @ W + bias,  y = [y_c | y_g],
+// with W (3D, 2D) packed [Wc | Wg], applied as x @ W.  The directed store
+// reads b' = b" = b.  The undirected store (MIRROR, DESIGN.md §5) keeps
+// e_a as an (Eu, D) table read at b' = pair[b]; the symmetric trunk (UND,
+// §10) keeps e as one too, read at b" = pair[b].
 //
-// bond_conv_fwd (BOND = true), Eq. 5 message path.  Per bond row j, over
+// MODE = BOND: bond_conv_fwd, Eq. 5 message path.  Per bond row j, over
 // the angles n in [offs[j], offs[j+1]) in order:
 //   out[j] = sum_n phi([v[ctr[n]] | e[ij[n]] | e[ik[n]] | a[n]])
-//                  * e_b[ij[n]] * e_b[ik[n]],
-// with ctr = bond_center[angle_ij] from the caller and W (4D, 2D).
+//                  * e_b[p1[n]] * e_b[p2[n]],
+// with ctr = bond_center[angle_ij] from the caller and W (4D, 2D).  The
+// envelope rows p1/p2 are ij/ik on the directed store and pair[ij] /
+// pair[ik] of the (Eu, D) table on the undirected one (composed by the
+// caller).
 //
-// Arguments: id0/id1/id2 are (center, nbr, -) for the atom conv and
-// (ctr, ij, ik) for the bond conv; env is e_a (E, D) or e_b (E, D).
-template <bool BOND>
+// MODE = SYM: sym_msg_fwd, phase A of the symmetric bond conv (§10).  No
+// reduction: per real dedup-angle row g,
+//   out[g] = phi([v[ctr[g]] | e[du1[g]] + e[du2[g]] | a_u[g]])
+//            * e_b[du1[g]] * e_b[du2[g]],
+// with W (3D, 2D) = [W1 | W2 + W3 | W4] from the caller.  The real rows
+// are the prefix [0, offs[n_rows] / 2) (each owns two incidences of the
+// (Eu + 1,) offsets); a block past it exits, so the count is read on the
+// device and rows past it are left unwritten.
+//
+// Arguments: id0/id1/id2 are (center, nbr, -) for the atom conv, (ctr, ij,
+// ik) for the bond conv and (ctr, du1, du2) for phase A; env is e_a, e_b or
+// e_b; p1 is pair (atom conv) or the first envelope row (bond conv), p2 the
+// second envelope row.
+template <int MODE, bool MIRROR, bool UND>
 __global__ void conv_fwd_kernel(
     const float* __restrict__ v, const float* __restrict__ e,
     const float* __restrict__ a, const float* __restrict__ env,
     const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ lns, const float* __restrict__ lnb,
     const int* __restrict__ id0, const int* __restrict__ id1,
-    const int* __restrict__ id2, const int* __restrict__ offs,
+    const int* __restrict__ id2, const int* __restrict__ p1,
+    const int* __restrict__ p2, const int* __restrict__ offs,
     float* __restrict__ out, int n_rows, int D, int rows_per_block) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int d_in = (BOND ? 4 : 3) * D;
+  const int d_in = (MODE == BOND ? 4 : 3) * D;
   const int n2 = 2 * D;
   float* xs = smem;              // (TE, d_in) gathered rows; then (TE, D) msgs
   float* ys = smem + TE * d_in;  // (TE, 2D) GEMM rows, normalized in place
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, n_rows);
-  const int start = offs[r0], end = offs[r1];
+  int r0 = 0, r1 = 0, start, end;
+  if (MODE == SYM) {
+    start = blockIdx.x * rows_per_block;
+    end = min(start + rows_per_block, offs[n_rows] >> 1);
+  } else {
+    r0 = blockIdx.x * rows_per_block;
+    r1 = min(r0 + rows_per_block, n_rows);
+    start = offs[r0];
+    end = offs[r1];
+  }
 
   int row = r0;
-  int row_end = offs[r0 + 1];
+  int row_end = MODE == SYM ? 0 : offs[r0 + 1];
   float acc = 0.0f;
 
   for (int base = start; base < end; base += TE) {
@@ -138,18 +174,23 @@ __global__ void conv_fwd_kernel(
         const int g = base + t;
         const int part = k / D;
         const int kk = k - part * D;
-        const float* src;
-        if (BOND) {
-          src = part == 0 ? v + (size_t)id0[g] * D
-              : part == 1 ? e + (size_t)id1[g] * D
-              : part == 2 ? e + (size_t)id2[g] * D
-                          : a + (size_t)g * D;
+        if (MODE == BOND) {
+          const float* src = part == 0 ? v + (size_t)id0[g] * D
+                           : part == 1 ? e + (size_t)id1[g] * D
+                           : part == 2 ? e + (size_t)id2[g] * D
+                                       : a + (size_t)g * D;
+          val = src[kk];
+        } else if (MODE == SYM) {
+          val = part == 0 ? v[(size_t)id0[g] * D + kk]
+              : part == 1 ? e[(size_t)id1[g] * D + kk]
+                                + e[(size_t)id2[g] * D + kk]
+                          : a[(size_t)g * D + kk];
         } else {
-          src = part == 0 ? v + (size_t)id0[g] * D
-              : part == 1 ? v + (size_t)id1[g] * D
-                          : e + (size_t)g * D;
+          const float* src = part == 0 ? v + (size_t)id0[g] * D
+                           : part == 1 ? v + (size_t)id1[g] * D
+                                       : e + (size_t)(UND ? p1[g] : g) * D;
+          val = src[kk];
         }
-        val = src[kk];
       }
       xs[idx] = val;
     }
@@ -199,7 +240,8 @@ __global__ void conv_fwd_kernel(
     }
     __syncthreads();
 
-    // 4. gating and envelope: msg = silu(core) * sigmoid(gate) * env
+    // 4. gating and envelope: msg = silu(core) * sigmoid(gate) * env; phase
+    // A stores each row, the convs keep the tile for step 5
     float* msg = xs;
     for (int idx = tid; idx < n_e * D; idx += blockDim.x) {
       const int t = idx / D;
@@ -208,21 +250,24 @@ __global__ void conv_fwd_kernel(
       const float core = ys[t * n2 + j];
       const float gate = ys[t * n2 + D + j];
       float m = (core * sigmoid_f(core)) * sigmoid_f(gate);
-      if (BOND) {
+      if (MODE == BOND) {
+        m = m * env[(size_t)p1[g] * D + j] * env[(size_t)p2[g] * D + j];
+      } else if (MODE == SYM) {
         m = m * env[(size_t)id1[g] * D + j] * env[(size_t)id2[g] * D + j];
+        out[(size_t)g * D + j] = m;
       } else {
-        m = m * env[(size_t)g * D + j];
+        m = m * env[(size_t)(MIRROR ? p1[g] : g) * D + j];
       }
       msg[idx] = m;
     }
     __syncthreads();
 
     // 5. ordered reduction into the destination rows
-    if (tid < D) accumulate_tile(msg, n_e, base, tid, D, offs, out, row,
-                                 row_end, acc);
+    if (MODE != SYM && tid < D)
+      accumulate_tile(msg, n_e, base, tid, D, offs, out, row, row_end, acc);
     __syncthreads();
   }
-  if (tid < D) {
+  if (MODE != SYM && tid < D) {
     for (; row < r1; ++row) {
       out[(size_t)row * D + tid] = acc;
       acc = 0.0f;
@@ -368,6 +413,24 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+template <int MODE, bool MIRROR, bool UND>
+int launch_conv(const float* v, const float* e, const float* a,
+                const float* env, const float* w, const float* b,
+                const float* lns, const float* lnb, const int* id0,
+                const int* id1, const int* id2, const int* p1, const int* p2,
+                const int* offs, float* out, int n_rows, int dim,
+                int rows_per_block, int grid, void* stream) {
+  const int d_in = (MODE == BOND ? 4 : 3) * dim;
+  const size_t smem = sizeof(float) * TE * (d_in + 2 * dim);
+  cudaError_t err = set_smem(conv_fwd_kernel<MODE, MIRROR, UND>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_fwd_kernel<MODE, MIRROR, UND><<<grid, round_up_warp(2 * dim), smem,
+                                       (cudaStream_t)stream>>>(
+      v, e, a, env, w, b, lns, lnb, id0, id1, id2, p1, p2, offs, out, n_rows,
+      dim, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -375,39 +438,58 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // The caller checks shapes, dtypes (f32 / int32), contiguity and D % 4 == 0.
 
+// pair == nullptr: the directed store; else e_a is an (Eu, D) table read
+// through pair, and with und != 0 e is one too.
 int atom_conv_fwd(const float* v, const float* e, const float* e_a,
                   const float* w, const float* b, const float* ln_scale,
                   const float* ln_bias, const int* center, const int* nbr,
-                  const int* offs, float* out, int n_rows, int dim,
-                  int rows_per_block, void* stream) {
+                  const int* pair, const int* offs, float* out, int n_rows,
+                  int dim, int rows_per_block, int und, void* stream) {
   if (n_rows == 0) return 0;
-  const size_t smem = sizeof(float) * TE * (3 * dim + 2 * dim);
-  cudaError_t err = set_smem(conv_fwd_kernel<false>, smem);
-  if (err != cudaSuccess) return (int)err;
   const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  conv_fwd_kernel<false><<<grid, round_up_warp(2 * dim), smem,
-                           (cudaStream_t)stream>>>(
+  if (pair == nullptr)
+    return launch_conv<ATOM, false, false>(
+        v, e, nullptr, e_a, w, b, ln_scale, ln_bias, center, nbr, nullptr,
+        nullptr, nullptr, offs, out, n_rows, dim, rows_per_block, grid,
+        stream);
+  if (!und)
+    return launch_conv<ATOM, true, false>(
+        v, e, nullptr, e_a, w, b, ln_scale, ln_bias, center, nbr, nullptr,
+        pair, nullptr, offs, out, n_rows, dim, rows_per_block, grid, stream);
+  return launch_conv<ATOM, true, true>(
       v, e, nullptr, e_a, w, b, ln_scale, ln_bias, center, nbr, nullptr,
-      offs, out, n_rows, dim, rows_per_block);
-  return (int)cudaGetLastError();
+      pair, nullptr, offs, out, n_rows, dim, rows_per_block, grid, stream);
 }
 
+// env_ij / env_ik: the rows of e_b for each angle, angle_ij / angle_ik on
+// the directed store, pair[angle_ij] / pair[angle_ik] on the undirected one.
 int bond_conv_fwd(const float* v, const float* e, const float* a,
                   const float* e_b, const float* w, const float* b,
                   const float* ln_scale, const float* ln_bias,
                   const int* angle_ij, const int* angle_ik,
-                  const int* center_ids, const int* offs, float* out,
-                  int n_rows, int dim, int rows_per_block, void* stream) {
+                  const int* center_ids, const int* env_ij,
+                  const int* env_ik, const int* offs, float* out, int n_rows,
+                  int dim, int rows_per_block, void* stream) {
   if (n_rows == 0) return 0;
-  const size_t smem = sizeof(float) * TE * (4 * dim + 2 * dim);
-  cudaError_t err = set_smem(conv_fwd_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
   const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  conv_fwd_kernel<true><<<grid, round_up_warp(2 * dim), smem,
-                          (cudaStream_t)stream>>>(
+  return launch_conv<BOND, false, false>(
       v, e, a, e_b, w, b, ln_scale, ln_bias, center_ids, angle_ij, angle_ik,
-      offs, out, n_rows, dim, rows_per_block);
-  return (int)cudaGetLastError();
+      env_ij, env_ik, offs, out, n_rows, dim, rows_per_block, grid, stream);
+}
+
+// Phase A of the symmetric bond conv: messages (n_au, D) of the real dedup
+// rows [0, offs[n_eu] / 2); w23 is (3D, 2D) = [W1 | W2 + W3 | W4].
+int sym_msg_fwd(const float* v, const float* e, const float* a_u,
+                const float* e_b, const float* w23, const float* b,
+                const float* ln_scale, const float* ln_bias, const int* ctr,
+                const int* du1, const int* du2, const int* offs, float* out,
+                int n_eu, int n_au, int dim, int rows_per_block,
+                void* stream) {
+  if (n_au == 0) return 0;
+  const int grid = (n_au + rows_per_block - 1) / rows_per_block;
+  return launch_conv<SYM, false, false>(
+      v, e, a_u, e_b, w23, b, ln_scale, ln_bias, ctr, du1, du2, nullptr,
+      nullptr, offs, out, n_eu, dim, rows_per_block, grid, stream);
 }
 
 int force_readout_fwd(const float* e, const float* x_hat, const float* w1,

@@ -25,10 +25,13 @@ tier's segment sum, GatedMLP and bases (``agg_impl="pallas"``,
 ``mlp_impl="pallas"``; ``csrc/segment_sum.cu``, ``gated_mlp.cu``,
 ``basis.cu``).
 
+The convs also take the mirror-map operands of the undirected bond store
+(``pair``, DESIGN.md §5) and the symmetric trunk (``und_features``, §10),
+whose symmetric bond conv (``fused_sym_bond_conv``) is two kernels:
+phase A (``sym_msg``) and phase B (``sym_accum``).
+
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, incremented only where a kernel is launched.  The
-mirror-map operands of the undirected bond store (``pair``) and the
-symmetric trunk (``und_features``) are not ported yet.
+``<wrapper>.launches``, incremented only where a kernel is launched.
 """
 from __future__ import annotations
 
@@ -50,17 +53,6 @@ CHUNK_BYTES = 64 << 20
 
 def _default_chunk(row_floats: int) -> int:
     return max(1, CHUNK_BYTES // (4 * row_floats))
-
-
-def _no_mirror(pair, und_features: bool) -> None:
-    if pair is not None:
-        raise NotImplementedError(
-            "pair= (undirected bond store) is ROADMAP 'Modules to port' "
-            "item 5")
-    if und_features:
-        raise NotImplementedError(
-            "und_features= (symmetric trunk) is ROADMAP 'Modules to port' "
-            "item 6")
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -162,14 +154,17 @@ def _recompute_vjp(fn, dense, edge, needs, cotangents, n_real: int,
 # ---------------------------------------------------------------------------
 
 def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                    bond_nbr, bond_offsets, block_rows):
+                    bond_nbr, bond_offsets, pair, und, block_rows):
     a_rows, dim = v.shape
     n_edges = bond_center.shape[0]
     dev, f32, i32 = v.device, torch.float32, torch.int32
     _check_dim(dim)
+    # the undirected store reads e_a (and, with und, e) at Eu rows
+    eu = n_edges if pair is None else e_a.shape[0]
     for name, t, dt, shape in (
-            ("v", v, f32, (a_rows, dim)), ("e", e, f32, (n_edges, dim)),
-            ("e_a", e_a, f32, (n_edges, dim)),
+            ("v", v, f32, (a_rows, dim)),
+            ("e", e, f32, (eu if und else n_edges, dim)),
+            ("e_a", e_a, f32, (eu, dim)),
             ("w", w, f32, (3 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
             ("ln_scale", ln_scale, f32, (2 * dim,)),
             ("ln_bias", ln_bias, f32, (2 * dim,)),
@@ -177,12 +172,15 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
             ("bond_nbr", bond_nbr, i32, (n_edges,)),
             ("bond_offsets", bond_offsets, i32, (a_rows + 1,))):
         _check(name, t, dt, shape, dev)
+    if pair is not None:
+        _check("pair", pair, i32, (n_edges,), dev)
     out = torch.empty((a_rows, dim), dtype=f32, device=dev)
     _launch(_LIB, "atom_conv_fwd", v.data_ptr(), e.data_ptr(),
             e_a.data_ptr(), w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), bond_center.data_ptr(), bond_nbr.data_ptr(),
+            None if pair is None else pair.data_ptr(),
             bond_offsets.data_ptr(), out.data_ptr(), a_rows, dim, block_rows,
-            _stream(dev))
+            int(und), _stream(dev))
     fused_atom_conv.launches += 1
     return out
 
@@ -190,36 +188,51 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
 class _AtomConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                bond_nbr, offsets, block_rows, chunk):
+                bond_nbr, offsets, pair, und, block_rows, chunk):
         # operands only: the messages are recomputed in the backward
         ctx.save_for_backward(v, e, e_a, w, b, ln_scale, ln_bias,
-                              bond_center, bond_nbr, offsets)
+                              bond_center, bond_nbr, offsets, pair)
+        ctx.und = und
         ctx.chunk = chunk or _default_chunk(3 * v.shape[1])
         if v.device.type == "cpu":
             return ref.fused_atom_conv_ref(v, e, e_a, w, b, ln_scale,
                                            ln_bias, bond_center, bond_nbr,
-                                           offsets)
+                                           offsets, pair, und)
         return _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias,
-                               bond_center, bond_nbr, offsets, block_rows)
+                               bond_center, bond_nbr, offsets, pair, und,
+                               block_rows)
 
     @staticmethod
     def backward(ctx, g):
-        v, e, e_a, w, b, lns, lnb, center, nbr, offs = ctx.saved_tensors
+        v, e, e_a, w, b, lns, lnb, center, nbr, offs, pair = \
+            ctx.saved_tensors
         c = center.long()
+        nig = ctx.needs_input_grad
+        # e and e_a are per-edge operands (chunks of rows), or Eu tables
+        # read through pair, whose cotangents sum over the chunks
+        operands = {"e": (e, ctx.und, nig[1]),
+                    "e_a": (e_a, pair is not None, nig[2])}
+        tables = [n for n, (_, tab, _) in operands.items() if tab]
+        rows = [n for n, (_, tab, _) in operands.items() if not tab]
 
         def msgs(dense, edge, sl):
-            vv, ww, bb, ss, oo = dense
-            ec, eac = edge
+            vv, ww, bb, ss, oo = dense[:5]
+            got = {n: ref.gather_rows(t, pair[sl])
+                   for n, t in zip(tables, dense[5:])}
+            got.update(zip(rows, edge))
             x = torch.cat([ref.gather_rows(vv, center[sl]),
-                           ref.gather_rows(vv, nbr[sl]), ec], dim=-1)
-            return ref.gated_mlp_packed_ref(x, ww, bb, ss, oo) * eac
+                           ref.gather_rows(vv, nbr[sl]), got["e"]], dim=-1)
+            return ref.gated_mlp_packed_ref(x, ww, bb, ss, oo) * got["e_a"]
 
-        nig = ctx.needs_input_grad
-        dv, dw, db, dls, dlb, de, dea = _recompute_vjp(
-            msgs, [v, w, b, lns, lnb], [e, e_a],
-            [nig[0], nig[3], nig[4], nig[5], nig[6], nig[1], nig[2]],
+        dv, dw, db, dls, dlb, *rest = _recompute_vjp(
+            msgs, [v, w, b, lns, lnb] + [operands[n][0] for n in tables],
+            [operands[n][0] for n in rows],
+            [nig[0], nig[3], nig[4], nig[5], nig[6]]
+            + [operands[n][2] for n in tables + rows],
             lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
-        return dv, de, dea, dw, db, dls, dlb, None, None, None, None, None
+        grads = dict(zip(tables + rows, rest))
+        return (dv, grads["e"], grads["e_a"], dw, db, dls, dlb) \
+            + (None,) * 7
 
 
 def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
@@ -233,10 +246,19 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
     real-bond count.  ``block_rows`` atom rows go to one CUDA block.
     The backward recomputes ``chunk`` edges at a time (default: sized by
     ``CHUNK_BYTES``); the result does not depend on it.
+
+    ``pair`` (the undirected store, DESIGN.md §5): the directed ->
+    undirected mirror map; ``e_a`` is then the (Eu, D) envelope table,
+    read per bond through it inside the kernel.  ``und_features`` (the
+    symmetric trunk, §10; requires ``pair``): ``e`` is an (Eu, D) table
+    read the same way.  The directed (E, D) expansions never exist; the
+    backward sums the cotangents of those tables through the same reads.
     """
-    _no_mirror(pair, und_features)
+    if und_features and pair is None:
+        raise ValueError("und_features needs the pair mirror map")
     return _AtomConv.apply(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                           bond_nbr, bond_offsets, block_rows, chunk)
+                           bond_nbr, bond_offsets, pair, und_features,
+                           block_rows, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +266,8 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
 # ---------------------------------------------------------------------------
 
 def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
-                    angle_ik, center_ids, angle_offsets, block_rows):
+                    angle_ik, center_ids, angle_offsets, env_ij, env_ik,
+                    mirror, block_rows):
     a_rows, dim = v.shape
     b_rows = e.shape[0]
     n_ang = angle_ij.shape[0]
@@ -252,22 +275,26 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
     _check_dim(dim)
     for name, t, dt, shape in (
             ("v", v, f32, (a_rows, dim)), ("e", e, f32, (b_rows, dim)),
-            ("a", a, f32, (n_ang, dim)), ("e_b", e_b, f32, (b_rows, dim)),
+            ("a", a, f32, (n_ang, dim)),
+            # the undirected store reads e_b at Eu rows
+            ("e_b", e_b, f32, (e_b.shape[0] if mirror else b_rows, dim)),
             ("w", w, f32, (4 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
             ("ln_scale", ln_scale, f32, (2 * dim,)),
             ("ln_bias", ln_bias, f32, (2 * dim,)),
             ("angle_ij", angle_ij, i32, (n_ang,)),
             ("angle_ik", angle_ik, i32, (n_ang,)),
             ("center_ids", center_ids, i32, (n_ang,)),
+            ("env_ij", env_ij, i32, (n_ang,)),
+            ("env_ik", env_ik, i32, (n_ang,)),
             ("angle_offsets", angle_offsets, i32, (b_rows + 1,))):
         _check(name, t, dt, shape, dev)
     out = torch.empty((b_rows, dim), dtype=f32, device=dev)
     _launch(_LIB, "bond_conv_fwd", v.data_ptr(), e.data_ptr(),
             a.data_ptr(), e_b.data_ptr(), w.data_ptr(), b.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), angle_ij.data_ptr(),
-            angle_ik.data_ptr(), center_ids.data_ptr(),
-            angle_offsets.data_ptr(), out.data_ptr(), b_rows, dim,
-            block_rows, _stream(dev))
+            angle_ik.data_ptr(), center_ids.data_ptr(), env_ij.data_ptr(),
+            env_ik.data_ptr(), angle_offsets.data_ptr(), out.data_ptr(),
+            b_rows, dim, block_rows, _stream(dev))
     fused_bond_conv.launches += 1
     return out
 
@@ -275,22 +302,27 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
 class _BondConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
-                angle_ik, center_ids, offsets, block_rows, chunk):
+                angle_ik, center_ids, offsets, pair, block_rows, chunk):
+        # the rows of e_b each angle reads: its bonds on the directed
+        # store, their undirected ids on the undirected one
+        env_ij, env_ik = (angle_ij, angle_ik) if pair is None else (
+            pair[angle_ij.long()], pair[angle_ik.long()])
         ctx.save_for_backward(v, e, a, e_b, w, b, ln_scale, ln_bias,
-                              angle_ij, angle_ik, center_ids, offsets)
+                              angle_ij, angle_ik, center_ids, offsets,
+                              env_ij, env_ik)
         ctx.chunk = chunk or _default_chunk(4 * v.shape[1])
         if v.device.type == "cpu":
             return ref.fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale,
                                            ln_bias, angle_ij, angle_ik,
-                                           center_ids, offsets)
+                                           center_ids, offsets, pair)
         return _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias,
                                angle_ij, angle_ik, center_ids, offsets,
-                               block_rows)
+                               env_ij, env_ik, pair is not None, block_rows)
 
     @staticmethod
     def backward(ctx, g):
         (v, e, a, e_b, w, b, lns, lnb, angle_ij, angle_ik, center_ids,
-         offs) = ctx.saved_tensors
+         offs, env_ij, env_ik) = ctx.saved_tensors
         ij = angle_ij.long()
 
         def msgs(dense, edge, sl):
@@ -301,14 +333,15 @@ class _BondConv(torch.autograd.Function):
                            ref.gather_rows(ee, i), ref.gather_rows(ee, k), ac],
                           dim=-1)
             phi = ref.gated_mlp_packed_ref(x, ww, bb, ss, oo)
-            return phi * ref.gather_rows(eb, i) * ref.gather_rows(eb, k)
+            return phi * ref.gather_rows(eb, env_ij[sl]) \
+                * ref.gather_rows(eb, env_ik[sl])
 
         nig = ctx.needs_input_grad
         dv, de, deb, dw, db, dls, dlb, da = _recompute_vjp(
             msgs, [v, e, e_b, w, b, lns, lnb], [a],
             [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
             lambda sl: g[ij[sl]], int(offs[-1]), ctx.chunk)
-        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 6
+        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 7
 
 
 def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
@@ -322,12 +355,148 @@ def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
     performs).  Requires angles sorted by ``angle_ij`` with CSR
     ``angle_offsets`` (DESIGN.md §1).  Few angles fall on each bond, so
     ``block_rows`` bond rows share one CUDA block.  ``chunk`` is the
-    backward's recompute chunk, in angles.
+    backward's recompute chunk, in angles.  ``pair`` (the undirected
+    store, DESIGN.md §5): ``e_b`` is the (Eu, D) envelope table and both
+    factors read rows ``pair[angle_ij]`` / ``pair[angle_ik]`` (int
+    gathers this wrapper composes).
     """
-    _no_mirror(pair, False)
     return _BondConv.apply(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
-                           angle_ik, center_ids, angle_offsets, block_rows,
-                           chunk)
+                           angle_ik, center_ids, angle_offsets, pair,
+                           block_rows, chunk)
+
+
+# ---------------------------------------------------------------------------
+# Symmetric bond conv (DESIGN.md §10): phase A messages, phase B CSR sum
+# ---------------------------------------------------------------------------
+
+def sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2, offsets,
+            *, block_rows: int = 32):
+    """Phase A, forward only: the (Au, D) messages of the dedup angle rows,
+    ``phi([v[ctr] | e_s | e_s | a_u]) * e_b[du1] * e_b[du2]``, ``e_s =
+    e[du1] + e[du2]`` (``kernels.ref.sym_msg_ref``).  On the card only the
+    real rows ``[0, offsets[-1] // 2)`` are computed, the count read on the
+    device (``offsets`` is the (Eu + 1,) incidence CSR); the rows past it
+    are left unwritten.  ``block_rows`` rows go to one CUDA block."""
+    if v.device.type == "cpu":
+        return ref.sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
+                               du1, du2)
+    a_rows, dim = v.shape
+    eu, au = e.shape[0], a_u.shape[0]
+    dev, f32, i32 = v.device, torch.float32, torch.int32
+    _check_dim(dim)
+    for name, t, dt, shape in (
+            ("v", v, f32, (a_rows, dim)), ("e", e, f32, (eu, dim)),
+            ("a_u", a_u, f32, (au, dim)), ("e_b", e_b, f32, (eu, dim)),
+            ("w", w, f32, (4 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
+            ("ln_scale", ln_scale, f32, (2 * dim,)),
+            ("ln_bias", ln_bias, f32, (2 * dim,)),
+            ("ctr", ctr, i32, (au,)), ("du1", du1, i32, (au,)),
+            ("du2", du2, i32, (au,)), ("offsets", offsets, i32, (eu + 1,))):
+        _check(name, t, dt, shape, dev)
+    # both e slots read e_s: their weight blocks add once per call, K = 3D
+    w23 = torch.cat([w[:dim], w[dim:2 * dim] + w[2 * dim:3 * dim],
+                     w[3 * dim:]])
+    out = torch.empty((au, dim), dtype=f32, device=dev)
+    _launch(_LIB, "sym_msg_fwd", v.data_ptr(), e.data_ptr(), a_u.data_ptr(),
+            e_b.data_ptr(), w23.data_ptr(), b.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), ctr.data_ptr(),
+            du1.data_ptr(), du2.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), eu, au, dim, block_rows, _stream(dev))
+    sym_msg.launches += 1
+    return out
+
+
+def sym_accum(msg, rep, dest, offsets, eu_rows: int):
+    """Phase B, forward only: ``out[u] = sum of msg[rep[t]]`` over u's
+    incidences ``t`` in ``[offsets[u], offsets[u+1])``, in CSR order ->
+    (Eu, D) (``kernels.ref.sym_accum_ref``).  The walks are bounded by the
+    offsets, so no padded incidence is read; ``dest`` is read by the plain
+    version only."""
+    if msg.device.type == "cpu":
+        return ref.sym_accum_ref(msg, rep, dest, offsets, eu_rows)
+    n_incid = rep.shape[0]
+    au, dim = msg.shape
+    dev, f32, i32 = msg.device, torch.float32, torch.int32
+    for name, t, dt, shape in (
+            ("msg", msg, f32, (au, dim)), ("rep", rep, i32, (n_incid,)),
+            ("dest", dest, i32, (n_incid,)),
+            ("offsets", offsets, i32, (eu_rows + 1,))):
+        _check(name, t, dt, shape, dev)
+    out = torch.empty((eu_rows, dim), dtype=f32, device=dev)
+    vec4 = int(dim % 4 == 0 and msg.data_ptr() % 16 == 0)
+    _launch("segment_sum", "sym_accum_fwd", msg.data_ptr(), rep.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), eu_rows, dim, vec4,
+            _stream(dev))
+    sym_accum.launches += 1
+    return out
+
+
+class _SymBondConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
+                rep, dest, offsets, msg_block, chunk):
+        ctx.save_for_backward(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
+                              du1, du2, offsets)
+        ctx.chunk = chunk or _default_chunk(4 * v.shape[1])
+        if v.device.type == "cpu":
+            return ref.fused_sym_bond_conv_ref(v, e, a_u, e_b, w, b,
+                                               ln_scale, ln_bias, ctr, du1,
+                                               du2, rep, dest, offsets)
+        msg = sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
+                      offsets, block_rows=msg_block)
+        out = sym_accum(msg, rep, dest, offsets, e.shape[0])
+        fused_sym_bond_conv.launches += 2
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        """Recompute over the real dedup rows ``[0, offsets[-1] // 2)``.
+        The incidence store is not walked: each real row's message lands
+        on exactly its two pair destinations, so its cotangent is ``g[du1]
+        + g[du2]`` (``2 g`` for a self-image pair, its forward double
+        count)."""
+        (v, e, a_u, e_b, w, b, lns, lnb, ctr, du1, du2,
+         offs) = ctx.saved_tensors
+
+        def msgs(dense, edge, sl):
+            vv, ee, eb, ww, bb, ss, oo = dense
+            (ac,) = edge
+            i1, i2 = du1[sl], du2[sl]
+            e_s = ref.gather_rows(ee, i1) + ref.gather_rows(ee, i2)
+            x = torch.cat([ref.gather_rows(vv, ctr[sl]), e_s, e_s, ac],
+                          dim=-1)
+            phi = ref.gated_mlp_packed_ref(x, ww, bb, ss, oo)
+            return phi * ref.gather_rows(eb, i1) * ref.gather_rows(eb, i2)
+
+        nig = ctx.needs_input_grad
+        dv, de, deb, dw, db, dls, dlb, da = _recompute_vjp(
+            msgs, [v, e, e_b, w, b, lns, lnb], [a_u],
+            [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
+            lambda sl: ref.gather_rows(g, du1[sl])
+            + ref.gather_rows(g, du2[sl]),
+            int(offs[-1]) // 2, ctx.chunk)
+        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 8
+
+
+def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
+                        ctr, du1, du2, rep, dest, offsets,
+                        *, msg_block: int = 32, chunk: int | None = None):
+    """Fused symmetric-trunk Eq. 5 message path (DESIGN.md §10):
+
+        msg_w  = e^b[du1] e^b[du2] phi(v_c, e_s, e_s, a_w),
+        e_s    = e[du1] + e[du2],
+        agg[u] = sum over incidences (u, w) of msg_w        -> (Eu, D)
+
+    with one GatedMLP row per dedup angle, scattered to both undirected
+    bonds of its pair through the sym-incidence store (``dest`` / ``rep``
+    sorted by destination, CSR ``offsets``).  On the card two launches:
+    phase A (``sym_msg``, ``msg_block`` rows per block) and phase B
+    (``sym_accum``).  ``ctr = bond_center[und_angle_ij]``, ``du1 / du2 =
+    bond_pair[und_angle_ij / und_angle_ik]``.  The backward recomputes
+    ``chunk`` dedup rows at a time and is twice differentiable.
+    """
+    return _SymBondConv.apply(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
+                              du1, du2, rep, dest, offsets, msg_block, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -717,8 +886,9 @@ def fused_fourier(theta, num_basis: int, *, chunk: int | None = None):
     return _Fourier.apply(theta, num_basis, chunk)
 
 
-WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_force_readout,
-            fused_force_virial_readout, fused_segment_sum,
+WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_sym_bond_conv, sym_msg,
+            sym_accum, fused_force_readout, fused_force_virial_readout,
+            fused_segment_sum,
             fused_gated_mlp_packed, fused_rbf, fused_fourier)
 for _fn in WRAPPERS:
     _fn.launches = 0

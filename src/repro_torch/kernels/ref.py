@@ -106,27 +106,78 @@ def _segment_sum(values, ids, num_segments):
     return out.index_add_(0, ids.long(), values)
 
 
+def scatter_rows(values, ids, num_rows):
+    """``out[r] = sum of values[t] over ids[t] == r`` for unsorted ids: the
+    transpose of ``gather_rows`` (``F.embedding``'s backward), which sorts
+    the ids and sums each id's rows in a fixed order, so the result is the
+    same from run to run on the card, where ``index_add_`` adds in the
+    order its atomics land.  Differentiable (its backward is a gather)."""
+    return torch.ops.aten.embedding_dense_backward(
+        values, ids, num_rows, -1, False)
+
+
 def fused_atom_conv_ref(v, e, e_a, w, b, ln_scale, ln_bias,
-                        bond_center, bond_nbr, offsets):
+                        bond_center, bond_nbr, offsets, pair=None,
+                        und_features=False):
     """Unfused Eq. 4 message path: gather-concat -> GatedMLP -> envelope ->
-    segment reduce -> (A, D)."""
-    x = torch.cat([gather_rows(v, bond_center), gather_rows(v, bond_nbr), e],
-                  dim=-1)
-    msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) * e_a
+    segment reduce -> (A, D).
+
+    ``pair`` (the undirected store, DESIGN.md §5): ``e_a`` is the (Eu, D)
+    envelope table, read through the mirror map.  ``und_features`` (the
+    symmetric trunk, §10): ``e`` is an (Eu, D) table too."""
+    e_dir = gather_rows(e, pair) if und_features else e
+    x = torch.cat([gather_rows(v, bond_center), gather_rows(v, bond_nbr),
+                   e_dir], dim=-1)
+    env = e_a if pair is None else gather_rows(e_a, pair)
+    msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) * env
     msg = _mask_real_edges(msg, offsets)
     return _segment_sum(msg, bond_center, v.shape[0])
 
 
 def fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale, ln_bias,
-                        angle_ij, angle_ik, center_ids, offsets):
+                        angle_ij, angle_ik, center_ids, offsets, pair=None):
     """Unfused Eq. 5 message path -> (E, D) (``center_ids =
-    bond_center[angle_ij]``, precomputed by the caller)."""
+    bond_center[angle_ij]``, precomputed by the caller).  ``pair``: ``e_b``
+    is the (Eu, D) envelope table, both factors read through
+    ``pair[angle_*]``."""
     x = torch.cat([gather_rows(v, center_ids), gather_rows(e, angle_ij),
                    gather_rows(e, angle_ik), a], dim=-1)
     msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias)
-    msg = msg * gather_rows(e_b, angle_ij) * gather_rows(e_b, angle_ik)
+    env_ij, env_ik = (angle_ij, angle_ik) if pair is None else \
+        (pair[angle_ij.long()], pair[angle_ik.long()])
+    msg = msg * gather_rows(e_b, env_ij) * gather_rows(e_b, env_ik)
     msg = _mask_real_edges(msg, offsets)
     return _segment_sum(msg, angle_ij, e.shape[0])
+
+
+def sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2):
+    """Phase A of the symmetric bond conv (DESIGN.md §10): one message per
+    dedup angle row w, ``phi([v[ctr] | e_s | e_s | a_u[w]]) * e_b[du1] *
+    e_b[du2]`` with the swap-symmetric ``e_s = e[du1] + e[du2]`` -> (Au, D).
+    Every row is computed; rows past the real prefix are finite values
+    that phase B never reads."""
+    e_s = gather_rows(e, du1) + gather_rows(e, du2)
+    x = torch.cat([gather_rows(v, ctr), e_s, e_s, a_u], dim=-1)
+    return gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) \
+        * gather_rows(e_b, du1) * gather_rows(e_b, du2)
+
+
+def sym_accum_ref(msg, rep, dest, offsets, eu_rows):
+    """Phase B: ``out[u] = sum of msg[rep[t]]`` over u's incidences t in
+    ``[offsets[u], offsets[u+1])`` -> (Eu, D); the padded incidences past
+    ``offsets[-1]`` (rep 0, a real row) add nothing."""
+    incid = _mask_real_edges(gather_rows(msg, rep), offsets)
+    return _segment_sum(incid, dest, eu_rows)
+
+
+def fused_sym_bond_conv_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
+                            ctr, du1, du2, rep, dest, offsets):
+    """Symmetrized Eq. 5 message path (DESIGN.md §10) -> (Eu, D): the
+    phase-A messages scattered to both undirected bonds of their pair (one
+    bond twice for a self-image pair) through the dest-sorted incidence
+    store."""
+    msg = sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2)
+    return sym_accum_ref(msg, rep, dest, offsets, e.shape[0])
 
 
 def fused_force_readout_ref(e, x_hat, w1, b1, w2, b2, bond_center, offsets,

@@ -232,14 +232,3 @@ def test_recompute_backward_is_twice_differentiable():
         return tops.fused_atom_conv(*xs, *args[7:], chunk=5)
 
     assert torch.autograd.gradgradcheck(f, floats)
-
-
-def test_mirror_operands_are_not_ported():
-    args = _torch(atom_inputs(np.random.default_rng(0), 6, 40, 8, 30))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tops.fused_atom_conv(*args, pair=args[7])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tops.fused_atom_conv(*args, und_features=True)
-    bargs = _torch(bond_inputs(np.random.default_rng(0), 5, 12, 24, 8, 20))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tops.fused_bond_conv(*bargs, pair=bargs[8])

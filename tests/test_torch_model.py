@@ -135,10 +135,9 @@ def test_every_config_is_mirrored():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (TC.FAST_HALF, "item 5"),
-    (TC.FAST_FUSED_SYM, "item 5"),
     (TC.FAST_FUSED_MIXED, "item 8"),
     (TC.FAST_MIXED, "item 8"),
+    (TC.FAST_FUSED_HALF_MIXED, "item 8"),
 ])
 def test_unported_tiers_fail_loudly(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
