@@ -45,12 +45,28 @@ PyTorch version:
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
   9. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
-     batch's loss below 0.6x its value before.
+     batch's loss below 0.6x its value before;
+ 10. lm: llama3-8b at full width and depth with bf16 weights from the
+     seed (the CHGNet phases' memory returned first): 4 prompts of 512
+     tokens prefilled into a 640-position KV cache, then 16 greedy decode
+     steps, on the kernels' path (every layer's MLP through the fused
+     feed-forward kernel, exactly 32 launches per prefill and per decode
+     step) and on the plain path (no launch); the two teacher-forced on
+     the plain path's tokens, every step's logits within DESIGN.md §4's
+     bf16 bound (3e-2 of the largest logit, cosine 0.999), greedy token
+     agreement reported; both paths timed through ``serve.lm``'s
+     ``prefill_step`` / ``decode_step`` in turns (plain, kernels, kernels,
+     plain); the feed-forward kernel at the path's shapes, in f32, at
+     M = 1 and at ragged shapes, and the flash-attention kernel (on no
+     model path: the JAX package's prefill runs jnp attention) at (B 4, H
+     32, S 512, D 128) and ragged shapes, each against its plain version
+     (bf16 at the §4 bound, f32 within 1e-4); then llama3-8b cut to 2
+     layers in f32, kernels' path against plain within 1e-4.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
 this script for tiers that are no named config of the package.  Prints
-``{"serve": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}`` JSON
-lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
+``{"serve": ...}``, ``{"train": ...}``, ``{"lm": ...}`` and ``{"kernels":
+[...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero; without CUDA it exits nonzero before printing a result.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
@@ -71,6 +87,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.batching import (  # noqa: E402
     BatchCapacities,
     batch_crystals,
@@ -86,8 +103,10 @@ from repro_torch.data import (  # noqa: E402
     make_dataset,
 )
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.serve import BatchedMD, ServeEngine  # noqa: E402
+from repro_torch.serve import lm  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
     TrainConfig,
     Trainer,
@@ -103,6 +122,8 @@ STEPS = 5
 # cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# bf16 on the tensor cores, dense (the LM kernels' bf16 operands)
+PEAK_BF16_FLOPS = 989e12
 CSRC = "src/repro_torch/csrc"
 SOURCE = f"{CSRC}/message_passing.cu"
 TPU_DIR = "src/repro/kernels"
@@ -137,6 +158,13 @@ PER_FORWARD_FUSED_MLP = dict(PER_FORWARD, fused_rbf=1, fused_fourier=1,
 # FAST_FUSED (PER_FORWARD), its convs with the mirror operands
 PER_FORWARD_SYM = {"fused_atom_conv": 4, "fused_sym_bond_conv": 6,
                    "sym_msg": 3, "sym_accum": 3, "fused_force_readout": 1}
+
+
+# the LM phase: llama3-8b at full width and depth, bf16 weights; 4 prompts
+# of 512 tokens into a 640-position cache, then 16 greedy decode steps
+LM_ARCH = "llama3-8b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 512, 640, 16
+LM_TPU_DIR = "src/repro/kernels"
 
 
 def plain_config(cfg):
@@ -182,8 +210,9 @@ def _slots(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float,
+           peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -206,6 +235,27 @@ def _check_close(name: str, got, want) -> tuple[float, float]:
     if not err <= tol:
         raise RuntimeError(f"{name}: max abs error {err} > {tol}")
     return err, tol
+
+
+def _check_bf16(name: str, got, want) -> tuple[float, float, float]:
+    """DESIGN.md §4's bound for bf16 outputs: max abs error within ``3e-2 *
+    max(1, max|want|)`` and cosine similarity at least 0.999 (bf16 rounds
+    at other places on the two sides); returns (error, tolerance, cosine)
+    and raises if either fails."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)} != "
+                           f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: non-finite values")
+    err = (got - want).abs().max().item()
+    tol = 3e-2 * max(1.0, want.abs().max().item())
+    cos = torch.nn.functional.cosine_similarity(
+        got.flatten(), want.flatten(), dim=0).item()
+    if not (err <= tol and cos >= 0.999):
+        raise RuntimeError(f"{name}: max abs error {err} (tolerance {tol}), "
+                           f"cosine {cos} (at least 0.999)")
+    return err, tol, cos
 
 
 def kernel_cases(params, cfg, batch) -> list[dict]:
@@ -585,18 +635,19 @@ def kernel_phase(cases) -> list[dict]:
     with torch.inference_mode():
         for c in cases:
             kernel, plain, args = c["wrapper"], c["plain"], c["args"]
+            check = c.get("check", _check_close)
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            err, tol = _check_close(c["name"], got, want)
+            err, tol = check(c["name"], got, want)[:2]
             k_ms = _time_ms(lambda: kernel(*args))
             p_ms = _time_ms(lambda: plain(*args))
             lib_ms = None
             if c.get("library"):
-                _check_close(f"{c['name']} library call", c["library"](),
-                             want)
+                check(f"{c['name']} library call", c["library"](), want)
                 lib_ms = _time_ms(c["library"])
-            bound_ms, bound_by = _bound(c["flops"], c["bytes"])
+            bound_ms, bound_by = _bound(c["flops"], c["bytes"],
+                                        c.get("peak", PEAK_F32_FLOPS))
             rows.append({
                 "name": c["name"], "route": "cuda",
                 "source": c.get("source", SOURCE),
@@ -1130,6 +1181,323 @@ def learns_phase(seed: int) -> dict:
             "steps": 60, "seconds": elapsed}
 
 
+def _rand(gen, shape, dtype, scale=1.0):
+    """Normal numbers from ``gen`` on the card, drawn in f32, in ``dtype``."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x.mul_(scale).to(dtype)
+
+
+def lm_kernel_cases(mlp, gen) -> list[dict]:
+    """Kernels 10 and 11, their plain versions and inputs.  The fused
+    feed-forward on layer 0's weights at the serving path's shapes
+    (prefill M = 4 x 512, decode M = 4; D 4096, F 14336, bf16), in f32
+    at full width, at M = 1, at M = 2,341 (two slabs of rows) and at
+    ragged M, D and F (16-byte staging and element-wise staging); flash attention at (B 4, H 32, S 512, D 128),
+    causal and not, bf16 and f32, beside
+    ``scaled_dot_product_attention`` (a yardstick the port never calls),
+    and at ragged S, Sq < Sk (the top-left causal convention) and D 64 /
+    256.  Work: the feed-forward's 6 M D F flops and its operands read and
+    output written once; attention's 4 D flops per unmasked (q, k) pair
+    (q k and p v), q, k, v read and out written once.  Peak rate by the
+    operand type: bf16 on the tensor cores, f32 on the CUDA cores."""
+    cases = []
+    src10 = f"{CSRC}/swiglu.cu"
+    src11 = f"{CSRC}/flash_attention.cu"
+
+    def swiglu(name, m, weights, act, dtype, path=None):
+        wg, wu, wd = weights
+        d, f = wg.shape
+        x = _rand(gen, (m, d), dtype)
+        size = x.element_size()
+        bf16 = dtype == torch.bfloat16
+        cases.append(dict(
+            name=name, counter="fused_swiglu", path=path,
+            wrapper=lambda *a, act=act: ops.fused_swiglu(*a, activation=act),
+            plain=lambda *a, act=act: ref.fused_swiglu_ref(*a, act),
+            args=(x, wg, wu, wd), source=src10,
+            replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49",
+            check=_check_bf16 if bf16 else _check_close,
+            peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+            flops=6 * m * d * f, bytes=size * (2 * m * d + 3 * d * f),
+            shape={"M": m, "D": d, "F": f, "dtype": str(dtype)[6:],
+                   "activation": act}))
+
+    def small(d, f, dtype):
+        return (_rand(gen, (d, f), dtype, d ** -0.5),
+                _rand(gen, (d, f), dtype, d ** -0.5),
+                _rand(gen, (f, d), dtype, f ** -0.5))
+
+    full = (mlp["wg"], mlp["wu"], mlp["wd"])
+    swiglu("swiglu_fwd prefill", LM_BATCH * LM_PROMPT, full, "silu",
+           torch.bfloat16, "prefill")
+    swiglu("swiglu_fwd decode", LM_BATCH, full, "silu", torch.bfloat16,
+           "decode")
+    swiglu("swiglu_fwd f32", 128, tuple(w.float() for w in full), "silu",
+           torch.float32)
+    swiglu("swiglu_fwd M=1", 1, full, "silu", torch.bfloat16)
+    # past SWIGLU_PARTIAL_BYTES of partials: two slabs of rows, two launches
+    swiglu("swiglu_fwd two slabs", 2341, full, "silu", torch.bfloat16)
+    swiglu("swiglu_fwd ragged", 37, small(512, 1000, torch.bfloat16),
+           "gelu", torch.bfloat16)
+    swiglu("swiglu_fwd ragged unaligned", 130,
+           small(512, 1001, torch.bfloat16), "silu", torch.bfloat16)
+    swiglu("swiglu_fwd ragged f32", 200, small(100, 160, torch.float32),
+           "gelu", torch.float32)
+    swiglu("swiglu_fwd ragged f32 unaligned", 65,
+           small(99, 160, torch.float32), "silu", torch.float32)
+
+    def flash(name, b, h, sq, sk, d, causal, dtype, library=False):
+        q = _rand(gen, (b, h, sq, d), dtype)
+        k = _rand(gen, (b, h, sk, d), dtype)
+        v = _rand(gen, (b, h, sk, d), dtype)
+        bf16 = dtype == torch.bfloat16
+        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal \
+            else sq * sk
+        lib = None
+        if library:
+            def lib(q=q, k=k, v=v, causal=causal):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)
+        cases.append(dict(
+            name=name, counter="flash_attention",
+            wrapper=lambda *a, c=causal: ops.flash_attention(*a, causal=c),
+            plain=lambda *a, c=causal, d=d: ref.flash_attention_ref(
+                *a, causal=c, scale=float(1.0 / d ** 0.5)),
+            args=(q, k, v), library=lib, source=src11,
+            replaces=f"{LM_TPU_DIR}/flash_attention.py:74",
+            check=_check_bf16 if bf16 else _check_close,
+            peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+            flops=4 * d * pairs * b * h,
+            bytes=q.element_size() * b * h * d * (2 * sq + 2 * sk),
+            shape={"B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
+                   "causal": causal, "dtype": str(dtype)[6:]}))
+
+    shape = (LM_BATCH, 32, LM_PROMPT, LM_PROMPT, 128)
+    flash("flash_attention_fwd causal", *shape, True, torch.bfloat16, True)
+    flash("flash_attention_fwd", *shape, False, torch.bfloat16, True)
+    flash("flash_attention_fwd causal f32", *shape, True, torch.float32,
+          True)
+    flash("flash_attention_fwd f32", *shape, False, torch.float32, True)
+    flash("flash_attention_fwd ragged", 2, 3, 300, 300, 64, True,
+          torch.float32)
+    flash("flash_attention_fwd Sq<Sk", 2, 3, 100, 300, 128, True,
+          torch.bfloat16)
+    flash("flash_attention_fwd D=256", 1, 2, 77, 129, 256, False,
+          torch.float32)
+    flash("flash_attention_fwd one query", 1, 2, 1, 5, 64, True,
+          torch.bfloat16)
+    return cases
+
+
+def lm_forced_run(cfg, params, tokens, steps: int, max_len: int,
+                  use_pallas: bool, forced=None, cache_dtype=torch.bfloat16):
+    """Prefill then ``steps`` decode steps through ``models.transformer``
+    (which return logits), each step fed this run's greedy token or, with
+    ``forced``, the given one.  Returns the prefill's last-position logits
+    and every step's logits (f32, (B, V) each) and the tokens fed."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    outs, fed = [], []
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(
+            cfg, params, tokens, positions, max_len, use_pallas=use_pallas,
+            cache_dtype=cache_dtype)
+        outs.append(logits[:, -1].float())
+        for t in range(steps):
+            tok = forced[t] if forced is not None \
+                else outs[-1].argmax(-1, keepdim=True)
+            fed.append(tok)
+            logits, cache = transformer.decode_step(
+                cfg, params, tok, cache, torch.full_like(tok, s + t),
+                use_pallas=use_pallas)
+            outs.append(logits[:, 0].float())
+    return outs, fed
+
+
+def lm_serve_run(cfg, params, tokens, steps: int, use_pallas: bool) -> dict:
+    """The serving path through its entry points: ``serve.lm.prefill_step``
+    then ``steps`` greedy ``decode_step``s, each part on the host clock
+    around work that ends in a synchronise, with the launch counters set
+    to 0 just before each part and read just after, and the peak memory."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    nxt, cache = lm.prefill_step(cfg, params, tokens, positions, LM_MAX_LEN,
+                                 use_pallas=use_pallas)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    tok = nxt[:, None]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        tok, cache = lm.decode_step(cfg, params, tok, cache,
+                                    torch.full_like(tok, s + t),
+                                    use_pallas=use_pallas)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decode_counts = ops.launch_counts()
+    layers = cfg.num_layers if use_pallas else 0
+    check_launches("lm prefill", prefill_counts, {"fused_swiglu": layers}, 1)
+    check_launches("lm decode", decode_counts, {"fused_swiglu": layers},
+                   steps)
+    return {"ms_per_prefill": t_prefill * 1e3,
+            "prompt_tokens_per_s": b * s / t_prefill,
+            "ms_per_decode_step": t_decode / steps * 1e3,
+            "decode_tokens_per_s": b * steps / t_decode,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "prefill_launches": prefill_counts["fused_swiglu"],
+            "decode_launches": decode_counts["fused_swiglu"]}
+
+
+def lm_f32_check(seed: int) -> dict:
+    """The algorithm without bf16 noise: llama3-8b cut to 2 layers at full
+    width in f32 (cache too), 2 prompts of 128 tokens and 4 decode steps,
+    the kernels' path teacher-forced on the plain path's tokens; every
+    logit within ``1e-4 * max(1, max|plain|)``."""
+    cfg = lm_configs.get_config(LM_ARCH).with_(num_layers=2,
+                                                compute_dtype="float32")
+    params = transformer.decoder_init(cfg, seed, device="cuda")
+    params = lm.load_serving_params(params, cfg, serve_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device="cuda")
+    plain, fed = lm_forced_run(cfg, params, tokens, 4, 160, False,
+                               cache_dtype=torch.float32)
+    ops.reset_launch_counts()
+    got, _ = lm_forced_run(cfg, params, tokens, 4, 160, True, forced=fed,
+                           cache_dtype=torch.float32)
+    check_launches("lm f32", ops.launch_counts(), {"fused_swiglu": 2}, 5)
+    errs = [_check_close(f"lm f32 step {i}", g, p)
+            for i, (g, p) in enumerate(zip(got, plain))]
+    row = {"layers": 2, "prompts": 2, "prompt_len": 128, "decode_steps": 4,
+           "max_abs_err": max(e for e, _ in errs),
+           "tolerance": min(t for _, t in errs)}
+    print(f"lm f32 check ({LM_ARCH}, 2 layers, full width): logits of the "
+          f"kernels' path within {row['max_abs_err']:.3e} of the plain "
+          f"path's (tolerance {row['tolerance']:.3e})", flush=True)
+    return row
+
+
+def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
+    """llama3-8b served at full width and depth with bf16 weights from the
+    seed: the kernels' path (every layer's MLP through kernel 10) against
+    the plain path, teacher-forced on the plain path's greedy tokens, at
+    DESIGN.md §4's bound; both paths timed through the serving entry
+    points in turns (plain, kernels, kernels, plain); kernels 10 and 11
+    against their plain versions; the f32 two-layer check.  Returns the
+    phase's row and the kernel rows of the ``kernels`` line."""
+    cfg = lm_configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.load_serving_params(
+        transformer.decoder_init(cfg, seed, device="cuda",
+                                 dtype=torch.bfloat16), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    print(f"lm: {LM_ARCH}, {n_params} parameters in bf16 "
+          f"({sum(t.numel() * t.element_size() for t in leaves(params)) / 2**30:.2f}"
+          f" GiB), drawn in {init_s:.2f} s; {LM_BATCH} prompts of "
+          f"{LM_PROMPT} tokens, cache of {LM_MAX_LEN} positions, "
+          f"{LM_DECODE} decode steps", flush=True)
+
+    plain, fed = lm_forced_run(cfg, params, tokens, LM_DECODE, LM_MAX_LEN,
+                               False)
+    got, _ = lm_forced_run(cfg, params, tokens, LM_DECODE, LM_MAX_LEN, True,
+                           forced=fed)
+    errs = [_check_bf16(f"lm {'prefill' if i == 0 else f'decode {i}'}", g, p)
+            for i, (g, p) in enumerate(zip(got, plain))]
+    agree = [float((g.argmax(-1) == p.argmax(-1)).float().mean())
+             for g, p in zip(got, plain)]
+    print(f"lm teacher-forced, kernels' path against plain: max abs error "
+          f"{max(e[0] for e in errs):.3e} (smallest tolerance "
+          f"{min(e[1] for e in errs):.3e}), smallest cosine "
+          f"{min(e[2] for e in errs):.6f}; greedy tokens agree "
+          f"{sum(agree) / len(agree):.3f} (prefill + {LM_DECODE} steps)",
+          flush=True)
+
+    runs = {"plain": [], "kernels": []}
+    for name in ("plain", "kernels", "kernels", "plain"):
+        r = lm_serve_run(cfg, params, tokens, LM_DECODE, name == "kernels")
+        runs[name].append(r)
+        print(f"lm serve {name}: {r['ms_per_prefill']:.2f} ms per prefill "
+              f"({r['prompt_tokens_per_s']:.0f} prompt tokens/s), "
+              f"{r['ms_per_decode_step']:.3f} ms per decode step "
+              f"({r['decode_tokens_per_s']:.1f} tokens/s), peak "
+              f"{r['peak_mib']:.0f} MiB, fused_swiglu launches "
+              f"{r['prefill_launches']} + {r['decode_launches']}",
+              flush=True)
+    traces = {}
+    if profile:
+        positions = torch.arange(LM_PROMPT, device="cuda").expand(
+            LM_BATCH, LM_PROMPT)
+        for name, use in (("kernels", True), ("plain", False)):
+            def prefill(use=use):
+                return lm.prefill_step(cfg, params, tokens, positions,
+                                       LM_MAX_LEN, use_pallas=use)
+            _, cache = prefill()
+            tok = tokens[:, -1:]
+            traces[name] = {
+                "prefill": profile_step(
+                    prefill, Path(profile) / f"lm_prefill_{name}.txt"),
+                "decode_step": profile_step(
+                    lambda use=use, cache=cache: lm.decode_step(
+                        cfg, params, tok, cache,
+                        torch.full_like(tok, LM_PROMPT), use_pallas=use),
+                    Path(profile) / f"lm_decode_{name}.txt")}
+            del cache
+            # device time of a traced call over the untraced call's wall
+            # time (the first timed run of the path)
+            r = runs[name][0]
+            for part, wall in (("prefill", r["ms_per_prefill"]),
+                               ("decode_step", r["ms_per_decode_step"])):
+                t = traces[name][part]
+                t["busy_share"] = t["device_ms"] / wall
+                print(f"lm {name} {part} traced: {t['device_ms']:.3f} ms "
+                      f"of device time in {t['device_events']} events, "
+                      f"busy share {t['busy_share']:.2f}; top "
+                      f"{[(e['name'][:40], round(e['device_ms'], 3)) for e in t['top'][:4]]}",
+                      flush=True)
+
+    cases = lm_kernel_cases(
+        transformer.layer_params(params["layers"], 0)["mlp"], gen)
+    krows = kernel_phase(cases)
+    kernel_run = runs["kernels"][0]
+    for row, c in zip(krows, cases):
+        # kernel 11 is on no model path (the JAX package's prefill runs jnp
+        # attention), so its launch count on the main path is 0
+        row["launches"] = {"prefill": kernel_run["prefill_launches"],
+                           "decode": kernel_run["decode_launches"]
+                           }.get(c.get("path"), 0)
+        row["on_main_path"] = c["counter"] == "fused_swiglu"
+    primary = [r for r in krows if r["name"] in (
+        "swiglu_fwd prefill", "swiglu_fwd decode",
+        "flash_attention_fwd causal", "flash_attention_fwd")]
+    del params, cases
+    torch.cuda.empty_cache()
+    f32 = lm_f32_check(seed)
+    row = {
+        "arch": LM_ARCH, "parameters": n_params, "dtype": "bfloat16",
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "max_len": LM_MAX_LEN,
+        "decode_steps": LM_DECODE, "init_s": init_s,
+        "teacher_forced": {
+            "max_abs_err": [e[0] for e in errs],
+            "tolerance": [e[1] for e in errs],
+            "cosine": [e[2] for e in errs],
+            "token_agreement": agree},
+        "serve": runs, "f32_two_layers": f32,
+        "kernel_extra_shapes": [r for r in krows if r not in primary]}
+    if traces:
+        row["profile"] = traces
+    return row, primary
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1296,7 +1664,12 @@ def main() -> None:
         FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
         learns=learns, kernel_extra_shapes=extra,
         dataset={"crystals": len(ds), "caps": vars(train_caps)})}))
-    print(json.dumps({"kernels": rows + primary + sym_rows}))
+    # 10. the LM: every CHGNet phase's state is gone; return its cache
+    torch.cuda.empty_cache()
+    lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)
+    print(json.dumps({"lm": lm_row}))
+    print(json.dumps({"kernels": rows + primary + sym_rows
+                      + lm_kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

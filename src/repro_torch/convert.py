@@ -8,7 +8,9 @@ GatedMLP packed as ``{"w", "b", "ln_scale", "ln_bias"}`` with
 and a round trip is bitwise.
 
 ``params_from_numpy`` takes the JAX tree after ``jax.tree.map(np.asarray,
-params)``; this module never imports JAX.
+params)``; this module never imports JAX.  ``lm_params_from_numpy`` does
+the same for the LM substrate's tree (``models.transformer``), whose
+leaves may be bf16.
 """
 from __future__ import annotations
 
@@ -38,3 +40,19 @@ def _to_numpy(tree):
     if isinstance(tree, list):
         return [_to_numpy(v) for v in tree]
     return tree.detach().cpu().numpy().copy()
+
+
+def lm_params_from_numpy(tree):
+    """Numpy LM parameter tree (``repro.models.transformer.decoder_init``'s
+    layout after ``jax.tree.map(np.asarray, ...)``) -> the port's tree of
+    CPU tensors: the same nested dicts, stacked ``layers`` leaves and
+    ``x @ w`` weights, so every leaf is copied and none transposed.  bf16
+    leaves (numpy's ``bfloat16`` extension type, which ``torch.from_numpy``
+    does not take) are copied bit for bit as ``torch.bfloat16``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr.view(np.uint16), copy=True)
+        return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))

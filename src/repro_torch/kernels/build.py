@@ -45,6 +45,12 @@ SIGNATURES = {
         "rbf_fwd": [_P] * 3 + [_I, _I, _F, _F, _I, _P],
         "fourier_fwd": [_P] * 2 + [_I, _I, _P],
     },
+    "swiglu": {
+        "swiglu_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    },
+    "flash_attention": {
+        "flash_attention_fwd": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P],
+    },
 }
 
 

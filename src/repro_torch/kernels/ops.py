@@ -30,6 +30,12 @@ The convs also take the mirror-map operands of the undirected bond store
 whose symmetric bond conv (``fused_sym_bond_conv``) is two kernels:
 phase A (``sym_msg``) and phase B (``sym_accum``).
 
+The LM substrate's two kernels, the fused gated feed-forward
+(``fused_swiglu``, ``csrc/swiglu.cu``) and flash attention
+(``flash_attention``, ``csrc/flash_attention.cu``), take f32 or bf16 and
+serve only: they are plain functions with no backward, and refuse inputs
+that require a gradient (LM training is ROADMAP item 14).
+
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, incremented only where a kernel is launched.
 """
@@ -886,10 +892,173 @@ def fused_fourier(theta, num_basis: int, *, chunk: int | None = None):
     return _Fourier.apply(theta, num_basis, chunk)
 
 
+# ---------------------------------------------------------------------------
+# LM substrate: the fused gated feed-forward (kernel 10) and flash
+# attention (kernel 11), f32 or bf16, forward only
+# ---------------------------------------------------------------------------
+
+_LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ACTIVATIONS = {"silu": 0, "gelu": 1}
+# f32 scratch of the feed-forward kernel's group partials per launch;
+# more rows than fit go through in slabs of rows, one launch each
+SWIGLU_PARTIAL_BYTES = 512 << 20
+# csrc/swiglu.cu's tiling: rows per block, F columns per chunk, ring slots;
+# and a block's shared memory on the card
+_SW_BM, _SW_BF, _SW_STAGES = 64, 128, 3
+_SMEM_BYTES = 232448
+
+
+def _lm_operands(names, tensors, ndims):
+    """One float dtype (f32 or bf16) and one device for all operands, each
+    of the given rank, none requiring a gradient (no backward yet)."""
+    dtype, device = tensors[0].dtype, tensors[0].device
+    for name, t, nd in zip(names, tensors, ndims):
+        if t.dtype not in _LM_DTYPES:
+            raise TypeError(f"{name} has dtype {t.dtype}; the LM kernels take "
+                            "float32 or bfloat16")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype} "
+                            f"like {names[0]}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dim() != nd:
+            raise ValueError(f"{name} must have {nd} dimensions, got "
+                             f"{tuple(t.shape)}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{name} requires a gradient; the LM kernels "
+                               "have no backward yet (ROADMAP item 14)")
+
+
+def swiglu_plan(m: int, d: int, f: int, itemsize: int, sms: int):
+    """Tiling of one ``fused_swiglu`` call on the card: ``(cpg, groups,
+    rows)``.  A block owns 64 rows and ``cpg`` chunks of 128 F columns,
+    whose h it keeps in shared memory, so ``cpg`` is capped by a block's
+    shared memory (8 in bf16, 5 in f32).  Within that cap the chunks are
+    spread over enough groups for about two blocks per SM (at decode, M of
+    a few rows, one chunk per group).  ``rows`` per launch keeps the f32
+    partials, ``groups * rows * d`` floats, within
+    ``SWIGLU_PARTIAL_BYTES``."""
+    n_chunks = -(-f // _SW_BF)
+    vec, bk = 16 // itemsize, 64 // itemsize
+    ring = _SW_STAGES * (_SW_BM * (bk + vec) + 2 * bk * (_SW_BF + vec)) \
+        * itemsize
+    scratch = 8 * 256 * 4 if itemsize == 2 else 0
+    cpg_max = min(8, (_SMEM_BYTES - ring - scratch - _SW_BM * vec * itemsize)
+                  // (_SW_BM * _SW_BF * itemsize))
+    want = -(-2 * sms // -(-m // _SW_BM))
+    cpg = min(cpg_max, max(1, -(-n_chunks // want)))
+    groups = -(-n_chunks // cpg)
+    rows = max(_SW_BM, SWIGLU_PARTIAL_BYTES // (groups * d * 4)
+               // _SW_BM * _SW_BM)
+    return cpg, groups, min(m, rows)
+
+
+def _swiglu_cuda(x, w_gate, w_up, w_down, activation):
+    m, d = x.shape
+    f = w_gate.shape[1]
+    dev = x.device
+    for name, t, shape in (("x", x, (m, d)), ("w_gate", w_gate, (d, f)),
+                           ("w_up", w_up, (d, f)),
+                           ("w_down", w_down, (f, d))):
+        _check(name, t, x.dtype, shape, dev)
+    out = torch.empty((m, d), dtype=x.dtype, device=dev)
+    if m == 0:
+        return out
+    cpg, groups, rows = swiglu_plan(
+        m, d, f, x.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((groups, rows, d), dtype=torch.float32, device=dev)
+    for r0 in range(0, m, rows):
+        r1 = min(m, r0 + rows)
+        _launch("swiglu", "swiglu_fwd", x[r0:r1].data_ptr(),
+                w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                out[r0:r1].data_ptr(), partial.data_ptr(), r1 - r0, d, f, cpg,
+                _LM_DTYPES[x.dtype], _ACTIVATIONS[activation], _stream(dev))
+        fused_swiglu.launches += 1
+    return out
+
+
+def fused_swiglu(x, w_gate, w_up, w_down, *, activation: str = "silu"):
+    """LM gated MLP ``(act(x Wg) * (x Wu)) Wd``: x (M, D), w_gate / w_up
+    (D, F), w_down (F, D) -> (M, D), act ``"silu"`` (SwiGLU) or ``"gelu"``
+    (GeGLU, tanh form); f32 or bf16, all operands alike.
+
+    g and u accumulate in f32, h is rounded to the operand dtype, the down
+    product accumulates in f32 and rounds once (the TPU kernel sums its F
+    blocks in the operand dtype: in bf16 the two agree to bf16 rounding).
+    Any M, D, F >= 1: the Pallas wrapper's padding of M to 128 and its F %
+    256 assertion, like its block sizes, are TPU tiling and do not carry
+    over.  On the card one call is one launch (the kernel and its
+    fixed-order sum of the group partials) per slab of ``rows`` of
+    ``swiglu_plan``: one at the model's shapes."""
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"activation must be 'silu' or 'gelu', got "
+                         f"{activation!r}")
+    _lm_operands(("x", "w_gate", "w_up", "w_down"),
+                 (x, w_gate, w_up, w_down), (2, 2, 2, 2))
+    (m, d), f = x.shape, w_gate.shape[-1]
+    for name, t, shape in (("w_gate", w_gate, (d, f)), ("w_up", w_up, (d, f)),
+                           ("w_down", w_down, (f, d))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if x.device.type == "cpu":
+        return ref.fused_swiglu_ref(x, w_gate, w_up, w_down, activation)
+    return _swiglu_cuda(x, w_gate, w_up, w_down, activation)
+
+
+def _flash_cuda(q, k, v, causal, scale):
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    if d not in (64, 128, 256):
+        raise ValueError(f"head dim {d}: the CUDA kernel takes 64, 128 or "
+                         "256")
+    for name, t, shape in (("q", q, (bh, sq, d)), ("k", k, (bh, sk, d)),
+                           ("v", v, (bh, sk, d))):
+        _check(name, t, q.dtype, shape, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if bh == 0 or sq == 0:
+        return out
+    _launch("flash_attention", "flash_attention_fwd", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk, d,
+            float(scale), int(causal), _LM_DTYPES[q.dtype], _stream(dev))
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """(B, H, S, D) flash attention (online softmax); folds B and H into
+    the kernel's grid.  q (B, H, Sq, D), k / v (B, H, Sk, D), f32 or bf16.
+    ``scale`` defaults to ``1 / sqrt(D)``.  Causal keeps column j <= row i
+    counted from the top-left corner, the TPU kernel's convention.  Any
+    Sq >= 0 and Sk >= 1 (the Pallas wrapper asserts multiples of its
+    blocks); on the card D is 64, 128 or 256."""
+    _lm_operands(("q", "k", "v"), (q, k, v), (4, 4, 4))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, h, sk, d):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(b, h, sk, d)}")
+    if sk == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if scale is None:
+        scale = float(1.0 / (d ** 0.5))
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    out = _flash_cuda(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
+                      v.reshape(b * h, sk, d), causal, scale)
+    return out.reshape(b, h, sq, d)
+
+
 WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_sym_bond_conv, sym_msg,
             sym_accum, fused_force_readout, fused_force_virial_readout,
             fused_segment_sum,
-            fused_gated_mlp_packed, fused_rbf, fused_fourier)
+            fused_gated_mlp_packed, fused_rbf, fused_fourier,
+            fused_swiglu, flash_attention)
 for _fn in WRAPPERS:
     _fn.launches = 0
 

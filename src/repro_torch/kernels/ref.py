@@ -209,3 +209,46 @@ def fused_force_virial_readout_ref(e, x_hat, dist, w1, b1, w2, b2,
     s_contrib = _mask_real_edges((n * dist)[:, None] * outer, offsets)
     raw = _segment_sum(s_contrib, bond_crystal, num_crystals)
     return forces, raw.reshape(-1, 3, 3)
+
+
+def swiglu_act(g, activation: str):
+    """The gate activation of the LM feed-forward: silu (SwiGLU) or the
+    tanh form of gelu (GeGLU, ``jax.nn.gelu(approximate=True)``)."""
+    if activation == "silu":
+        return g * torch.sigmoid(g)
+    if activation == "gelu":
+        return F.gelu(g, approximate="tanh")
+    raise ValueError(f"activation must be 'silu' or 'gelu', got "
+                     f"{activation!r}")
+
+
+def fused_swiglu_ref(x, w_gate, w_up, w_down, activation: str = "silu"):
+    """LM gated MLP ``(act(x Wg) * (x Wu)) Wd``, (M, D) -> (M, D), with the
+    rounding points of the fused kernel: g and u accumulate in f32, the
+    activation runs in f32, h is rounded to ``x.dtype`` before the down
+    product, which accumulates in f32 and rounds once."""
+    f32 = torch.float32
+    xf = x.to(f32)
+    g = xf @ w_gate.to(f32)
+    u = xf @ w_up.to(f32)
+    h = (swiglu_act(g, activation) * u).to(x.dtype)
+    return (h.to(f32) @ w_down.to(f32)).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool, scale=None):
+    """(B, H, S, D) attention oracle (``repro.kernels.ref
+    .flash_attention_ref``) with the flash kernel's causal convention: row
+    i keeps columns j <= i counted from the top-left corner.  Logits in
+    the operand dtype, masked to its ``finfo.min``, softmax in f32 cast
+    back."""
+    if scale is None:
+        scale = 1.0 / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s_q, s_k = logits.shape[-2], logits.shape[-1]
+        rows = torch.arange(s_q, device=q.device)[:, None]
+        cols = torch.arange(s_k, device=q.device)[None, :]
+        logits = torch.where(rows >= cols, logits,
+                             torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -1,0 +1,223 @@
+"""Decoder-only transformer LM, dense family, forward only: logits over a
+sequence, prefill into a KV cache, one-token decode.
+
+Mirrors ``repro.models.transformer`` (llama3, gemma with GeGLU and tied
+embeddings, qwen3 with qk-norm, qwen1.5's qkv bias).  The parameter tree
+has the JAX layout: ``embed`` (V, d), ``final_norm`` (d,), ``unembed``
+(d, V) unless tied, and ``layers`` with every leaf stacked along a leading
+L axis.  The JAX ``lax.scan`` over layers becomes a Python loop over
+views of the stacked leaves; remat and ``layer_block`` are training
+memory policies and do not carry over.  ``_layer_fwd`` keeps the full and
+q-chunked attention modes; its cache-writing decode mode, which no JAX
+caller uses, is left out (``decode_step`` has its own).  MoE layers and
+the other families raise: ROADMAP item 14.
+
+Every function takes parameters already in ``cfg.compute_dtype`` and
+raises otherwise (the JAX forwards cast them on every call; the port casts
+once, ``serve.lm.load_serving_params``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.chgnet import resolve_device
+
+from .config import LMConfig
+from .layers import (
+    Maker,
+    attention_chunked,
+    attention_decode_merge,
+    attention_full,
+    attn_init,
+    attn_qkv,
+    gated_mlp_apply,
+    gated_mlp_init,
+    rms_norm,
+)
+
+
+def require_dense(cfg: LMConfig) -> None:
+    """Raise unless ``cfg`` is a dense decoder without MoE layers, the one
+    family the port runs."""
+    if cfg.family != "dense" or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family"
+            f"{' with MoE layers' if cfg.is_moe else ''} is not ported yet "
+            "(ROADMAP item 14)")
+
+
+def _float_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _float_leaves(v)
+    elif tree.is_floating_point():
+        yield tree
+
+
+def _check_params(cfg: LMConfig, params) -> None:
+    want = getattr(torch, cfg.compute_dtype)
+    bad = {t.dtype for t in _float_leaves(params)} - {want}
+    if bad:
+        raise TypeError(
+            f"{cfg.name}: parameters in {sorted(map(str, bad))}, but "
+            f"compute_dtype is {cfg.compute_dtype}; cast them once "
+            "(serve.lm.load_serving_params)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def decoder_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
+    """Parameter tree from ``seed`` on ``device`` (``None``: the card),
+    each leaf drawn in f32 and stored in ``dtype`` (default
+    ``cfg.param_dtype``); the stacked layer leaves are drawn whole."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    mk = Maker(seed, dev, getattr(torch, cfg.param_dtype)
+               if dtype is None else dtype)
+    n, d, v = cfg.num_layers, cfg.d_model, cfg.padded_vocab
+    layers = {
+        "ln1": mk.make((d,), init="ones", stack=n),
+        "ln2": mk.make((d,), init="ones", stack=n),
+        "attn": attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                          qk_norm=cfg.qk_norm, stack=n),
+        "mlp": gated_mlp_init(mk, d, cfg.d_ff, stack=n),
+    }
+    params = {
+        "embed": mk.make((v, d), scale=0.02),
+        "final_norm": mk.make((d,), init="ones"),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = mk.make((d, v), scale=d ** -0.5)
+    return params
+
+
+def layer_params(layers, i: int):
+    """Layer ``i``'s parameters: views into the stacked leaves."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# layer forward
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: LMConfig, p, x, positions, *, attn_mode: str,
+               chunk: int, use_pallas: bool = False):
+    """One pre-norm layer over a whole sequence -> (x, (k, v))."""
+    h = rms_norm(x, p["ln1"])
+    q, k, v = attn_qkv(p["attn"], h, cfg, positions)
+    if attn_mode == "chunked":
+        out = attention_chunked(q, k, v, causal=True, chunk=chunk)
+    elif attn_mode == "full":
+        out = attention_full(q, k, v, causal=True)
+    else:
+        raise ValueError(f"attn_mode must be 'full' or 'chunked', got "
+                         f"{attn_mode!r}")
+    b, s = out.shape[:2]
+    x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
+    h2 = rms_norm(x, p["ln2"])
+    x = x + gated_mlp_apply(p["mlp"], h2, cfg.activation, use_pallas)
+    return x, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# public forwards
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: LMConfig, params, tokens):
+    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+
+
+def _unembed(cfg: LMConfig, params, x):
+    x = rms_norm(x, params["final_norm"])
+    table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ table.to(x.dtype)
+
+
+def forward_train(cfg: LMConfig, params, tokens, positions, *,
+                  attn_mode: str = "full", chunk: int = 1024,
+                  use_pallas: bool = False):
+    """tokens (B, S) -> logits (B, S, V); the forward of the training
+    step (its loss and backward come with LM training, item 14)."""
+    require_dense(cfg)
+    _check_params(cfg, params)
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        x, _ = _layer_fwd(cfg, layer_params(params["layers"], i), x,
+                          positions, attn_mode=attn_mode, chunk=chunk,
+                          use_pallas=use_pallas)
+    return _unembed(cfg, params, x)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Empty KV cache: ``k`` / ``v`` (L, B, max_len, Hkv, D), ``pos`` the
+    number of filled positions (a Python int)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": 0}
+
+
+def prefill(cfg: LMConfig, params, tokens, positions, max_len: int, *,
+            chunk: int = 1024, use_pallas: bool = False,
+            cache_dtype=torch.bfloat16):
+    """Forward over the prompt, tokens (B, S) -> (last-position logits
+    (B, 1, V), cache of ``max(max_len, S)`` positions, S filled, the rest
+    zeros).  Each layer's k / v goes straight into the preallocated cache
+    (the JAX version stacks them and pads once; same values)."""
+    require_dense(cfg)
+    _check_params(cfg, params)
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max(max_len, s), cache_dtype, tokens.device)
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        x, (k, v) = _layer_fwd(cfg, layer_params(params["layers"], i), x,
+                               positions, attn_mode="chunked", chunk=chunk,
+                               use_pallas=use_pallas)
+        cache["k"][i, :, :s] = k.to(cache_dtype)
+        cache["v"][i, :, :s] = v.to(cache_dtype)
+    cache["pos"] = s
+    return _unembed(cfg, params, x[:, -1:, :]), cache
+
+
+def decode_step(cfg: LMConfig, params, tokens, cache, positions, *,
+                use_pallas: bool = False):
+    """One-token decode: tokens (B, 1) -> (logits (B, 1, V), cache).
+
+    Each layer attends over the cache's first ``pos`` entries merged with
+    its own new k / v (``attention_decode_merge``).  The JAX version
+    writes every layer's new k / v once after its layer scan, with one
+    dynamic-update-slice at ``pos``; here each layer writes its own in
+    place after its attention.  The attention reads only the entries
+    before ``pos``, so the result is the same; the returned cache shares
+    the given one's ``k`` / ``v`` tensors, with ``pos + 1``.
+    """
+    require_dense(cfg)
+    _check_params(cfg, params)
+    pos = cache["pos"]
+    if pos >= cache["k"].shape[2]:
+        raise ValueError(f"the cache is full ({pos} positions)")
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        h = rms_norm(x, lp["ln1"])
+        q, k_new, v_new = attn_qkv(lp["attn"], h, cfg, positions)
+        out = attention_decode_merge(
+            q, k_cache.to(q.dtype), v_cache.to(q.dtype), k_new.to(q.dtype),
+            v_new.to(q.dtype), pos)
+        k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+        b, s = out.shape[:2]
+        x = x + out.reshape(b, s, -1) @ lp["attn"]["wo"]
+        h2 = rms_norm(x, lp["ln2"])
+        x = x + gated_mlp_apply(lp["mlp"], h2, cfg.activation, use_pallas)
+    logits = _unembed(cfg, params, x)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -29,7 +29,9 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/engine.py", "src/repro_torch/convert.py",
-            "src/repro_torch/kernels/ops.py", "chip_smoke.py"} <= names
+            "src/repro_torch/kernels/ops.py", "chip_smoke.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/serve/lm.py"} <= names
 
 
 def test_every_library_has_its_source():
@@ -62,6 +64,8 @@ def test_port_imports_without_jax():
         "import repro_torch.serve, repro_torch.convert, repro_torch.data\n"
         "import repro_torch.train, repro_torch.optim\n"
         "import repro_torch.configs.chgnet_mptrj\n"
+        "import repro_torch.models, repro_torch.serve.lm\n"
+        "import repro_torch.configs.llama3_8b\n"
         "import repro_torch.kernels.build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
