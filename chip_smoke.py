@@ -6,7 +6,9 @@ points and holds every hand-written CUDA kernel on them against its plain
 PyTorch version:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: the kernels compile from ``src/repro_torch/csrc`` (nvcc);
+  2. build: the kernels compile from ``src/repro_torch/csrc`` (nvcc), and
+     the LM kernels' ``-Xptxas -v`` lines are printed (registers, stack,
+     spills per kernel) with each source's build time;
   3. kernels: each kernel against its plain version on the card, on the
      inputs of the first training batch and of the largest serving group,
      within ``1e-4 * max(1, max|plain|)``, and both timed with CUDA events
@@ -56,12 +58,15 @@ PyTorch version:
      bf16 bound (3e-2 of the largest logit, cosine 0.999), greedy token
      agreement reported; both paths timed through ``serve.lm``'s
      ``prefill_step`` / ``decode_step`` in turns (plain, kernels, kernels,
-     plain); the feed-forward kernel at the path's shapes, in f32, at
-     M = 1 and at ragged shapes, and the flash-attention kernel (on no
-     model path: the JAX package's prefill runs jnp attention) at (B 4, H
-     32, S 512, D 128) and ragged shapes, each against its plain version
-     (bf16 at the §4 bound, f32 within 1e-4); then llama3-8b cut to 2
-     layers in f32, kernels' path against plain within 1e-4.
+     plain); the feed-forward kernel at the path's shapes (beside the
+     plain path's MLP at the same shapes, ``composition_ms``), in f32, at
+     the edges of its schedule (M = 1, 16, 64, 65, 129, 2,341) and at
+     ragged shapes, and the flash-attention kernel (on no model path: the
+     JAX package's prefill runs jnp attention) at (B 4, H 32, S 512, D
+     128) and ragged shapes in both dtypes, each against its plain version
+     (bf16 at the §4 bound, f32 within 1e-4), kernels and yardsticks timed
+     in turns; then llama3-8b cut to 2 layers in f32, kernels' path
+     against plain within 1e-4.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
 this script for tiers that are no named config of the package.  Prints
@@ -77,6 +82,7 @@ import argparse
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -103,7 +109,7 @@ from repro_torch.data import (  # noqa: E402
     make_dataset,
 )
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.serve import BatchedMD, ServeEngine  # noqa: E402
 from repro_torch.serve import lm  # noqa: E402
@@ -189,20 +195,29 @@ def check_launches(name: str, counts: dict, per_forward: dict,
 def _time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event samples of ``inner`` back-to-back
     calls each, per call, after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
+    return _time_turns([fn], reps, inner)[0]
+
+
+def _time_turns(fns, reps: int = 20, inner: int = 10) -> list[float]:
+    """``_time_ms`` of each function, their samples taken in turns (one
+    sample of each function, then the next round), so that a kernel and
+    its yardsticks see the same state of the card."""
+    for fn in fns:
+        for _ in range(3):
             fn()
-        stop.record()
-        stop.synchronize()
-        samples.append(start.elapsed_time(stop) / inner)
-    return statistics.median(samples)
+    torch.cuda.synchronize()
+    samples = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, out in zip(fns, samples):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            stop.record()
+            stop.synchronize()
+            out.append(start.elapsed_time(stop) / inner)
+    return [statistics.median(s) for s in samples]
 
 
 def _slots(n: int) -> int:
@@ -628,9 +643,13 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
 
 
 def kernel_phase(cases) -> list[dict]:
-    """Each kernel against its plain version, both timed, and beside the
-    one PyTorch call that computes the same function where there is one
-    (a yardstick only: the port never calls it)."""
+    """Each kernel against its plain version, both timed, beside the one
+    PyTorch call that computes the same function where there is one
+    (``library``) and, for kernel 10, the plain LM path's composition of
+    the same MLP (``composition``): yardsticks only, the port never calls
+    them on a kernels' path.  The kernel and its yardsticks, which read
+    the same inputs, are timed in turns; the plain version, whose f32
+    copies and intermediates sweep the L2 cache, on its own after them."""
     rows = []
     with torch.inference_mode():
         for c in cases:
@@ -640,12 +659,17 @@ def kernel_phase(cases) -> list[dict]:
             want = plain(*args)
             torch.cuda.synchronize()
             err, tol = check(c["name"], got, want)[:2]
-            k_ms = _time_ms(lambda: kernel(*args))
+            fns = [lambda: kernel(*args)]
+            for key in ("library", "composition"):
+                if c.get(key):
+                    check(f"{c['name']} {key}", c[key](), want)
+                    fns.append(c[key])
+            times = _time_turns(fns)
+            k_ms = times[0]
             p_ms = _time_ms(lambda: plain(*args))
-            lib_ms = None
-            if c.get("library"):
-                check(f"{c['name']} library call", c["library"](), want)
-                lib_ms = _time_ms(c["library"])
+            yard = iter(times[1:])
+            lib_ms = next(yard) if c.get("library") else None
+            comp_ms = next(yard) if c.get("composition") else None
             bound_ms, bound_by = _bound(c["flops"], c["bytes"],
                                         c.get("peak", PEAK_F32_FLOPS))
             rows.append({
@@ -659,6 +683,11 @@ def kernel_phase(cases) -> list[dict]:
                 "bytes": c["bytes"], "shape": c["shape"],
             })
             lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+            if c.get("composition"):
+                rows[-1]["composition_ms"] = comp_ms
+                lib += f", composition {comp_ms:.4f} ms"
+            if c.get("plan"):
+                rows[-1]["plan"] = c["plan"]
             print(f"kernel {c['name']}: max|k-p| {err:.3e} (tolerance "
                   f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                   f"{lib}, bound {bound_ms:.4f} ms ({bound_by}), shape "
@@ -1187,22 +1216,61 @@ def _rand(gen, shape, dtype, scale=1.0):
     return x.mul_(scale).to(dtype)
 
 
+def _plan_row(plan) -> dict:
+    return dict(plan._asdict(), gate_blocks=plan.gate_blocks,
+                down_blocks=plan.down_blocks)
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (demangled where ``c++filt`` is installed), registers, stack, spills
+    and static shared memory (the kernels' rings are dynamic: their size
+    is the plan's)."""
+    names, stats, cur = [], {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            cur = m.group(1)
+            if cur not in stats:
+                names.append(cur)
+                stats[cur] = []
+            continue
+        if cur and re.search(r"registers|spill|stack frame", line):
+            stats[cur].append(line.split(":", 1)[-1].strip())
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        demangled = names
+    short = [re.sub(r"^void |[(].*", "",
+                    d.replace("(anonymous namespace)::", "")) for d in demangled]
+    return [f"{d}: {'; '.join(stats[n])}" for n, d in zip(names, short)]
+
+
 def lm_kernel_cases(mlp, gen) -> list[dict]:
     """Kernels 10 and 11, their plain versions and inputs.  The fused
     feed-forward on layer 0's weights at the serving path's shapes
-    (prefill M = 4 x 512, decode M = 4; D 4096, F 14336, bf16), in f32
-    at full width, at M = 1, at M = 2,341 (two slabs of rows) and at
-    ragged M, D and F (16-byte staging and element-wise staging); flash attention at (B 4, H 32, S 512, D 128),
-    causal and not, bf16 and f32, beside
-    ``scaled_dot_product_attention`` (a yardstick the port never calls),
-    and at ragged S, Sq < Sk (the top-left causal convention) and D 64 /
-    256.  Work: the feed-forward's 6 M D F flops and its operands read and
-    output written once; attention's 4 D flops per unmasked (q, k) pair
-    (q k and p v), q, k, v read and out written once.  Peak rate by the
-    operand type: bf16 on the tensor cores, f32 on the CUDA cores."""
+    (prefill M = 4 x 512, decode M = 4; D 4096, F 14336, bf16), each beside
+    the plain LM path's MLP at the same shapes (``composition``: three
+    cuBLAS products and the activation); in f32 at full width; at the
+    edges of its schedule (M = 1 and 16: the narrow decode plan and its
+    split-K sum; M = 64 / 65: the last narrow and first wide plan; M = 129:
+    a ragged wide row tile; M = 2,341: ragged M at prefill scale) and at
+    ragged D and F (TMA and the element-wise producer; f32 aligned and
+    not); flash attention at (B 4, H 32, S 512, D 128), causal and not,
+    bf16 and f32, beside ``scaled_dot_product_attention`` (a yardstick the
+    port never calls), and at ragged S, Sq < Sk (the top-left causal
+    convention) and D 64 / 256 in both dtypes.  Work: the feed-forward's 6
+    M D F flops and its operands read and output written once;
+    attention's 4 D flops per unmasked (q, k) pair (q k and p v), q, k, v
+    read and out written once.  Peak rate by the operand type: bf16 on the
+    tensor cores, f32 on the CUDA cores."""
     cases = []
     src10 = f"{CSRC}/swiglu.cu"
     src11 = f"{CSRC}/flash_attention.cu"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def swiglu(name, m, weights, act, dtype, path=None):
         wg, wu, wd = weights
@@ -1210,15 +1278,20 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
         x = _rand(gen, (m, d), dtype)
         size = x.element_size()
         bf16 = dtype == torch.bfloat16
+        composition = None
+        if path:
+            def composition(x=x, p={"wg": wg, "wu": wu, "wd": wd}, act=act):
+                return layers.gated_mlp_apply(p, x, act, use_pallas=False)
         cases.append(dict(
             name=name, counter="fused_swiglu", path=path,
             wrapper=lambda *a, act=act: ops.fused_swiglu(*a, activation=act),
             plain=lambda *a, act=act: ref.fused_swiglu_ref(*a, act),
-            args=(x, wg, wu, wd), source=src10,
+            args=(x, wg, wu, wd), source=src10, composition=composition,
             replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49",
             check=_check_bf16 if bf16 else _check_close,
             peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
             flops=6 * m * d * f, bytes=size * (2 * m * d + 3 * d * f),
+            plan=_plan_row(ops.swiglu_plan(m, d, f, size, sms)),
             shape={"M": m, "D": d, "F": f, "dtype": str(dtype)[6:],
                    "activation": act}))
 
@@ -1234,9 +1307,8 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
            "decode")
     swiglu("swiglu_fwd f32", 128, tuple(w.float() for w in full), "silu",
            torch.float32)
-    swiglu("swiglu_fwd M=1", 1, full, "silu", torch.bfloat16)
-    # past SWIGLU_PARTIAL_BYTES of partials: two slabs of rows, two launches
-    swiglu("swiglu_fwd two slabs", 2341, full, "silu", torch.bfloat16)
+    for m in (1, 16, 64, 65, 129, 2341):
+        swiglu(f"swiglu_fwd M={m}", m, full, "silu", torch.bfloat16)
     swiglu("swiglu_fwd ragged", 37, small(512, 1000, torch.bfloat16),
            "gelu", torch.bfloat16)
     swiglu("swiglu_fwd ragged unaligned", 130,
@@ -1280,10 +1352,14 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
     flash("flash_attention_fwd f32", *shape, False, torch.float32, True)
     flash("flash_attention_fwd ragged", 2, 3, 300, 300, 64, True,
           torch.float32)
+    flash("flash_attention_fwd ragged bf16", 2, 3, 300, 300, 64, True,
+          torch.bfloat16)
     flash("flash_attention_fwd Sq<Sk", 2, 3, 100, 300, 128, True,
           torch.bfloat16)
     flash("flash_attention_fwd D=256", 1, 2, 77, 129, 256, False,
           torch.float32)
+    flash("flash_attention_fwd D=256 bf16", 1, 2, 77, 129, 256, True,
+          torch.bfloat16)
     flash("flash_attention_fwd one query", 1, 2, 1, 5, 64, True,
           torch.bfloat16)
     return cases
@@ -1525,6 +1601,11 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in ("swiglu", "flash_attention"):
+        log = build.build_log(lib)
+        print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
+        for line in ptxas_lines(log):
+            print(f"ptxas {lib}.cu {line}", flush=True)
 
     # serving set-up: 16-64-atom synthetic crystals; full-width parameters
     # from the seed (FAST_FUSED and FAST_PALLAS share one tree)

@@ -8,444 +8,519 @@
 // act = silu (SwiGLU) or the tanh form of gelu (GeGLU), f32 or bf16
 // operands.  g and u accumulate in f32, the activation runs in f32, and
 // h = act(g) * u is rounded to the operand type before the down product,
-// where the TPU kernel rounds it; the down product accumulates in f32.
-//
-// The TPU kernel walks its grid (M/128, F/256) in order and carries the
-// down product in its output block across the F steps.  Blocks on this
-// card run in no order, so the carried sum becomes two passes: each block
-// owns an (m-tile of 64 rows, group of F chunks of 128) pair, computes g
-// and u for each chunk, keeps h for the whole group in shared memory (h
-// never goes to device memory, as on the TPU), multiplies it by the
-// group's rows of Wd and writes an f32 partial (groups, M, D); a second
-// small kernel sums the partials in group order and stores in the operand
-// type.  Deterministic, no atomics.  Accumulation differs from the TPU
-// kernel on purpose: its bf16 output block sums the F/256 block partials
-// in bf16 (56 roundings at F = 14336); here they stay f32 and round once,
-// so in bf16 the two agree to bf16 rounding (the 3e-2 bound of DESIGN.md
-// §4), not to 1e-5.  In f32 they agree to f32 rounding.
+// where the TPU kernel rounds it; the down product accumulates in f32 and
+// rounds once.  The TPU kernel's bf16 output block sums its F/256 block
+// partials in bf16 (56 roundings at F = 14336); here they stay f32, so in
+// bf16 the two agree to bf16 rounding (the 3e-2 bound of DESIGN.md §4).
 //
 // Bound on this card: llama3-8b prefill (M = 2048, D = 4096, F = 14336,
 // bf16) does 6 M D F = 721 GFLOP, 0.73 ms at 989 TFLOP/s: operations.  A
 // decode step (M = 4) reads 3 D F bf16 weights, 352 MB, 0.105 ms at
-// 3.35 TB/s: bytes.  The design serves both with one tiling: bf16 products
-// on the tensor cores through nvcuda::wmma (16x16x16, f32 accumulators),
-// f32 products as FMAs on the CUDA cores (no TF32: the f32 tier is held to
-// 1e-4 of its plain version); tiles staged through a 3-stage cp.async ring
-// so several loads are in flight per block; the wrapper picks the group
-// size so that about two blocks per SM run (at M = 4, one chunk per group:
-// 112 blocks stream the weights side by side).  wgmma, TMA and a persistent
-// schedule are later work.
+// 3.35 TB/s: bytes.
 //
-// Any M >= 1 and any D, F >= 1: rows, columns and chunks past the edge are
-// zero-filled on load and masked on store.  16-byte copies need D and F to
-// be multiples of 8 bf16 (4 f32) and 16-byte aligned bases; otherwise the
-// tiles are staged element by element.
+// Design.  The TPU kernel carries the down product in its output block
+// across its sequential F grid axis and keeps h in VMEM.  Blocks on this
+// card run in no order, so the call is two GEMM kernels (plus, with
+// split-K, a small fixed-order sum), each owning its whole reduction:
+//   1. gate/up: for a (row tile, F tile) the block computes g = x Wg and
+//      u = x Wu in f32 registers and writes h = act(g) u, rounded to the
+//      operand type, to an (M, F) scratch buffer the wrapper allocates;
+//   2. down: out = h Wd, each (row tile, D tile) owning K = F in f32 and
+//      storing once; or, with split-K, f32 partials (splits, M, D) that
+//      swiglu_split_sum adds in split order.
+// h goes through device memory where the TPU kernel keeps it in VMEM: at
+// prefill 2048 x 14336 bf16 = 59 MB written and read back, about 0.035 ms
+// at 3.35 TB/s.  That replaces the earlier single kernel's 470 MB of f32
+// group partials and its shared-memory cap on F per block.
+//
+// bf16 mainloop: wgmma.mma_async (m64nNk16, f32 accumulators) on operands
+// in 128-byte-swizzled shared memory, x / h tiles K-major, weight tiles
+// N-major (the weights are row-major (K, N): the transposed-B form).  One
+// producer warpgroup (setmaxnreg down to 40) feeds a 4-stage ring with TMA
+// (cp.async.bulk.tensor, descriptors from cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint: no -lcuda link) and full / empty mbarriers;
+// consumer warpgroups (setmaxnreg up to 232) each own 64 rows and keep one
+// wgmma group in flight while the next stage lands.  Two schedules, picked
+// by kernels/ops.py swiglu_plan:
+//   wide   (M > 64): 2 consumer warpgroups, 128-row tiles; gate/up tiles
+//          128 x 128 (g and u: 128 accumulators a thread), down tiles
+//          128 x 256; 192 KB of ring, one block per SM;
+//   narrow (M <= 64, decode, bound by bytes): 1 consumer warpgroup, 64-row
+//          tiles, 64-column tiles in both products and split-K for the
+//          down product so that >= 2 x 132 blocks stream Wd; 2-3 blocks
+//          and 64-128 KB of TMA loads in flight per SM.
+// Grids run row tiles fastest, so the blocks of a wave share weight tiles
+// through L2 and each weight byte leaves device memory about once.
+// Shapes TMA cannot take (D or F not a multiple of 8, or a base that is
+// not 16-byte aligned) run the same kernels with an element-wise producer:
+// the producer warpgroup loads with zero fill, writes the swizzled layout
+// with st.shared and fences it to the async proxy (cp.async needs rows
+// aligned to its copy size, which such shapes do not have).
+//
+// f32: the same two-kernel structure with an FMA mainloop on the CUDA
+// cores (no TF32: the f32 tier is held to 1e-4 of its plain version),
+// 64 x 128 tiles staged through a 3-stage cp.async ring.
+//
+// Any M, D, F >= 1: rows, columns and K past the edge load as zeros (TMA's
+// out-of-bounds fill or the producers' masks) and are masked on store.
+// Deterministic: no atomics, every sum in a fixed order.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int BM = 64;        // rows of x per block
-constexpr int BF = 128;       // F columns per chunk (= down-product K tile)
-constexpr int BN = 128;       // output columns per down-product tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int STAGES = 3;
 constexpr int SMEM_LIMIT = 232448;  // a block's dynamic shared memory
+constexpr int BK = 64;              // K per ring stage: one 128-byte row
+constexpr int STAGES = 4;
 
-template <typename T>
-struct Tile {
-  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
-  static constexpr int BK = 64 / sizeof(T);   // K step: 32 bf16, 16 f32
-  static constexpr int PAD = VEC;             // 16 bytes of row padding
-  static constexpr int XS_LD = BK + PAD;      // x tile (BM, BK)
-  static constexpr int WS_LD = BF + PAD;      // weight tile (BK, BF or BN)
-  static constexpr int XS = BM * XS_LD;
-  static constexpr int WS = BK * WS_LD;
-  static constexpr int STAGE = XS + 2 * WS;   // elements of one ring slot
+// Parameters of one GEMM launch: C = A (m, k) B (k, n), or with `b1` the
+// gate/up pair.  Blocks (x, y, z) own rows [x BM, +BM), columns [y BN,
+// +BN) and K [z k_split, +k_split).
+struct Gemm {
+  const void* a;
+  const void* b0;
+  const void* b1;
+  void* out;  // h or out in the operand type, or f32 partials (z, m, n)
+  int m, n, k, k_split;
+  int act;      // 0 silu, 1 gelu (gate/up only)
+  int partial;  // 1: f32 partials at out + z m n
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return __float2bfloat16(v);
-  } else {
-    return v;
-  }
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float g) {
-  if (ACT == 0) return g * (1.0f / (1.0f + expf(-g)));  // silu
+__device__ __forceinline__ float activate(float g, int act) {
+  if (act == 0) return g * (1.0f / (1.0f + expf(-g)));  // silu
   // gelu, tanh form (jax.nn.gelu(approximate=True))
   const float inner = 0.7978845608028654f * (g + 0.044715f * (g * g * g));
   return g * (0.5f * (1.0f + tanhf(inner)));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+// Store the pair (v0, v1) at (row, col), (row, col + 1) of the row-major
+// (m, n) output, masked; T the output type.
+template <typename T>
+__device__ __forceinline__ void store2(T* out, int m, int n, int row, int col,
+                                       float v0, float v1) {
+  if (row >= m || col >= n) return;
+  T* p = out + (size_t)row * n + col;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (col + 1 < n && (n & 1) == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+      return;
+    }
+    p[0] = __float2bfloat16(v0);
+    if (col + 1 < n) p[1] = __float2bfloat16(v1);
+  } else {
+    if (col + 1 < n && (n & 1) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      return;
+    }
+    p[0] = v0;
+    if (col + 1 < n) p[1] = v1;
+  }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// ---------------------------------------------------------------------------
+// bf16: warp-specialised wgmma GEMM
+// ---------------------------------------------------------------------------
+
+// byte offset of element (r, c), c < 64, in a tile of 128-byte rows under
+// the 128-byte swizzle (16-byte chunk c / 8 XOR r % 8), as TMA writes it
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_bn(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_n64(d, da, db, 1);
+  if constexpr (N == 128) wgmma_n128(d, da, db, 1);
+  if constexpr (N == 256) wgmma_n256(d, da, db, 1);
 }
 
-// Stage the (ROWS, COLS) tile at (r0, c0) of a row-major (nrows, ncols)
-// matrix into shared memory with row stride ld; zeros outside the matrix.
-template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+// WG consumer warpgroups (BM = 64 WG rows) + 1 producer warpgroup; BN
+// columns per tile; DUAL: gate/up (h = act(A B0) * (A B1)), else one
+// product; TMA: the producer loads with TMA, else element by element.
+// Shared memory, 1024-byte aligned: STAGES x [A (BM x 64), B0 (and B1)
+// (64 x BN, as BN / 64 chunks of 64 x 64)], then the full / empty barriers.
+template <int WG, int BN, bool DUAL, bool TMA>
+__global__ void __launch_bounds__(128 * (WG + 1), WG == 1 ? 2 : 1)
+    wgmma_gemm(const __grid_constant__ CUtensorMap ta,
+               const __grid_constant__ CUtensorMap tb0,
+               const __grid_constant__ CUtensorMap tb1, const Gemm p) {
+  constexpr int BM = 64 * WG;
+  constexpr int NB = DUAL ? 2 : 1;
+  constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128;
+  constexpr int STAGE = A_BYTES + NB * B_BYTES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int k_begin = blockIdx.z * p.k_split;
+  const int k_end = min(p.k, k_begin + p.k_split);
+  const int steps = (k_end - k_begin + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], TMA ? 1 : 128);
+      mbar_init(&empty[s], WG * 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WG) {
+    // ---- producer warpgroup ----
+    if constexpr (WG > 1) setmaxnreg_dec<40>();
+    if constexpr (TMA) {
+      if (tid == 0) {
+        for (int s = 0; s < steps; ++s) {
+          const int st = s % STAGES;
+          mbar_wait(&empty[st], ((s / STAGES) & 1) ^ 1);
+          unsigned char* base = smem + st * STAGE;
+          const int k0 = k_begin + s * BK;
+          mbar_arrive_expect_tx(&full[st], STAGE);
+          tma_load_2d(base, &ta, k0, m0, &full[st]);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) {
+            tma_load_2d(base + A_BYTES + j * 8192, &tb0, n0 + 64 * j, k0,
+                        &full[st]);
+            if constexpr (DUAL)
+              tma_load_2d(base + A_BYTES + B_BYTES + j * 8192, &tb1,
+                          n0 + 64 * j, k0, &full[st]);
+          }
+        }
+      }
+    } else {
+      const bf16* a = static_cast<const bf16*>(p.a);
+      const bf16* b0 = static_cast<const bf16*>(p.b0);
+      const bf16* b1 = static_cast<const bf16*>(p.b1);
+      const bf16 zero = __float2bfloat16(0.0f);
+      for (int s = 0; s < steps; ++s) {
+        const int st = s % STAGES;
+        mbar_wait(&empty[st], ((s / STAGES) & 1) ^ 1);
+        unsigned char* base = smem + st * STAGE;
+        const int k0 = k_begin + s * BK;
+        for (int i = tid; i < BM * 64; i += 128) {
+          const int r = i >> 6, c = i & 63;
+          const int gr = m0 + r, gc = k0 + c;
+          *reinterpret_cast<bf16*>(base + swz(r, c)) =
+              gr < p.m && gc < p.k ? a[(size_t)gr * p.k + gc] : zero;
+        }
+        for (int i = tid; i < 64 * BN; i += 128) {
+          const int r = i / BN, c = i - r * BN;
+          const int gr = k0 + r, gc = n0 + c;
+          const bool in = gr < p.k && gc < p.n;
+          const int off = A_BYTES + (c >> 6) * 8192 + swz(r, c & 63);
+          *reinterpret_cast<bf16*>(base + off) =
+              in ? b0[(size_t)gr * p.n + gc] : zero;
+          if constexpr (DUAL)
+            *reinterpret_cast<bf16*>(base + B_BYTES + off) =
+                in ? b1[(size_t)gr * p.n + gc] : zero;
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: rows [m0 + 64 wg, +64) ----
+    if constexpr (WG > 1) setmaxnreg_inc<232>();
+    float acc0[BN / 2], acc1[DUAL ? BN / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc0[i] = 0.0f;
+    if constexpr (DUAL) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc1[i] = 0.0f;
+    }
+    const int lane = tid & 31;
+    for (int s = 0; s < steps; ++s) {
+      const int st = s % STAGES;
+      mbar_wait(&full[st], (s / STAGES) & 1);
+      const uint32_t a_addr = smem_u32(smem + st * STAGE + wg * 64 * 128);
+      const uint32_t b_addr = smem_u32(smem + st * STAGE + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = wgmma_desc(a_addr + kk * 32, 16, 1024);
+        wgmma_bn<BN>(acc0, da, wgmma_desc(b_addr + kk * 2048, 8192, 1024));
+        if constexpr (DUAL)
+          wgmma_bn<BN>(acc1, da,
+                       wgmma_desc(b_addr + B_BYTES + kk * 2048, 8192, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (s > 0 && lane == 0) mbar_arrive(&empty[(s - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+
+    // epilogue: accumulator (row 16 w + l / 4 + 8 e2, col 8 j + 2 (l % 4))
+    const int row = m0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    const int col = n0 + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float v0 = acc0[4 * j + 2 * h2], v1 = acc0[4 * j + 2 * h2 + 1];
+        if constexpr (DUAL) {
+          v0 = activate(v0, p.act) * acc1[4 * j + 2 * h2];
+          v1 = activate(v1, p.act) * acc1[4 * j + 2 * h2 + 1];
+        }
+        if (p.partial)
+          store2(static_cast<float*>(p.out) + (size_t)blockIdx.z * p.m * p.n,
+                 p.m, p.n, row + 8 * h2, col + 8 * j, v0, v1);
+        else
+          store2(static_cast<bf16*>(p.out), p.m, p.n, row + 8 * h2,
+                 col + 8 * j, v0, v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA GEMM on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int FM = 64, FN = 128, FK = 16, F_THREADS = 256, F_STAGES = 3;
+constexpr int FA_LD = FK + 4, FB_LD = FN + 4;  // 16 bytes of row padding
+
+// the (ROWS, COLS) tile at (r0, c0) of a row-major (nrows, ncols) f32
+// matrix into shared memory with row stride ld; zeros outside the matrix
+// and at or past column `c_end`.  vec: 16-byte cp.async (ncols % 4 == 0,
+// 16-byte aligned base), else element by element.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           int nrows, int ncols, int r0,
                                           int c0, bool vec) {
-  constexpr int VEC = Tile<T>::VEC;
-  if (vec) {  // ncols % VEC == 0: a vector is wholly inside or outside
-    constexpr int VPR = COLS / VEC;
-    for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
-      const int r = i / VPR, c = (i - r * VPR) * VEC;
+  if (vec) {
+    constexpr int VPR = COLS / 4;
+    for (int i = threadIdx.x; i < ROWS * VPR; i += F_THREADS) {
+      const int r = i / VPR, c = (i - r * VPR) * 4;
       const int gr = r0 + r, gc = c0 + c;
       const bool in = gr < nrows && gc < ncols;
-      cp_async16(dst + r * ld + c,
-                 in ? src + (size_t)gr * ncols + gc : src, in);
+      cp_async16(dst + r * ld + c, in ? src + (size_t)gr * ncols + gc : src,
+                 in);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += F_THREADS) {
       const int r = i / COLS, c = i - r * COLS;
       const int gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] = (gr < nrows && gc < ncols)
-                            ? src[(size_t)gr * ncols + gc]
-                            : from_float<T>(0.0f);
+      dst[r * ld + c] =
+          gr < nrows && gc < ncols ? src[(size_t)gr * ncols + gc] : 0.0f;
     }
   }
 }
 
-// Grid (ceil(M / BM), groups); block y owns F chunks [y * cpg, y * cpg +
-// nc).  Shared memory: the cp.async ring (STAGES slots), then h (BM,
-// hs_ld) in T, then (bf16 only) a 16x16 f32 scratch tile per warp.
-template <typename T, int ACT>
-__global__ void __launch_bounds__(THREADS)
-    swiglu_kernel(const T* __restrict__ x, const T* __restrict__ wg,
-                  const T* __restrict__ wu, const T* __restrict__ wd,
-                  float* __restrict__ partial, int M, int D, int F, int cpg,
-                  int hs_ld, bool vec) {
-  using TL = Tile<T>;
-  constexpr bool kWmma = std::is_same<T, bf16>::value;
-  constexpr int BK = TL::BK;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  T* hs = ring + STAGES * TL::STAGE;
-  float* scratch = reinterpret_cast<float*>(hs + BM * hs_ld);
+// Thread (ty = warp, tx = lane) owns rows [8 ty, +8) and columns [4 tx,
+// +4) of the 64 x 128 tile.  K runs over [z k_split, min(k, +k_split)).
+template <bool DUAL>
+__global__ void __launch_bounds__(F_THREADS)
+    fma_gemm(const Gemm p, bool vec) {
+  constexpr int NB = DUAL ? 2 : 1;
+  constexpr int STAGE = FM * FA_LD + NB * FK * FB_LD;
+  extern __shared__ __align__(16) float fsm[];
+  const float* a = static_cast<const float*>(p.a);
+  const float* b0 = static_cast<const float*>(p.b0);
+  const float* b1 = static_cast<const float*>(p.b1);
+  const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
+  const int k_begin = blockIdx.z * p.k_split;
+  const int k_end = min(p.k, k_begin + p.k_split);
+  const int steps = (k_end - k_begin + FK - 1) / FK;
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM;
-  const int n_chunks = (F + BF - 1) / BF;
-  const int c0 = blockIdx.y * cpg;
-  const int nc = min(cpg, n_chunks - c0);
-  const int f_base = c0 * BF;
-
-  // wmma: warp w owns rows [16 (w / 2), +16) and columns [64 (w % 2), +64)
-  // of each 64x128 output tile, four 16x16 fragments; a row strip with no
-  // real row skips its products.  FMA: thread (ty = warp, tx = lane) owns
-  // rows [8 ty, +8) and columns [4 tx, +4).
-  const int wr = warp >> 1, wc = warp & 1;
-  const bool strip_live = m0 + wr * 16 < M;
-
-  // ---- phase 1: h = act(x Wg) * (x Wu), chunk by chunk, into hs --------
-  const int nk1 = (D + BK - 1) / BK;
-  const int steps1 = nc * nk1;
-  auto issue1 = [&](int s) {
-    if (s < steps1) {
-      const int c = s / nk1, kt = s - c * nk1;
-      T* slot = ring + (s % STAGES) * TL::STAGE;
-      const int f0 = f_base + c * BF;
-      load_tile<T, BM, BK>(slot, TL::XS_LD, x, M, D, m0, kt * BK, vec);
-      load_tile<T, BK, BF>(slot + TL::XS, TL::WS_LD, wg, D, F, kt * BK, f0,
-                           vec);
-      load_tile<T, BK, BF>(slot + TL::XS + TL::WS, TL::WS_LD, wu, D, F,
-                           kt * BK, f0, vec);
+  auto issue = [&](int s) {
+    if (s < steps) {
+      float* slot = fsm + (s % F_STAGES) * STAGE;
+      const int k0 = k_begin + s * FK;
+      // columns of A and rows of B past k_end are never reached: k_end is
+      // k or a multiple of FK
+      load_tile<FM, FK>(slot, FA_LD, a, p.m, p.k, m0, k0, vec);
+      load_tile<FK, FN>(slot + FM * FA_LD, FB_LD, b0, p.k, p.n, k0, n0, vec);
+      if constexpr (DUAL)
+        load_tile<FK, FN>(slot + FM * FA_LD + FK * FB_LD, FB_LD, b1, p.k, p.n,
+                          k0, n0, vec);
     }
     cp_async_commit();
   };
 
-  using namespace nvcuda;
-  using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               wmma::row_major>;
-
-  if constexpr (kWmma) {
-    FragAcc acc_g[4], acc_u[4];
+  float c0[8][4], c1[DUAL ? 8 : 1][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wmma::fill_fragment(acc_g[j], 0.0f);
-      wmma::fill_fragment(acc_u[j], 0.0f);
+      c0[i][j] = 0.0f;
+      if constexpr (DUAL) c1[i][j] = 0.0f;
     }
-    for (int s = 0; s < STAGES - 1; ++s) issue1(s);
-    for (int s = 0; s < steps1; ++s) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      issue1(s + STAGES - 1);
-      const T* slot = ring + (s % STAGES) * TL::STAGE;
-      if (strip_live) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          FragA a;
-          wmma::load_matrix_sync(a, slot + wr * 16 * TL::XS_LD + kk,
-                                 TL::XS_LD);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            FragB b;
-            const int col = wc * 64 + j * 16;
-            wmma::load_matrix_sync(b, slot + TL::XS + kk * TL::WS_LD + col,
-                                   TL::WS_LD);
-            wmma::mma_sync(acc_g[j], a, b, acc_g[j]);
-            wmma::load_matrix_sync(
-                b, slot + TL::XS + TL::WS + kk * TL::WS_LD + col, TL::WS_LD);
-            wmma::mma_sync(acc_u[j], a, b, acc_u[j]);
-          }
-        }
-      }
-      const int c = s / nk1;
-      if (s - c * nk1 == nk1 - 1) {  // chunk done: h into hs, rounded to T
-        float* scr = scratch + warp * 256;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int i = 0; i < acc_g[j].num_elements; ++i)
-            acc_g[j].x[i] = activate<ACT>(acc_g[j].x[i]) * acc_u[j].x[i];
-          wmma::store_matrix_sync(scr, acc_g[j], 16, wmma::mem_row_major);
-          __syncwarp();
-          T* hrow = hs + (wr * 16) * hs_ld + c * BF + wc * 64 + j * 16;
-          for (int e = lane; e < 256; e += 32)
-            hrow[(e >> 4) * hs_ld + (e & 15)] = from_float<T>(scr[e]);
-          __syncwarp();
-          wmma::fill_fragment(acc_g[j], 0.0f);
-          wmma::fill_fragment(acc_u[j], 0.0f);
-        }
-      }
-    }
-  } else {
-    const int ty = warp, tx = lane;
-    float g[8][4], u[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[i][j] = u[i][j] = 0.0f;
-    for (int s = 0; s < STAGES - 1; ++s) issue1(s);
-    for (int s = 0; s < steps1; ++s) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      issue1(s + STAGES - 1);
-      const float* slot =
-          reinterpret_cast<const float*>(ring + (s % STAGES) * TL::STAGE);
-      const float* xs = slot;
-      const float* gs = slot + TL::XS;
-      const float* us = slot + TL::XS + TL::WS;
+  for (int s = 0; s < F_STAGES - 1; ++s) issue(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    issue(s + F_STAGES - 1);
+    const float* xs = fsm + (s % F_STAGES) * STAGE;
+    const float* bs0 = xs + FM * FA_LD;
+    const float* bs1 = bs0 + FK * FB_LD;
 #pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float a[8];
+    for (int k = 0; k < FK; ++k) {
+      float av[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = xs[(ty * 8 + i) * TL::XS_LD + k];
-        const float4 bg =
-            *reinterpret_cast<const float4*>(gs + k * TL::WS_LD + tx * 4);
-        const float4 bu =
-            *reinterpret_cast<const float4*>(us + k * TL::WS_LD + tx * 4);
+      for (int i = 0; i < 8; ++i) av[i] = xs[(ty * 8 + i) * FA_LD + k];
+      const float4 g = *reinterpret_cast<const float4*>(bs0 + k * FB_LD +
+                                                        tx * 4);
+      float4 u = g;
+      if constexpr (DUAL)
+        u = *reinterpret_cast<const float4*>(bs1 + k * FB_LD + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          g[i][0] = fmaf(a[i], bg.x, g[i][0]);
-          g[i][1] = fmaf(a[i], bg.y, g[i][1]);
-          g[i][2] = fmaf(a[i], bg.z, g[i][2]);
-          g[i][3] = fmaf(a[i], bg.w, g[i][3]);
-          u[i][0] = fmaf(a[i], bu.x, u[i][0]);
-          u[i][1] = fmaf(a[i], bu.y, u[i][1]);
-          u[i][2] = fmaf(a[i], bu.z, u[i][2]);
-          u[i][3] = fmaf(a[i], bu.w, u[i][3]);
-        }
-      }
-      const int c = s / nk1;
-      if (s - c * nk1 == nk1 - 1) {
-        float* hrow = reinterpret_cast<float*>(hs) + (ty * 8) * hs_ld +
-                      c * BF + tx * 4;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            hrow[i * hs_ld + j] = activate<ACT>(g[i][j]) * u[i][j];
-            g[i][j] = u[i][j] = 0.0f;
-          }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // hs complete; the ring is free
-
-  // ---- phase 3: partial[group] = h @ Wd[group rows], tile by tile ------
-  const int nk3 = nc * (BF / BK);
-  const int ndt = (D + BN - 1) / BN;
-  const int steps3 = ndt * nk3;
-  auto issue3 = [&](int s) {
-    if (s < steps3) {
-      const int dt = s / nk3, kt = s - dt * nk3;
-      load_tile<T, BK, BN>(ring + (s % STAGES) * TL::STAGE, TL::WS_LD, wd, F,
-                           D, f_base + kt * BK, dt * BN, vec);
-    }
-    cp_async_commit();
-  };
-  float* out_g = partial + (size_t)blockIdx.y * M * D;
-
-  if constexpr (kWmma) {
-    FragAcc acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int s = 0; s < STAGES - 1; ++s) issue3(s);
-    for (int s = 0; s < steps3; ++s) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      issue3(s + STAGES - 1);
-      const T* slot = ring + (s % STAGES) * TL::STAGE;
-      const int dt = s / nk3, kt = s - dt * nk3;
-      if (strip_live) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          FragA a;
-          wmma::load_matrix_sync(a, hs + wr * 16 * hs_ld + kt * BK + kk,
-                                 hs_ld);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            FragB b;
-            wmma::load_matrix_sync(b, slot + kk * TL::WS_LD + wc * 64 + j * 16,
-                                   TL::WS_LD);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-        if (kt == nk3 - 1) {  // tile done: masked store of the partial
-          float* scr = scratch + warp * 256;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int col0 = dt * BN + wc * 64 + j * 16;
-            for (int e = lane; e < 256; e += 32) {
-              const int r = m0 + wr * 16 + (e >> 4), col = col0 + (e & 15);
-              if (r < M && col < D) out_g[(size_t)r * D + col] = scr[e];
-            }
-            __syncwarp();
-            wmma::fill_fragment(acc[j], 0.0f);
-          }
-        }
-      }
-    }
-  } else {
-    const int ty = warp, tx = lane;
-    const float* hsf = reinterpret_cast<const float*>(hs);
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int s = 0; s < STAGES - 1; ++s) issue3(s);
-    for (int s = 0; s < steps3; ++s) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      issue3(s + STAGES - 1);
-      const float* ws =
-          reinterpret_cast<const float*>(ring + (s % STAGES) * TL::STAGE);
-      const int dt = s / nk3, kt = s - dt * nk3;
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        const int kh = kt * BK + k;
-        const float4 b =
-            *reinterpret_cast<const float4*>(ws + k * TL::WS_LD + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float a = hsf[(ty * 8 + i) * hs_ld + kh];
-          acc[i][0] = fmaf(a, b.x, acc[i][0]);
-          acc[i][1] = fmaf(a, b.y, acc[i][1]);
-          acc[i][2] = fmaf(a, b.z, acc[i][2]);
-          acc[i][3] = fmaf(a, b.w, acc[i][3]);
-        }
-      }
-      if (kt == nk3 - 1) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = m0 + ty * 8 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = dt * BN + tx * 4 + j;
-            if (r < M && col < D) out_g[(size_t)r * D + col] = acc[i][j];
-            acc[i][j] = 0.0f;
-          }
+      for (int i = 0; i < 8; ++i) {
+        c0[i][0] = fmaf(av[i], g.x, c0[i][0]);
+        c0[i][1] = fmaf(av[i], g.y, c0[i][1]);
+        c0[i][2] = fmaf(av[i], g.z, c0[i][2]);
+        c0[i][3] = fmaf(av[i], g.w, c0[i][3]);
+        if constexpr (DUAL) {
+          c1[i][0] = fmaf(av[i], u.x, c1[i][0]);
+          c1[i][1] = fmaf(av[i], u.y, c1[i][1]);
+          c1[i][2] = fmaf(av[i], u.z, c1[i][2]);
+          c1[i][3] = fmaf(av[i], u.w, c1[i][3]);
         }
       }
     }
   }
   cp_async_wait<0>();
+
+  float* out = static_cast<float*>(p.out) +
+               (p.partial ? (size_t)blockIdx.z * p.m * p.n : 0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + ty * 8 + i;
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      float v0 = c0[i][j], v1 = c0[i][j + 1];
+      if constexpr (DUAL) {
+        v0 = activate(v0, p.act) * c1[i][j];
+        v1 = activate(v1, p.act) * c1[i][j + 1];
+      }
+      store2(out, p.m, p.n, row, n0 + tx * 4 + j, v0, v1);
+    }
+  }
 }
 
-// out[i] = sum of partial[g][i] over the groups, in group order.
+// out[i] = sum of partial[s][i] over the splits, in split order
 template <typename T>
-__global__ void swiglu_reduce_kernel(const float* __restrict__ partial,
-                                     T* __restrict__ out, size_t n,
-                                     int groups) {
+__global__ void swiglu_split_sum(const float* __restrict__ partial,
+                                 T* __restrict__ out, size_t n, int splits) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
-    for (int g = 0; g < groups; ++g) s += partial[(size_t)g * n + i];
-    out[i] = from_float<T>(s);
+    for (int z = 0; z < splits; ++z) s += partial[(size_t)z * n + i];
+    if constexpr (std::is_same<T, bf16>::value)
+      out[i] = __float2bfloat16(s);
+    else
+      out[i] = s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, through the runtime's entry-point
+// query (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// 2-D bf16 tensor map of a row-major (rows, cols) matrix, boxes of (64
+// columns, box_rows rows), 128-byte swizzle, out-of-bounds zero fill
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int WG, int BN, bool DUAL, bool TMA>
+int launch_wgmma(const Gemm& p, int splits, cudaStream_t stream) {
+  constexpr int BM = 64 * WG;
+  constexpr int STAGE = BM * 128 + (DUAL ? 2 : 1) * BN * 128;
+  constexpr size_t smem = (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(smem <= (size_t)SMEM_LIMIT, "ring exceeds shared memory");
+  CUtensorMap ta = {}, tb0 = {}, tb1 = {};
+  if (TMA) {
+    if (!tensor_map(&ta, p.a, p.m, p.k, BM) ||
+        !tensor_map(&tb0, p.b0, p.k, p.n, 64) ||
+        (DUAL && !tensor_map(&tb1, p.b1, p.k, p.n, 64)))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = wgmma_gemm<WG, BN, DUAL, TMA>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.m + BM - 1) / BM, (p.n + BN - 1) / BN, splits);
+  kernel<<<grid, 128 * (WG + 1), smem, stream>>>(ta, tb0, tb1, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool DUAL>
+int launch_fma(const Gemm& p, int splits, bool vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * F_STAGES *
+                      (FM * FA_LD + (DUAL ? 2 : 1) * FK * FB_LD);
+  cudaError_t err = cudaFuncSetAttribute(
+      fma_gemm<DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.m + FM - 1) / FM, (p.n + FN - 1) / FN, splits);
+  fma_gemm<DUAL><<<grid, F_THREADS, smem, stream>>>(p, vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool TMA>
+int launch_bf16(const Gemm& gate, const Gemm& down, int wide, int splits,
+                cudaStream_t stream) {
+  int err = wide ? launch_wgmma<2, 128, true, TMA>(gate, 1, stream)
+                 : launch_wgmma<1, 64, true, TMA>(gate, 1, stream);
+  if (err != 0) return err;
+  return wide ? launch_wgmma<2, 256, false, TMA>(down, splits, stream)
+              : launch_wgmma<1, 64, false, TMA>(down, splits, stream);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
-}
-
-template <typename T, int ACT>
-int launch(const void* x, const void* wg, const void* wu, const void* wd,
-           void* out, float* partial, int m, int d, int f, int cpg,
-           cudaStream_t stream) {
-  using TL = Tile<T>;
-  constexpr bool kWmma = std::is_same<T, bf16>::value;
-  const int n_chunks = (f + BF - 1) / BF;
-  const int groups = (n_chunks + cpg - 1) / cpg;
-  const int hs_ld = cpg * BF + TL::PAD;
-  const size_t smem = sizeof(T) * ((size_t)STAGES * TL::STAGE +
-                                   (size_t)BM * hs_ld) +
-                      (kWmma ? sizeof(float) * WARPS * 256 : 0);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      swiglu_kernel<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec = d % TL::VEC == 0 && f % TL::VEC == 0 && aligned16(x) &&
-                   aligned16(wg) && aligned16(wu) && aligned16(wd);
-  const dim3 grid((m + BM - 1) / BM, groups);
-  swiglu_kernel<T, ACT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wg),
-      static_cast<const T*>(wu), static_cast<const T*>(wd), partial, m, d, f,
-      cpg, hs_ld, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)m * d;
-  const size_t blocks = (n + 255) / 256;
-  swiglu_reduce_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
-                            stream>>>(partial, static_cast<T*>(out), n,
-                                      groups);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -453,29 +528,55 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = ok).  dtype 0 =
-// f32, 1 = bf16 (x, the weights and out alike); activation 0 = silu, 1 =
-// gelu.  `partial` is f32 scratch of ceil(ceil(f / 128) / cpg) * m * d
-// elements.  The caller checks shapes (x (m, d), w_gate / w_up (d, f),
-// w_down (f, d)), dtypes, contiguity, m, d, f >= 1 and cpg >= 1; an h tile
-// that does not fit a block's shared memory returns cudaErrorInvalidValue.
+// f32, 1 = bf16 (x, the weights, h and out alike); activation 0 = silu,
+// 1 = gelu.  h is (m, f) scratch in the operand type; with splits > 1,
+// `partial` is f32 scratch of splits * m * d elements, else unused.  The
+// plan (kernels/ops.py swiglu_plan): wide = 1 for the 128-row bf16
+// schedule, 0 for the 64-row one (f32 ignores it); the down product's K =
+// f runs in `splits` slices of k_split (a multiple of 64) rows; tma = 1
+// loads the bf16 tiles with TMA (d, f multiples of 8, 16-byte aligned
+// bases), 0 element by element.  The caller checks shapes (x (m, d),
+// w_gate / w_up (d, f), w_down (f, d)), dtypes and contiguity.
 int swiglu_fwd(const void* x, const void* w_gate, const void* w_up,
-               const void* w_down, void* out, float* partial, int m, int d,
-               int f, int cpg, int dtype, int activation, void* stream) {
-  if (m <= 0 || d <= 0 || f <= 0 || cpg <= 0 || dtype < 0 || dtype > 1 ||
-      activation < 0 || activation > 1)
+               const void* w_down, void* out, void* h, float* partial, int m,
+               int d, int f, int wide, int splits, int k_split, int dtype,
+               int activation, int tma, void* stream) {
+  if (m <= 0 || d <= 0 || f <= 0 || dtype < 0 || dtype > 1 ||
+      activation < 0 || activation > 1 || splits < 1 || k_split < 1 ||
+      k_split % 64 || (long long)splits * k_split < f ||
+      (long long)(splits - 1) * k_split >= f || (splits > 1 && !partial))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  void* down_out = splits > 1 ? static_cast<void*>(partial) : out;
+  const Gemm gate = {x, w_gate, w_up, h, m, f, d, d, activation, 0};
+  const Gemm down = {h,     w_down, nullptr, down_out, m,
+                     d,     f,      k_split, 0,        splits > 1};
+  int err;
+  if (dtype == 1) {
+    if (tma && !(d % 8 == 0 && f % 8 == 0 && aligned16(x) &&
+                 aligned16(w_gate) && aligned16(w_up) && aligned16(w_down) &&
+                 aligned16(h)))
+      return (int)cudaErrorInvalidValue;
+    err = tma ? launch_bf16<true>(gate, down, wide, splits, st)
+              : launch_bf16<false>(gate, down, wide, splits, st);
+  } else {
+    const bool vec = d % 4 == 0 && f % 4 == 0 && aligned16(x) &&
+                     aligned16(w_gate) && aligned16(w_up) &&
+                     aligned16(w_down) && aligned16(h);
+    err = launch_fma<true>(gate, 1, vec, st);
+    if (err == 0) err = launch_fma<false>(down, splits, vec, st);
+  }
+  if (err != 0 || splits == 1) return err;
+  const size_t n = (size_t)m * d;
+  const size_t blocks = (n + 255) / 256;
+  const int grid = (int)(blocks < 1024 ? blocks : 1024);
   if (dtype == 1)
-    return activation == 0
-               ? launch<bf16, 0>(x, w_gate, w_up, w_down, out, partial, m, d,
-                                 f, cpg, st)
-               : launch<bf16, 1>(x, w_gate, w_up, w_down, out, partial, m, d,
-                                 f, cpg, st);
-  return activation == 0
-             ? launch<float, 0>(x, w_gate, w_up, w_down, out, partial, m, d,
-                                f, cpg, st)
-             : launch<float, 1>(x, w_gate, w_up, w_down, out, partial, m, d,
-                                f, cpg, st);
+    swiglu_split_sum<bf16>
+        <<<grid, 256, 0, st>>>(partial, static_cast<bf16*>(out), n, splits);
+  else
+    swiglu_split_sum<float>
+        <<<grid, 256, 0, st>>>(partial, static_cast<float*>(out), n, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

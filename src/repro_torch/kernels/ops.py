@@ -42,6 +42,7 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -899,13 +900,89 @@ def fused_fourier(theta, num_basis: int, *, chunk: int | None = None):
 
 _LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTIVATIONS = {"silu": 0, "gelu": 1}
-# f32 scratch of the feed-forward kernel's group partials per launch;
-# more rows than fit go through in slabs of rows, one launch each
-SWIGLU_PARTIAL_BYTES = 512 << 20
-# csrc/swiglu.cu's tiling: rows per block, F columns per chunk, ring slots;
-# and a block's shared memory on the card
-_SW_BM, _SW_BF, _SW_STAGES = 64, 128, 3
-_SMEM_BYTES = 232448
+# csrc/swiglu.cu's schedules: bf16 wgmma tiles (rows, gate/up columns,
+# down columns) of the wide (M > 64) and narrow (decode) plans, K per ring
+# stage and ring stages; the f32 FMA tiles (rows, columns, K per stage,
+# stages)
+_SW_WIDE, _SW_NARROW, _SW_BK, _SW_STAGES = (128, 128, 256), (64, 64, 64), \
+    64, 4
+_SW_F32 = (64, 128, 16, 3)
+
+
+class SwigluPlan(NamedTuple):
+    """One ``fused_swiglu`` call on the card (``csrc/swiglu.cu``): the
+    gate/up GEMM over (row tile, F tile) blocks, then the down GEMM over
+    (row tile, D tile, K split) blocks, then, with ``splits`` > 1, the
+    fixed-order sum of the f32 partials."""
+    wide: bool          # bf16: two consumer warpgroups, 128-row tiles
+    producer: str       # "tma", "elementwise" (bf16) or "cp.async" (f32)
+    rows: int           # rows of a tile (both GEMMs)
+    gate_cols: int      # F columns of a gate/up tile
+    down_cols: int      # D columns of a down tile
+    row_tiles: int
+    gate_tiles: int     # F tiles
+    down_tiles: int     # D tiles
+    splits: int         # K slices of the down product
+    k_split: int        # K = F rows per slice, a multiple of 64
+    stages: int
+    smem_gate: int      # dynamic shared memory of a block, bytes
+    smem_down: int
+    scratch_bytes: int  # h (M, F) in the operand type + f32 partials
+
+    @property
+    def gate_blocks(self) -> int:
+        return self.row_tiles * self.gate_tiles
+
+    @property
+    def down_blocks(self) -> int:
+        return self.row_tiles * self.down_tiles * self.splits
+
+
+def swiglu_plan(m: int, d: int, f: int, itemsize: int, sms: int,
+                aligned: bool = True) -> SwigluPlan:
+    """The schedule of one ``fused_swiglu`` call on the card.  bf16 runs on
+    wgmma: 128-row tiles (128-column gate/up, 256-column down) for M > 64;
+    at decode (M <= 64, bound by bytes) 64-row, 64-column tiles.  Its
+    producer is TMA where rows are 16-byte aligned (D, F multiples of 8,
+    ``aligned`` bases), else element by element.  f32 runs 64 x 128 FMA
+    tiles.  When the down product has fewer tiles than the card has SMs,
+    its K = F is split so that at least ``2 * sms`` blocks stream Wd; the
+    slices' f32 partials are summed in split order."""
+    bf16 = itemsize == 2
+    if bf16:
+        wide = m > 64
+        rows, gate_cols, down_cols = _SW_WIDE if wide else _SW_NARROW
+        stages = _SW_STAGES
+        producer = "tma" if aligned and d % 8 == 0 and f % 8 == 0 \
+            else "elementwise"
+
+        def ring(cols, operands):
+            return stages * (rows + operands * cols) * _SW_BK * 2 \
+                + 2 * stages * 8 + 1024
+        smem_gate, smem_down = ring(gate_cols, 2), ring(down_cols, 1)
+    else:
+        wide = False
+        rows, gate_cols, fk, stages = _SW_F32
+        down_cols = gate_cols
+        producer = "cp.async"
+
+        def ring(operands):
+            return stages * (rows * (fk + 4) + operands * fk
+                             * (gate_cols + 4)) * 4
+        smem_gate, smem_down = ring(2), ring(1)
+    row_tiles = -(-m // rows)
+    gate_tiles, down_tiles = -(-f // gate_cols), -(-d // down_cols)
+    k_steps = -(-f // _SW_BK)
+    splits = 1
+    if row_tiles * down_tiles < sms:
+        want = min(k_steps, -(-2 * sms // (row_tiles * down_tiles)))
+        per = -(-k_steps // want)
+        splits = -(-k_steps // per)
+    k_split = -(-k_steps // splits) * _SW_BK
+    scratch = m * f * itemsize + (splits * m * d * 4 if splits > 1 else 0)
+    return SwigluPlan(wide, producer, rows, gate_cols, down_cols, row_tiles,
+                      gate_tiles, down_tiles, splits, k_split, stages,
+                      smem_gate, smem_down, scratch)
 
 
 def _lm_operands(names, tensors, ndims):
@@ -929,52 +1006,31 @@ def _lm_operands(names, tensors, ndims):
                                "have no backward yet (ROADMAP item 14)")
 
 
-def swiglu_plan(m: int, d: int, f: int, itemsize: int, sms: int):
-    """Tiling of one ``fused_swiglu`` call on the card: ``(cpg, groups,
-    rows)``.  A block owns 64 rows and ``cpg`` chunks of 128 F columns,
-    whose h it keeps in shared memory, so ``cpg`` is capped by a block's
-    shared memory (8 in bf16, 5 in f32).  Within that cap the chunks are
-    spread over enough groups for about two blocks per SM (at decode, M of
-    a few rows, one chunk per group).  ``rows`` per launch keeps the f32
-    partials, ``groups * rows * d`` floats, within
-    ``SWIGLU_PARTIAL_BYTES``."""
-    n_chunks = -(-f // _SW_BF)
-    vec, bk = 16 // itemsize, 64 // itemsize
-    ring = _SW_STAGES * (_SW_BM * (bk + vec) + 2 * bk * (_SW_BF + vec)) \
-        * itemsize
-    scratch = 8 * 256 * 4 if itemsize == 2 else 0
-    cpg_max = min(8, (_SMEM_BYTES - ring - scratch - _SW_BM * vec * itemsize)
-                  // (_SW_BM * _SW_BF * itemsize))
-    want = -(-2 * sms // -(-m // _SW_BM))
-    cpg = min(cpg_max, max(1, -(-n_chunks // want)))
-    groups = -(-n_chunks // cpg)
-    rows = max(_SW_BM, SWIGLU_PARTIAL_BYTES // (groups * d * 4)
-               // _SW_BM * _SW_BM)
-    return cpg, groups, min(m, rows)
-
-
 def _swiglu_cuda(x, w_gate, w_up, w_down, activation):
     m, d = x.shape
     f = w_gate.shape[1]
     dev = x.device
-    for name, t, shape in (("x", x, (m, d)), ("w_gate", w_gate, (d, f)),
-                           ("w_up", w_up, (d, f)),
-                           ("w_down", w_down, (f, d))):
+    operands = (("x", x, (m, d)), ("w_gate", w_gate, (d, f)),
+                ("w_up", w_up, (d, f)), ("w_down", w_down, (f, d)))
+    for name, t, shape in operands:
         _check(name, t, x.dtype, shape, dev)
     out = torch.empty((m, d), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    cpg, groups, rows = swiglu_plan(
+    plan = swiglu_plan(
         m, d, f, x.element_size(),
-        torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = torch.empty((groups, rows, d), dtype=torch.float32, device=dev)
-    for r0 in range(0, m, rows):
-        r1 = min(m, r0 + rows)
-        _launch("swiglu", "swiglu_fwd", x[r0:r1].data_ptr(),
-                w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-                out[r0:r1].data_ptr(), partial.data_ptr(), r1 - r0, d, f, cpg,
-                _LM_DTYPES[x.dtype], _ACTIVATIONS[activation], _stream(dev))
-        fused_swiglu.launches += 1
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        aligned=all(t.data_ptr() % 16 == 0 for _, t, _ in operands))
+    h = torch.empty((m, f), dtype=x.dtype, device=dev)
+    partial = torch.empty((plan.splits, m, d), dtype=torch.float32,
+                          device=dev) if plan.splits > 1 else None
+    _launch("swiglu", "swiglu_fwd", x.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), w_down.data_ptr(), out.data_ptr(), h.data_ptr(),
+            None if partial is None else partial.data_ptr(), m, d, f,
+            int(plan.wide), plan.splits, plan.k_split, _LM_DTYPES[x.dtype],
+            _ACTIVATIONS[activation], int(plan.producer == "tma"),
+            _stream(dev))
+    fused_swiglu.launches += 1
     return out
 
 
@@ -988,9 +1044,9 @@ def fused_swiglu(x, w_gate, w_up, w_down, *, activation: str = "silu"):
     blocks in the operand dtype: in bf16 the two agree to bf16 rounding).
     Any M, D, F >= 1: the Pallas wrapper's padding of M to 128 and its F %
     256 assertion, like its block sizes, are TPU tiling and do not carry
-    over.  On the card one call is one launch (the kernel and its
-    fixed-order sum of the group partials) per slab of ``rows`` of
-    ``swiglu_plan``: one at the model's shapes."""
+    over.  On the card one call is one launch, counted once: the gate/up
+    and down GEMMs of ``swiglu_plan`` (and, with split-K, the sum of the
+    partials) through an (M, F) scratch h."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"activation must be 'silu' or 'gelu', got "
                          f"{activation!r}")

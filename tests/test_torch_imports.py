@@ -48,6 +48,27 @@ def test_every_library_has_its_source():
             assert f"int {fn}(" in text, (lib, fn)
 
 
+def test_digest_follows_included_headers(tmp_path, monkeypatch):
+    """A library's build key hashes the .cuh headers its source includes:
+    editing csrc/hopper.cuh rebuilds swiglu and flash_attention, and no
+    other library."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._out_path(name) for name in build.SIGNATURES}
+    assert [h.name for h in build._headers(csrc / "swiglu.cu")] == \
+        ["hopper.cuh"]
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._out_path(name) for name in build.SIGNATURES}
+    changed = {n for n in build.SIGNATURES if before[n] != after[n]}
+    assert changed == {"swiglu", "flash_attention"}
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
                          .as_posix())
 def test_no_jax_or_repro_imports(path):

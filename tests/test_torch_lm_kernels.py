@@ -181,16 +181,76 @@ def test_lm_wrappers_check_their_operands():
         tops.flash_attention(q.double(), k.double(), v.double())
 
 
-@pytest.mark.parametrize("m,itemsize,want", [
-    # llama3-8b prefill, 4 x 512 tokens: 8 chunks per group (shared-memory
-    # cap), 14 groups, one launch (14 * 2048 * 4096 f32 = 448 MiB)
-    (2048, 2, (8, 14, 2048)),
-    # decode at batch 4: one chunk per group, 112 blocks side by side
-    (4, 2, (1, 112, 4)),
-    # f32 caps the group at 5 chunks
-    (2048, 4, (5, 23, 1408)),
-    # a long prompt goes through in slabs of rows
-    (32768, 2, (8, 14, 2304)),
+SMS = 132  # the H100's SMs
+
+
+@pytest.mark.parametrize("m,f,itemsize,want", [
+    # llama3-8b prefill, 4 x 512 tokens: the wide wgmma schedule, 16 x 112
+    # gate/up tiles, 16 x 16 down tiles (>= 132, no split), h 59 MB
+    (2048, 14336, 2, dict(wide=True, producer="tma", rows=128,
+                          gate_cols=128, down_cols=256, gate_blocks=1792,
+                          down_blocks=256, splits=1, stages=4)),
+    # decode at batch 4: the narrow schedule; Wd streamed by 64 D tiles x 5
+    # K slices = 320 >= 2 x 132 blocks
+    (4, 14336, 2, dict(wide=False, producer="tma", rows=64, gate_cols=64,
+                       down_cols=64, gate_blocks=224, down_blocks=320,
+                       splits=5, k_split=2880)),
+    # f32: the FMA tiles, 64 x 128, 3 stages
+    (2048, 14336, 4, dict(wide=False, producer="cp.async", rows=64,
+                          gate_cols=128, down_cols=128, down_blocks=1024,
+                          splits=1, stages=3)),
+    # F = 1001 rows are not 16-byte aligned: the element-wise producer; 4
+    # down tiles, so K splits into 16 slices of one 64-row stage
+    (130, 1001, 2, dict(wide=True, producer="elementwise", splits=16,
+                        k_split=64, down_blocks=64)),
+    # a 32,768-token prompt runs in one launch (no slabs): 256 x 112 tiles
+    (32768, 14336, 2, dict(wide=True, gate_blocks=28672, down_blocks=4096,
+                           splits=1)),
 ])
-def test_swiglu_plan(m, itemsize, want):
-    assert tops.swiglu_plan(m, 4096, 14336, itemsize, 132) == want
+def test_swiglu_plan(m, f, itemsize, want):
+    d = 512 if f == 1001 else 4096
+    plan = tops.swiglu_plan(m, d, f, itemsize, SMS)
+    got = dict(plan._asdict(), gate_blocks=plan.gate_blocks,
+               down_blocks=plan.down_blocks)
+    assert {k: got[k] for k in want} == want
+    # scratch: h (M, F) in the operand type, plus the f32 split partials
+    partials = plan.splits * m * d * 4 if plan.splits > 1 else 0
+    assert plan.scratch_bytes == m * f * itemsize + partials
+    if m <= 64 and itemsize == 2:
+        assert plan.down_blocks >= 2 * SMS
+
+
+@pytest.mark.parametrize("m,d,f,itemsize", [
+    (1, 4096, 14336, 2), (4, 4096, 14336, 2), (16, 4096, 14336, 2),
+    (64, 4096, 14336, 2), (65, 4096, 14336, 2), (129, 4096, 14336, 2),
+    (2048, 4096, 14336, 2), (2341, 4096, 14336, 2), (128, 4096, 14336, 4),
+    (37, 512, 1000, 2), (130, 512, 1001, 2), (200, 100, 160, 4),
+    (65, 99, 160, 4),
+])
+def test_swiglu_plan_covers_every_tile_once(m, d, f, itemsize):
+    """Blocks (x, y[, z]) of csrc/swiglu.cu own rows [x rows, +rows), the
+    gate/up product's F columns [y gate_cols, +gate_cols), the down
+    product's D columns [y down_cols, +down_cols) and its K = F rows [z
+    k_split, +k_split), each cut at the edge: every output element of both
+    GEMMs is owned by exactly one block (per K slice), the K slices cover F
+    exactly once, and each block's shared memory fits the card's."""
+    plan = tops.swiglu_plan(m, d, f, itemsize, SMS)
+    r, gc, dc, ks = plan.rows, plan.gate_cols, plan.down_cols, plan.k_split
+    gate = np.zeros((m, f), np.uint8)
+    for x in range(plan.row_tiles):
+        for y in range(plan.gate_tiles):
+            gate[x * r:(x + 1) * r, y * gc:(y + 1) * gc] += 1
+    assert (gate == 1).all()
+    down = np.zeros((m, d), np.uint8)
+    for x in range(plan.row_tiles):
+        for y in range(plan.down_tiles):
+            down[x * r:(x + 1) * r, y * dc:(y + 1) * dc] += 1
+    assert (down == 1).all()
+    k = np.zeros(f, np.uint8)
+    for z in range(plan.splits):
+        assert z * ks < f
+        k[z * ks:(z + 1) * ks] += 1
+    assert (k == 1).all() and ks % 64 == 0
+    assert plan.gate_blocks == plan.row_tiles * plan.gate_tiles
+    assert plan.down_blocks == plan.row_tiles * plan.down_tiles * plan.splits
+    assert max(plan.smem_gate, plan.smem_down) <= 232448
