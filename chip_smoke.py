@@ -13,7 +13,12 @@ PyTorch version:
      inputs of the first training batch and of the largest serving group,
      within ``1e-4 * max(1, max|plain|)``, and both timed with CUDA events
      (the segment sum also beside ``torch.segment_reduce``, the symmetric
-     conv's phase B beside a sparse product); the convs also with the
+     conv's phase B beside a sparse product, the GatedMLP beside its
+     composition: ``torch.addmm`` in full f32, two ``layer_norm``s and the
+     gate); the split-f32 kernels (the GatedMLP and flash attention in
+     f32) also against the bound of three TF32 products at the TF32 peak
+     and the f32 FMA bound, and must give equal bits on a second call with
+     the same inputs; the convs also with the
      mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
      and the symmetric conv's two kernels; then ragged layouts and edge
      values, and batches with self-image pairs and singleton undirected
@@ -130,6 +135,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # bf16 on the tensor cores, dense (the LM kernels' bf16 operands)
 PEAK_BF16_FLOPS = 989e12
+# TF32 on the tensor cores, dense: the split-f32 (3xTF32) kernels issue
+# three TF32 products per f32 product
+PEAK_TF32_FLOPS = 494.7e12
 CSRC = "src/repro_torch/csrc"
 SOURCE = f"{CSRC}/message_passing.cu"
 TPU_DIR = "src/repro/kernels"
@@ -603,10 +611,19 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
     def mlp_case(name, x, p, primary):
         m, d_in = x.shape
         d2 = p["w"].shape[1]
+
+        def composition(x=x, p=p, d=d2 // 2):
+            y = torch.addmm(p["b"], x, p["w"])
+            core, gate = (torch.nn.functional.layer_norm(
+                y[:, h], (d,), p["ln_scale"][h], p["ln_bias"][h], 1e-5)
+                for h in (slice(None, d), slice(d, None)))
+            return torch.nn.functional.silu(core) * torch.sigmoid(gate)
+
         return dict(
             name=name, primary=primary, wrapper=ops.fused_gated_mlp_packed,
             plain=ref.gated_mlp_packed_ref,
             args=(x, p["w"], p["b"], p["ln_scale"], p["ln_bias"]),
+            composition=composition, split=True,
             source=f"{CSRC}/gated_mlp.cu",
             replaces=f"{TPU_DIR}/fused_gated_mlp.py:52",
             flops=2 * m * d_in * d2 + m * d2,
@@ -646,10 +663,15 @@ def kernel_phase(cases) -> list[dict]:
     """Each kernel against its plain version, both timed, beside the one
     PyTorch call that computes the same function where there is one
     (``library``) and, for kernel 10, the plain LM path's composition of
-    the same MLP (``composition``): yardsticks only, the port never calls
-    them on a kernels' path.  The kernel and its yardsticks, which read
-    the same inputs, are timed in turns; the plain version, whose f32
-    copies and intermediates sweep the L2 cache, on its own after them."""
+    the same MLP (``composition``; for kernel 7, ``torch.addmm`` in full
+    f32, the two ``layer_norm``s and the gate): yardsticks only, the port
+    never calls them on a kernels' path.  A split-f32 case (``split``:
+    kernels 7 and 11 in f32) is bound by three TF32 products per f32
+    product at the TF32 peak, reports the f32 FMA bound beside it
+    (``bound_fma_ms``), and must give the same bits on a second call.
+    The kernel and its yardsticks, which read the same inputs, are timed
+    in turns; the plain version, whose f32 copies and intermediates sweep
+    the L2 cache, on its own after them."""
     rows = []
     with torch.inference_mode():
         for c in cases:
@@ -659,6 +681,9 @@ def kernel_phase(cases) -> list[dict]:
             want = plain(*args)
             torch.cuda.synchronize()
             err, tol = check(c["name"], got, want)[:2]
+            if c.get("split") and not torch.equal(kernel(*args), got):
+                raise RuntimeError(f"{c['name']}: two calls on the same "
+                                   "inputs differ")
             fns = [lambda: kernel(*args)]
             for key in ("library", "composition"):
                 if c.get(key):
@@ -670,8 +695,14 @@ def kernel_phase(cases) -> list[dict]:
             yard = iter(times[1:])
             lib_ms = next(yard) if c.get("library") else None
             comp_ms = next(yard) if c.get("composition") else None
-            bound_ms, bound_by = _bound(c["flops"], c["bytes"],
-                                        c.get("peak", PEAK_F32_FLOPS))
+            if c.get("split"):
+                # the work the split-f32 kernel issues: three TF32
+                # products per f32 product
+                bound_ms, bound_by = _bound(3 * c["flops"], c["bytes"],
+                                            PEAK_TF32_FLOPS)
+            else:
+                bound_ms, bound_by = _bound(c["flops"], c["bytes"],
+                                            c.get("peak", PEAK_F32_FLOPS))
             rows.append({
                 "name": c["name"], "route": "cuda",
                 "source": c.get("source", SOURCE),
@@ -688,6 +719,13 @@ def kernel_phase(cases) -> list[dict]:
                 lib += f", composition {comp_ms:.4f} ms"
             if c.get("plan"):
                 rows[-1]["plan"] = c["plan"]
+            if c.get("split"):
+                # the same work as f32 FMAs on the CUDA cores, and the
+                # bitwise repeat checked above
+                fma_ms = _bound(c["flops"], c["bytes"])[0]
+                rows[-1].update(bound_fma_ms=fma_ms, bitwise_repeatable=True)
+                lib += (f", FMA bound {fma_ms:.4f} ms, two calls give "
+                        "equal bits")
             print(f"kernel {c['name']}: max|k-p| {err:.3e} (tolerance "
                   f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                   f"{lib}, bound {bound_ms:.4f} ms ({bound_by}), shape "
@@ -818,7 +856,9 @@ def tier_edge_cases(f, ids, csr) -> int:
     and edge inputs: the segment sum at D = 3 and 64 with empty rows,
     every edge padded and S of 1, 7 and 1000, and once from a view that is
     not 16-byte aligned (the scalar path at D = 64); the GatedMLP at M = 1,
-    255 and 257 and an input width that is no multiple of 4; the RBF at
+    255 and 257, an input width that is no multiple of 4, d_in 0, 7, 300
+    and 1,000 (several and partial K chunks) at D 8, 32 and 128, and from
+    unaligned views (its 4-byte copies); the RBF at
     r = 0, 1e-9, r_cut and beyond; the Fourier basis at 0 and pi."""
     n = 0
     for d in (3, 64):
@@ -836,12 +876,20 @@ def tier_edge_cases(f, ids, csr) -> int:
                  ref.sorted_segment_sum_ref(*args))
     n += 1
     for m, d_in, d in ((1, 192, 64), (255, 256, 64), (257, 192, 64),
-                       (33, 13, 16)):
+                       (33, 13, 16), (300, 300, 128), (40, 7, 8),
+                       (513, 1000, 32), (20, 0, 64)):
         args = (f(m, d_in), f(d_in, 2 * d, scale=0.1), f(2 * d),
                 f(2 * d).abs() + 0.5, f(2 * d))
         _check_close(f"gated_mlp case {n}", ops.fused_gated_mlp_packed(
             *args), ref.gated_mlp_packed_ref(*args))
         n += 1
+    # x and W from views that are not 16-byte aligned (4-byte copies)
+    args = (f(100 * 192 + 1)[1:].view(100, 192),
+            f(192 * 128 + 1, scale=0.1)[1:].view(192, 128), f(128),
+            f(128).abs() + 0.5, f(128))
+    _check_close(f"gated_mlp case {n}", ops.fused_gated_mlp_packed(*args),
+                 ref.gated_mlp_packed_ref(*args))
+    n += 1
     r_cut = 6.0
     dist = torch.cat([torch.tensor([0.0, 1e-9, r_cut, r_cut + 0.5, 1.0],
                                    device="cuda"), f(400).abs() * 2.0])
@@ -1266,7 +1314,8 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
     M D F flops and its operands read and output written once;
     attention's 4 D flops per unmasked (q, k) pair (q k and p v), q, k, v
     read and out written once.  Peak rate by the operand type: bf16 on the
-    tensor cores, f32 on the CUDA cores."""
+    tensor cores; f32 on the CUDA cores for kernel 10 and, for kernel 11's
+    split f32, three TF32 products per product (``kernel_phase``)."""
     cases = []
     src10 = f"{CSRC}/swiglu.cu"
     src11 = f"{CSRC}/flash_attention.cu"
@@ -1335,7 +1384,7 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
             wrapper=lambda *a, c=causal: ops.flash_attention(*a, causal=c),
             plain=lambda *a, c=causal, d=d: ref.flash_attention_ref(
                 *a, causal=c, scale=float(1.0 / d ** 0.5)),
-            args=(q, k, v), library=lib, source=src11,
+            args=(q, k, v), library=lib, source=src11, split=not bf16,
             replaces=f"{LM_TPU_DIR}/flash_attention.py:74",
             check=_check_bf16 if bf16 else _check_close,
             peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
@@ -1357,6 +1406,12 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
     flash("flash_attention_fwd Sq<Sk", 2, 3, 100, 300, 128, True,
           torch.bfloat16)
     flash("flash_attention_fwd D=256", 1, 2, 77, 129, 256, False,
+          torch.float32)
+    flash("flash_attention_fwd D=256 causal f32", 1, 2, 200, 200, 256, True,
+          torch.float32)
+    flash("flash_attention_fwd Sq<Sk f32", 2, 3, 100, 300, 128, True,
+          torch.float32)
+    flash("flash_attention_fwd one query f32", 1, 2, 1, 5, 128, False,
           torch.float32)
     flash("flash_attention_fwd D=256 bf16", 1, 2, 77, 129, 256, True,
           torch.bfloat16)
@@ -1554,7 +1609,8 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
         row["on_main_path"] = c["counter"] == "fused_swiglu"
     primary = [r for r in krows if r["name"] in (
         "swiglu_fwd prefill", "swiglu_fwd decode",
-        "flash_attention_fwd causal", "flash_attention_fwd")]
+        "flash_attention_fwd causal", "flash_attention_fwd",
+        "flash_attention_fwd causal f32", "flash_attention_fwd f32")]
     del params, cases
     torch.cuda.empty_cache()
     f32 = lm_f32_check(seed)
@@ -1601,7 +1657,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in ("swiglu", "flash_attention"):
+    for lib in ("swiglu", "flash_attention", "gated_mlp"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):

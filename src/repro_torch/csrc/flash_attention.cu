@@ -17,10 +17,10 @@
 //
 // The TPU kernel walks the KV blocks as its innermost grid axis and
 // carries acc, m and l in scratch from one grid step to the next.  Here a
-// block owns a (slice, q tile) pair and loops over the 64-row KV tiles
-// itself, with acc, m and l in registers.  KV tiles wholly above the
-// diagonal are skipped.  Any Sq, Sk >= 1: rows and columns past the edge
-// load as zeros, are masked and are not stored.
+// block owns a (slice, q tile) pair and loops over the KV tiles itself,
+// with acc, m and l in registers.  KV tiles wholly above the diagonal
+// are skipped.  Any Sq, Sk >= 1: rows and columns past the edge load as
+// zeros, are masked and are not stored.
 //
 // Bound on this card: at BH = 128, S = 512, D = 128 in bf16 the call moves
 // 67 MB (q, k, v read once, out written once), 0.020 ms at 3.35 TB/s, and
@@ -46,12 +46,22 @@
 // mma.sync at two thirds of peak brings the operations to ~0.026 ms;
 // wgmma is for longer sequences.
 //
-// f32 (flash_kernel): the products stay f32 FMAs on the CUDA cores (no
-// TF32: the f32 tier is held to 1e-4): 256 threads, thread (ty = tid / 16,
-// tx = tid % 16) owns rows ty + 16 i (i < 4), score columns tx + 16 j (j
-// < 4) and output columns 64 jj + 4 tx + e; p goes through an f32 tile in
-// shared memory.  17 GFLOP at 67 TFLOP/s is 0.26 ms.  It is on no model
-// path (the JAX package's prefill runs jnp attention).
+// f32 (flash_split_kernel): both products on the tensor cores in split
+// f32 (3xTF32, hopper.cuh: each operand split into TF32 hi and lo parts,
+// three m16n8k8 products accumulating in f32), as accurate as f32 FMAs
+// (one TF32 product alone would miss the 1e-4 bound).  Same structure as
+// the bf16 kernel, with one 16-row tile per warp (the hi / lo fragments
+// double the operand registers): 128 q rows and 64-row KV tiles in 8 warps
+// for D <= 128, 64 and 32 in 4 warps for D = 256, K and V double-buffered
+// with cp.async.  The fragments are loaded from shared memory and split in
+// registers.  In q k^T the k = t / t + 4 halves of each 8-wide step are
+// columns 2t / 2t + 1 of q and K (one 8-byte load each); in p v they are
+// kv rows 2t / 2t + 1, so the s accumulator, which holds columns 2t and
+// 2t + 1, is the A fragment of p v as it stands: p stays in registers
+// with no shuffle.  At (BH 128, S 512, D 128) the split issues 3 x 17
+// GFLOP: 0.104 ms at 495 TFLOP/s (TF32), against 0.26 ms for f32 FMAs at
+// 67.  It is on no model path (the JAX package's prefill runs jnp
+// attention).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -304,201 +314,222 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: split f32 (3xTF32) on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;    // q rows per block
-constexpr int BKV = 64;   // kv rows per tile
-constexpr int THREADS = 256;
-constexpr int PLD = BKV + 4;  // row stride of the p tile (floats)
-
-// rows [r0, r0 + 64) of a row-major (n, D) matrix into shared memory with
-// row stride ld, zeros past row n
+// One 16-row m tile per warp.  MQ q rows and MKV kv rows per tile: 128 /
+// 64 (8 warps) for D <= 128, 64 / 32 (4 warps) for D = 256, whose f32
+// tiles would not fit otherwise.  Row strides: q and K D + 8 floats (the
+// 8-byte fragment loads of 16 lanes hit 32 banks), V D + 4 (the 4-byte
+// loads of rows 2t and 2t + 1 hit 32 banks).
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* src, int n, int r0) {
-  constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i - r * VPR) * 4;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
-  }
-}
+struct SplitShape {
+  static constexpr int MQ = D <= 128 ? 128 : 64;
+  static constexpr int MKV = D <= 128 ? 64 : 32;
+  static constexpr int THREADS = 32 * MQ / 16;
+  static constexpr int LDQ = D + 8, LDV = D + 4;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)(MQ + 2 * MKV) * LDQ + 2 * MKV * LDV);
+};
 
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Grid (BH, ceil(Sq / 64)).  Shared memory: q, k, v tiles (64, D + 4),
-// then the p tile (64, PLD).
-template <int NJ>
-__global__ void __launch_bounds__(THREADS)
-    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int sq,
-                 int sk, float scale, bool causal) {
-  constexpr int D = 64 * NJ;
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* ks = qs + BQ * LD;
-  float* vs = ks + BKV * LD;
-  float* ps = vs + BKV * LD;
+// Grid (BH, ceil(Sq / MQ)), the last q tile first.  Shared memory: q (MQ,
+// LDQ), then K, two (MKV, LDQ) buffers, then V, two (MKV, LDV), f32.
+template <int D>
+__global__ void __launch_bounds__(SplitShape<D>::THREADS, D <= 64 ? 2 : 1)
+    flash_split_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int sq, int sk, float scale_log2, bool causal) {
+  using S = SplitShape<D>;
+  constexpr int MQ = S::MQ, MKV = S::MKV, THREADS = S::THREADS;
+  constexpr int LDQ = S::LDQ, LDV = S::LDV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + MQ * LDQ;
+  float* vs = ks + 2 * MKV * LDQ;
 
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;
   const float* qb = q + bh * sq * D;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
   float* ob = out + bh * sq * D;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_rows<D>(qs, LD, qb, sq, q0);
+  // rows [r0, r0 + rows) of a row-major (n, D) matrix, zeros past row n
+  auto stage_rows = [&](float* dst, int ld, const float* src, int n, int r0,
+                        int rows) {
+    constexpr int VPR = D / 4;
+    for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
+      const int r = i / VPR, c = (i - r * VPR) * 4;
+      const bool in = r0 + r < n;
+      cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * D + c : src,
+                 in);
+    }
+  };
 
-  float m[4], l[4], acc[4][4 * NJ];
+  int n_kv = (sk + MKV - 1) / MKV;
+  if (causal) n_kv = min(n_kv, (q0 + MQ - 1) / MKV + 1);
+  stage_rows(qs, LDQ, qb, sq, q0, MQ);
+  stage_rows(ks, LDQ, kb, sk, 0, MKV);
+  stage_rows(vs, LDV, vb, sk, 0, MKV);
+  cp_async_commit();
+
+  // the warp's rows [wrow, wrow + 16): this thread holds rows wrow + g and
+  // wrow + g + 8
+  const int wrow = q0 + warp * 16;
+  const int g = lane >> 2, tq = lane & 3;
+  float o[D / 8][4], m_r[2] = {NEG, NEG}, l_r[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.0f;
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < 4 * NJ; ++c) acc[i][c] = 0.0f;
-  }
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
 
-  int n_kv = (sk + BKV - 1) / BKV;
-  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BKV + 1);
   for (int t = 0; t < n_kv; ++t) {
-    const int kv0 = t * BKV;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    load_rows<D>(ks, LD, kb, sk, kv0);
-    load_rows<D>(vs, LD, vb, sk, kv0);
+    cp_async_wait<0>();
+    // tile t is visible to every warp, and every warp is done with tile t -
+    // 1, whose buffers the next tile now overwrites while this one computes
     __syncthreads();
+    if (t + 1 < n_kv) {
+      stage_rows(ks + ((t + 1) & 1) * MKV * LDQ, LDQ, kb, sk, (t + 1) * MKV,
+                 MKV);
+      stage_rows(vs + ((t + 1) & 1) * MKV * LDV, LDV, vb, sk, (t + 1) * MKV,
+                 MKV);
+      cp_async_commit();
+    }
+    const int kv0 = t * MKV;
+    const float* kt = ks + (t & 1) * MKV * LDQ;
+    const float* vt = vs + (t & 1) * MKV * LDV;
+    // skip a tile wholly above this warp's rows
+    if (causal && kv0 > wrow + 15) continue;
 
-    // s = q k^T over D, 16 bytes of each operand row per step
-    float s[4][4];
+    // s = q k^T, 16 x MKV: over D in steps of 8, k = t and t + 4 of each
+    // step taken as columns 2t and 2t + 1 of q and K, one 8-byte load each
+    float s[MKV / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < MKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    const float* qw = qs + (wrow - q0 + g) * LDQ + 2 * tq;
+    const float* kw = kt + g * LDQ + 2 * tq;
 #pragma unroll 2
-    for (int d0 = 0; d0 < D; d0 += 4) {
-      float4 qv[4], kv[4];
+    for (int kd = 0; kd < D / 8; ++kd) {
+      // rows g and g + 8
+      const float2 top = *reinterpret_cast<const float2*>(qw + kd * 8);
+      const float2 bot =
+          *reinterpret_cast<const float2*>(qw + 8 * LDQ + kd * 8);
+      const float qa[4] = {top.x, bot.x, top.y, bot.y};
+      uint32_t ah[4], al[4];
+      split_frag(qa, ah, al);
+      uint32_t bh[MKV / 8][2], bl[MKV / 8][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d0);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
+      for (int j = 0; j < MKV / 8; ++j) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kw + j * 8 * LDQ + kd * 8);
+        split_tf32(kv.x, bh[j][0], bl[j][0]);
+        split_tf32(kv.y, bh[j][1], bl[j][1]);
+      }
+      mma_split_rows(s, 0, ah, al, bh, bl);
     }
 
-    // online softmax: each row's max and sum over its 16 threads
+    // online softmax in the log2 domain, as in the bf16 kernel
+    const bool edge = kv0 + MKV > sk || (causal && kv0 + MKV - 1 > wrow);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = NEG;
+    for (int j = 0; j < MKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kv0 + tx + 16 * j;
-        ok[j] = col < sk && (!causal || col <= row);
-        s[i][j] *= scale;
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        rs += p;
-        ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
-      }
-      l[i] = alpha * l[i] + sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += p v
-#pragma unroll 2
-    for (int c = 0; c < BKV; c += 4) {
-      float p4[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * PLD + c);
-        p4[i][0] = pv.x;
-        p4[i][1] = pv.y;
-        p4[i][2] = pv.z;
-        p4[i][3] = pv.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (c + cc) * LD + 64 * jj + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][4 * jj + 0] = fmaf(p4[i][cc], vv.x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(p4[i][cc], vv.y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(p4[i][cc], vv.z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(p4[i][cc], vv.w, acc[i][4 * jj + 3]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int col = kv0 + j * 8 + 2 * tq + (e & 1);
+          const int row = wrow + g + 8 * (e >> 1);
+          if (col >= sk || (causal && col > row)) s[j][e] = -INFINITY;
         }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i] * scale_log2);
+      alpha[i] = ex2(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = ex2(fmaf(s[j][e], scale_log2, -m_r[e >> 1]));
+        rs[e >> 1] += pe;
+        s[j][e] = pe;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l_r[i] = alpha[i] * l_r[i] + rs[i];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // o += p v over the tile's kv rows in steps of 8.  The accumulator of
+    // s holds columns 2t and 2t + 1 where the A fragment wants t and t +
+    // 4; taking k = t as kv row 2t and k = t + 4 as row 2t + 1 makes the
+    // accumulator the A fragment, with no shuffle: the B fragment reads V
+    // rows 2t and 2t + 1.
+    const float* vw = vt + 2 * tq * LDV + g;
+#pragma unroll
+    for (int kk = 0; kk < MKV / 8; ++kk) {
+      const float pa[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      uint32_t ah[4], al[4];
+      split_frag(pa, ah, al);
+      // output columns in groups of 8 n tiles
+#pragma unroll
+      for (int d0 = 0; d0 < D / 8; d0 += 8) {
+        uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          split_tf32(vw[kk * 8 * LDV + (d0 + i) * 8], bh[i][0], bl[i][0]);
+          split_tf32(vw[(kk * 8 + 1) * LDV + (d0 + i) * 8], bh[i][1],
+                     bl[i][1]);
+        }
+        mma_split_rows(o, d0, ah, al, bh, bl);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = wrow + g + 8 * i;
     if (row >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l_r[i], 1e-30f);
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ob[(size_t)row * D + 64 * jj + 4 * tx + e] = acc[i][4 * jj + e] / den;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(ob + (size_t)row * D + j * 8 + 2 * tq) =
+          make_float2(o[j][2 * i] / den, o[j][2 * i + 1] / den);
   }
 }
 
-template <int NJ>
-int launch_fma(const void* q, const void* k, const void* v, void* out, int bh,
-               int sq, int sk, float scale, bool causal,
-               cudaStream_t stream) {
-  constexpr int LD = 64 * NJ + 4;
-  const size_t smem =
-      sizeof(float) * ((size_t)(BQ + 2 * BKV) * LD + (size_t)BQ * PLD);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_split(const void* q, const void* k, const void* v, void* out,
+                 int bh, int sq, int sk, float scale, bool causal,
+                 cudaStream_t stream) {
+  using S = SplitShape<D>;
+  if (S::SMEM > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  flash_kernel<NJ><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(bh, (sq + S::MQ - 1) / S::MQ);
+  flash_split_kernel<D><<<grid, S::THREADS, S::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, scale,
-      causal);
+      static_cast<const float*>(v), static_cast<float*>(out), sq, sk,
+      scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
@@ -530,11 +561,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   switch (d) {
     case 64:
-      return launch_fma<1>(q, k, v, out, bh, sq, sk, scale, c, st);
+      return launch_split<64>(q, k, v, out, bh, sq, sk, scale, c, st);
     case 128:
-      return launch_fma<2>(q, k, v, out, bh, sq, sk, scale, c, st);
+      return launch_split<128>(q, k, v, out, bh, sq, sk, scale, c, st);
     case 256:
-      return launch_fma<4>(q, k, v, out, bh, sq, sk, scale, c, st);
+      return launch_split<256>(q, k, v, out, bh, sq, sk, scale, c, st);
   }
   return (int)cudaErrorInvalidValue;
 }

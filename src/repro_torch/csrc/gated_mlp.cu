@@ -12,120 +12,295 @@
 // squared deviations), rsqrt(var + 1e-5), over the D columns of each half.
 //
 // Bound on this card: at FAST_PALLAS (D = 64, d_in = 192 or 256, 381k-394k
-// rows at batch 128) a call does 2 * M * d_in * 2D flops, 19-25 GFLOP, on
-// M * (d_in + D) * 4 bytes, about 50 flops per byte: f32 without tensor
-// cores (no TF32, to stay within the 1e-4 of the plain version), it is
-// bound by operations at 67 TFLOP/s.  The design keeps the inner loop on
-// FMAs: a block takes a tile of TM rows, stages the x tile in shared
-// memory once, and each of its 2D threads owns one GEMM output column and
-// keeps TM accumulators in registers, reading x as float4 broadcasts from
-// shared memory and each weight once per tile through the read-only cache
-// (W is at most 128 KB and shared by every block, so it stays in L2).  The
-// LayerNorms run one warp per (row, half) with warp shuffles over the
-// tile's y in shared memory, then the gate is applied and the D output
-// columns are written coalesced.  Making it fast (wgmma on split f32,
-// TMA, a W tile held in shared memory) is later work; this is the simple,
-// right version.
+// rows at batch 128) a call does 2 M d_in 2D flops, 19-25 GFLOP, on M
+// (d_in + D) 4 bytes, ~50 flops per byte.  As f32 FMAs that is 0.37 ms at
+// 67 TFLOP/s; here the GEMM runs on the tensor cores in split f32 (3xTF32,
+// hopper.cuh), 3 x 25 GFLOP at 495 TFLOP/s = 0.15 ms, the same as the
+// 0.145 ms the bytes take at 3.35 TB/s.  The design:
+//  - a persistent grid (one block of 8 warps per SM) walks row tiles of
+//    TM = 256 rows (128 for D = 128) and, inside each, K chunks of 64
+//    columns; each (tile, chunk) stage brings the x chunk (TM, 64) and the
+//    W chunk (64, 2D) into shared memory with cp.async, double-buffered,
+//    so the next stage loads while this one computes (W, 128 KB at the
+//    path shapes, is read again from L2 for every tile, so any d_in fits);
+//  - a warp owns 32 rows (two m16 tiles; 16 for D = 128) by all 2D
+//    columns: 2D / 8 n8 tiles, 4 accumulators each per m tile, in
+//    registers from the first chunk to the epilogue.  Each B fragment of W
+//    is split once in registers and feeds both m tiles; the three products
+//    of the split run as passes over 8 n tiles (hopper.cuh);
+//  - the epilogue runs on the accumulators: a row's 2D columns lie in the
+//    4 threads of its quad, so the bias, both LayerNorms (quad shuffles)
+//    and the gate (core column c and gate column D + c are in the same
+//    thread; one fast reciprocal for both sigmoids) need no shared memory
+//    beyond the parameters, and y never leaves registers.
+// Fragment order: k = t / t + 4 of each 8-wide step are x columns 2t / 2t
+// + 1 (one 8-byte load) and W rows 2t / 2t + 1; row strides 72 floats (x)
+// and 2D + 4 (W) keep the loads free of bank conflicts.  Each output is
+// summed in a fixed order, with no atomics.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TM = 32;  // rows per block
+using namespace hopper;
+
 constexpr float LN_EPS = 1e-5f;
+constexpr int KC = 64;  // d_in columns per stage
+constexpr int STAGES = 2;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+template <int D>
+struct MlpShape {
+  static constexpr int NT = 2 * D / 8;          // n8 tiles of [core | gate]
+  static constexpr int RW = D <= 64 ? 2 : 1;    // m16 tiles per warp
+  static constexpr int TM = WARPS * 16 * RW;    // rows per tile
+  static constexpr int LDX = KC + 8, LDW = 2 * D + 4;
+  // a stage: the x chunk (TM, LDX), then the W chunk (KC, LDW)
+  static constexpr int STAGE = TM * LDX + KC * LDW;  // floats
+  // the stages, then bias, ln_scale and ln_bias (2D each)
+  static constexpr size_t SMEM = sizeof(float) * (STAGES * STAGE + 6 * D);
+};
+
+// silu(c) sigmoid(g) = c / ((1 + e^-c) (1 + e^-g)): two fast
+// exponentials and one fast reciprocal (a few ulp each, no division's slow
+// path); a denominator that overflows gives 0, the limit
+__device__ __forceinline__ float gated(float c, float g) {
+  return __fdividef(c, (1.0f + __expf(-c)) * (1.0f + __expf(-g)));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Threads: 2D rounded up to a warp.  Shared memory: the x tile (TM, kp)
-// with its row stride kp = d_in rounded up to 4 (zeros beyond d_in), then
-// y (TM, 2D).
-__global__ void gated_mlp_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ bias,
-                                 const float* __restrict__ lns,
-                                 const float* __restrict__ lnb,
-                                 float* __restrict__ out, int m, int d_in,
-                                 int D) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int kp = (d_in + 3) & ~3;
-  const int n2 = 2 * D;
-  float* xs = smem;            // (TM, kp)
-  float* ys = smem + TM * kp;  // (TM, 2D)
+// vec_x: d_in % 4 == 0 and x 16-byte aligned (16-byte copies of x, else
+// 4); vec_w: w 16-byte aligned (2D % 4 == 0 always)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    gated_mlp_split_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ lns,
+                           const float* __restrict__ lnb,
+                           float* __restrict__ out, int m, int d_in,
+                           bool vec_x, bool vec_w) {
+  using S = MlpShape<D>;
+  constexpr int NT = S::NT, RW = S::RW, TM = S::TM;
+  constexpr int LDX = S::LDX, LDW = S::LDW, N2 = 2 * D;
+  extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
-  const int r0 = blockIdx.x * TM;
-  const int n_r = min(TM, m - r0);
+  const int nk = max(1, (d_in + KC - 1) / KC);
+  const int n_tiles = (m + TM - 1) / TM;
+  const int my_tiles = (int)blockIdx.x < n_tiles
+                           ? (n_tiles - 1 - (int)blockIdx.x) / gridDim.x + 1
+                           : 0;
+  const int total = my_tiles * nk;
 
-  // 1. stage the x tile; rows past m and columns past d_in are zeros
-  for (int idx = tid; idx < TM * kp; idx += blockDim.x) {
-    const int t = idx / kp;
-    const int k = idx - t * kp;
-    xs[idx] = (t < n_r && k < d_in) ? x[(size_t)(r0 + t) * d_in + k] : 0.0f;
-  }
-  __syncthreads();
-
-  // 2. y = x @ W + b; thread c owns output column c, TM rows in registers
-  const int c = tid;
-  if (c < n2) {
-    float yc[TM];
-#pragma unroll
-    for (int t = 0; t < TM; ++t) yc[t] = 0.0f;
-    for (int k = 0; k < kp; k += 4) {
-      float wk[4];  // rows k..k+3 of W; zeros past d_in, as in the x tile
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wk[j] = k + j < d_in ? __ldg(w + (size_t)(k + j) * n2 + c) : 0.0f;
-#pragma unroll
-      for (int t = 0; t < TM; ++t) {
-        const float4 x4 = *reinterpret_cast<const float4*>(xs + t * kp + k);
-        yc[t] = fmaf(x4.x, wk[0], yc[t]);
-        yc[t] = fmaf(x4.y, wk[1], yc[t]);
-        yc[t] = fmaf(x4.z, wk[2], yc[t]);
-        yc[t] = fmaf(x4.w, wk[3], yc[t]);
+  // stage s of this block: chunk s % nk of its tile s / nk; columns past
+  // d_in and rows past m are zeros (in x and in W, so no 0 x NaN)
+  auto load_stage = [&](int s) {
+    if (s < total) {
+      const int r0 = (blockIdx.x + (s / nk) * gridDim.x) * TM;
+      const int k0 = (s % nk) * KC;
+      float* xs = smem + (s % STAGES) * S::STAGE;
+      float* ws = xs + TM * LDX;
+      if (vec_x) {
+        for (int i = threadIdx.x; i < TM * KC / 4; i += THREADS) {
+          const int r = i / (KC / 4), c = (i % (KC / 4)) * 4;
+          const bool in = r0 + r < m && k0 + c < d_in;
+          cp_async16(xs + r * LDX + c,
+                     in ? x + (size_t)(r0 + r) * d_in + k0 + c : x, in);
+        }
+      } else {
+        for (int i = threadIdx.x; i < TM * KC; i += THREADS) {
+          const int r = i / KC, c = i % KC;
+          const bool in = r0 + r < m && k0 + c < d_in;
+          cp_async4(xs + r * LDX + c,
+                    in ? x + (size_t)(r0 + r) * d_in + k0 + c : x, in);
+        }
+      }
+      if (vec_w) {
+        for (int i = threadIdx.x; i < KC * N2 / 4; i += THREADS) {
+          const int r = i / (N2 / 4), c = (i % (N2 / 4)) * 4;
+          const bool in = k0 + r < d_in;
+          cp_async16(ws + r * LDW + c, in ? w + (size_t)(k0 + r) * N2 + c : w,
+                     in);
+        }
+      } else {
+        for (int i = threadIdx.x; i < KC * N2; i += THREADS) {
+          const int r = i / N2, c = i % N2;
+          const bool in = k0 + r < d_in;
+          cp_async4(ws + r * LDW + c, in ? w + (size_t)(k0 + r) * N2 + c : w,
+                    in);
+        }
       }
     }
-    const float bc = bias[c];
+    // one group per stage, empty past the end, so the wait counts hold
+    cp_async_commit();
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) load_stage(s);
+  // the epilogue's parameters, visible after the first barrier below
+  float* prm = smem + STAGES * S::STAGE;
+  for (int i = threadIdx.x; i < N2; i += THREADS) {
+    prm[i] = bias[i];
+    prm[N2 + i] = lns[i];
+    prm[2 * N2 + i] = lnb[i];
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[RW][NT][4];
+
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<STAGES - 2>();
+    // stage s is visible to every warp, and every warp is done with stage
+    // s - 1, whose buffer the load below overwrites
+    __syncthreads();
+    load_stage(s + STAGES - 1);
+
+    const int kc = s % nk;
+    if (kc == 0) {
 #pragma unroll
-    for (int t = 0; t < TM; ++t) ys[t * n2 + c] = yc[t] + bc;
-  }
-  __syncthreads();
-
-  // 3. LayerNorm of each (row, half), one warp per pair, two passes
-  for (int p = warp; p < 2 * n_r; p += nwarps) {
-    const int t = p >> 1, h = p & 1;
-    float* yrow = ys + t * n2 + h * D;
-    float s = 0.0f;
-    for (int j = lane; j < D; j += 32) s += yrow[j];
-    const float mu = warp_sum(s) / (float)D;
-    float q = 0.0f;
-    for (int j = lane; j < D; j += 32) {
-      const float dlt = yrow[j] - mu;
-      q += dlt * dlt;
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.0f;
     }
-    const float rstd = rsqrtf(warp_sum(q) / (float)D + LN_EPS);
-    for (int j = lane; j < D; j += 32)
-      yrow[j] = (yrow[j] - mu) * rstd * lns[h * D + j] + lnb[h * D + j];
-  }
-  __syncthreads();
+    const float* xs = smem + (s % STAGES) * S::STAGE;
+    const float* xw = xs + (warp * 16 * RW + g) * LDX + 2 * tq;
+    const float* ww = xs + TM * LDX + 2 * tq * LDW + g;
+    // one 8-wide step of K: A fragments split, then the n tiles in groups
+    // of up to 8: the group's B fragments split, then the three passes of
+    // the split product over its 8 x RW accumulators
+    auto k8_step = [&](int k8) {
+      uint32_t ah[RW][4], al[RW][4];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        // rows g and g + 8 of m tile r
+        const float2 top =
+            *reinterpret_cast<const float2*>(xw + 16 * r * LDX + k8 * 8);
+        const float2 bot = *reinterpret_cast<const float2*>(
+            xw + (16 * r + 8) * LDX + k8 * 8);
+        const float xa[4] = {top.x, bot.x, top.y, bot.y};
+        split_frag(xa, ah[r], al[r]);
+      }
+      constexpr int G = NT < 8 ? NT : 8;
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += G) {
+        uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            split_tf32(ww[(k8 * 8 + e) * LDW + (j0 + i) * 8], bh[i][e],
+                       bl[i][e]);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+            mma_tf32(acc[r][j0 + i], al[r], bh[i][0], bh[i][1]);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+            mma_tf32(acc[r][j0 + i], ah[r], bl[i][0], bl[i][1]);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+            mma_tf32(acc[r][j0 + i], ah[r], bh[i][0], bh[i][1]);
+      }
+    };
+    const int k_left = d_in - kc * KC;
+    if (k_left >= KC) {
+#pragma unroll
+      for (int k8 = 0; k8 < KC / 8; ++k8) k8_step(k8);
+    } else {  // the last, partial chunk of d_in: past it are zeros
+      for (int k8 = 0; k8 * 8 < k_left; ++k8) k8_step(k8);
+    }
+    if (kc != nk - 1) continue;
 
-  // 4. gate and write: silu(core) * sigmoid(gate), silu(z) = z * sigmoid(z)
-  for (int idx = tid; idx < n_r * D; idx += blockDim.x) {
-    const int t = idx / D;
-    const int j = idx - t * D;
-    const float core = ys[t * n2 + j];
-    const float gate = ys[t * n2 + D + j];
-    out[(size_t)(r0 + t) * D + j] = (core * sigmoid_f(core)) * sigmoid_f(gate);
+    // epilogue of the tile: bias, LayerNorm of each half, gate, store.
+    // This thread holds columns 8 j + 2 tq + e of rows g (i = 0) and g + 8
+    // (i = 1) of each m tile, in acc[r][j][2 i + e]; n tiles j < NT / 2
+    // are the core half, the others the gate half.
+    const int row0 = (blockIdx.x + (s / nk) * gridDim.x) * TM +
+                     warp * 16 * RW + g;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            acc[r][j][2 * i + e] += prm[j * 8 + 2 * tq + e];
+            sum[j / (NT / 2)] += acc[r][j][2 * i + e];
+          }
+        const float mu[2] = {quad_sum(sum[0]) / (float)D,
+                             quad_sum(sum[1]) / (float)D};
+        float sq[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dlt = acc[r][j][2 * i + e] - mu[j / (NT / 2)];
+            sq[j / (NT / 2)] += dlt * dlt;
+          }
+        const float rstd[2] = {rsqrtf(quad_sum(sq[0]) / (float)D + LN_EPS),
+                               rsqrtf(quad_sum(sq[1]) / (float)D + LN_EPS)};
+        const int row = row0 + 16 * r + 8 * i;
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          float res[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = j * 8 + 2 * tq + e;
+            const float core =
+                (acc[r][j][2 * i + e] - mu[0]) * rstd[0] * prm[N2 + c] +
+                prm[2 * N2 + c];
+            const float gate = (acc[r][j + NT / 2][2 * i + e] - mu[1]) *
+                                   rstd[1] * prm[N2 + D + c] +
+                               prm[2 * N2 + D + c];
+            res[e] = gated(core, gate);
+          }
+          if (row < m)
+            *reinterpret_cast<float2*>(out + (size_t)row * D + j * 8 +
+                                       2 * tq) = make_float2(res[0], res[1]);
+        }
+      }
   }
+  cp_async_wait<0>();
+}
+
+template <int D>
+int launch(const float* x, const float* w, const float* b,
+           const float* ln_scale, const float* ln_bias, float* out, int m,
+           int d_in, cudaStream_t stream) {
+  using S = MlpShape<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_mlp_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (m + S::TM - 1) / S::TM;
+  const bool vec_x = d_in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  gated_mlp_split_kernel<D><<<n_tiles < sms ? n_tiles : sms, THREADS,
+                              S::SMEM, stream>>>(
+      x, w, b, ln_scale, ln_bias, out, m, d_in, vec_x, vec_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -133,24 +308,28 @@ __global__ void gated_mlp_kernel(const float* __restrict__ x,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = ok).  The caller
-// checks shapes (x (m, d_in), w (d_in, 2D), b / ln_scale / ln_bias (2D,),
-// 2D <= 1024), f32 dtypes, contiguity, and that the shared-memory tile,
-// 4 * TM * (round_up(d_in, 4) + 2D) bytes, fits a block's 227 KB.
+// checks shapes (x (m, d_in), w (d_in, 2D), b / ln_scale / ln_bias (2D,)),
+// D in {8, 16, 32, 64, 128}, f32 dtypes, contiguity and an 8-byte aligned
+// out; any d_in >= 0.
 int gated_mlp_fwd(const float* x, const float* w, const float* b,
                   const float* ln_scale, const float* ln_bias, float* out,
                   int m, int d_in, int dim, void* stream) {
   if (m == 0) return 0;
-  const int kp = (d_in + 3) & ~3;
-  const size_t smem = sizeof(float) * TM * (kp + 2 * dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((2 * dim + 31) / 32) * 32;
-  const int grid = (m + TM - 1) / TM;
-  gated_mlp_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, w, b, ln_scale, ln_bias, out, m, d_in, dim);
-  return (int)cudaGetLastError();
+  if (m < 0 || d_in < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dim) {
+    case 8:
+      return launch<8>(x, w, b, ln_scale, ln_bias, out, m, d_in, st);
+    case 16:
+      return launch<16>(x, w, b, ln_scale, ln_bias, out, m, d_in, st);
+    case 32:
+      return launch<32>(x, w, b, ln_scale, ln_bias, out, m, d_in, st);
+    case 64:
+      return launch<64>(x, w, b, ln_scale, ln_bias, out, m, d_in, st);
+    case 128:
+      return launch<128>(x, w, b, ln_scale, ln_bias, out, m, d_in, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

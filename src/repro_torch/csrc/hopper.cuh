@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
 // kernels, as inline PTX: cp.async with zero fill, mbarriers, TMA tile
-// loads, wgmma descriptors and products, ldmatrix and mma.sync.  Included
-// by swiglu.cu (TMA + mbarrier + wgmma) and flash_attention.cu (cp.async
-// + ldmatrix + mma.sync); kernels/build.py hashes it into the digest of
-// every source that includes it, so an edit here rebuilds both.
+// loads, wgmma descriptors and products, ldmatrix and mma.sync, and the
+// split-f32 (3xTF32) product on mma.sync.  Included by swiglu.cu (TMA +
+// mbarrier + wgmma), flash_attention.cu (cp.async + ldmatrix + mma.sync,
+// bf16 and split f32) and gated_mlp.cu (cp.async + split f32);
+// kernels/build.py hashes it into the digest of every source that
+// includes it, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>
@@ -36,6 +38,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 4 bytes global -> shared (any 4-byte aligned address); pred false
+// zeroes the destination
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -329,6 +340,77 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- split f32 (3xTF32) on mma.sync ---------------------------------------
+//
+// An f32 operand x is split into two TF32 values, hi = tf32(x) and lo =
+// tf32(x - hi), each rounded to nearest with ties away from zero (as
+// cvt.rna), so that hi + lo carries 22 of x's 24 significant bits.  a b is
+// then a_lo b_hi + a_hi b_lo + a_hi b_hi: three tensor-core products
+// accumulating in f32, the two small ones first so that they are not lost
+// against the large one; a_lo b_lo (below 2^-22 of |a b|) is dropped.  The
+// result is as accurate as an f32 FMA product for sums of a few hundred
+// terms (the CPU emulation in tests/test_torch_split_f32.py holds it to
+// 1e-5 of a float64 product), where one TF32 product alone misses by
+// ~4e-4.
+//
+// The tensor cores read only bits 13-31 of a TF32 operand, so adding
+// 0x1000 (half of the dropped bits) rounds to nearest, ties away.  ptxas
+// lowers cvt.rna.tf32.f32 the same way, plus a compare and a select per
+// value that pass inf and NaN through; the split here skips those, as its
+// operands are finite.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d as in
+// m16n8k16: d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+// The k index is summed over, so a kernel may map k = t and t + 4 to any
+// two columns of its operands, as long as A and B agree.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a 16 x 8 A fragment in f32 -> its hi and lo TF32 fragments
+__device__ __forceinline__ void split_frag(const float (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// d[j0 + j] += a b[j] in split f32 for N n tiles sharing one A fragment,
+// from the (hi, lo) fragments of a and of each b[j]: a_lo b_hi, then a_hi
+// b_lo, then a_hi b_hi, each pass over all N accumulators before the
+// next, so that a product does not wait for the one just issued to the
+// same accumulator (a warp issues in order, and an mma.sync takes longer
+// than the issue of the next few).  j0 is a compile-time constant after
+// unrolling.
+template <int N, int M>
+__device__ __forceinline__ void mma_split_rows(float (&d)[M][4], int j0,
+                                               const uint32_t (&a_hi)[4],
+                                               const uint32_t (&a_lo)[4],
+                                               const uint32_t (&b_hi)[N][2],
+                                               const uint32_t (&b_lo)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    mma_tf32(d[j0 + j], a_lo, b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    mma_tf32(d[j0 + j], a_hi, b_lo[j][0], b_lo[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    mma_tf32(d[j0 + j], a_hi, b_hi[j][0], b_hi[j][1]);
 }
 
 }  // namespace hopper

@@ -59,7 +59,7 @@ CHUNK_BYTES = 64 << 20
 
 
 def _default_chunk(row_floats: int) -> int:
-    return max(1, CHUNK_BYTES // (4 * row_floats))
+    return max(1, CHUNK_BYTES // (4 * max(1, row_floats)))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -733,16 +733,18 @@ def fused_segment_sum(values, segment_ids, offsets, num_segments: int):
     return _SegmentSum.apply(values, segment_ids, offsets, num_segments)
 
 
+# output widths D the GatedMLP kernel is built for (its accumulators are
+# 2D / 8 tiles of 8 columns); any d_in
+GATED_MLP_WIDTHS = (8, 16, 32, 64, 128)
+
+
 def _gated_mlp_cuda(x, w, b, ln_scale, ln_bias):
     m, d_in = x.shape
     dim = w.shape[1] // 2
     dev, f32 = x.device, torch.float32
-    if not 0 < 2 * dim <= 1024 or w.shape[1] % 2:
-        raise ValueError(f"packed width {w.shape[1]} must be even and in "
-                         "[2, 1024] for the CUDA kernel")
-    if 4 * 32 * ((d_in + 3) // 4 * 4 + 2 * dim) > 227 * 1024:
-        raise ValueError(f"d_in {d_in} and width {dim}: the row tile does "
-                         "not fit a block's shared memory")
+    if w.shape[1] % 2 or dim not in GATED_MLP_WIDTHS:
+        raise ValueError(f"packed width {w.shape[1]}: the CUDA kernel takes "
+                         f"D = width / 2 in {GATED_MLP_WIDTHS}")
     for name, t, shape in (
             ("x", x, (m, d_in)), ("w", w, (d_in, 2 * dim)),
             ("b", b, (2 * dim,)), ("ln_scale", ln_scale, (2 * dim,)),
