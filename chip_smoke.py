@@ -15,14 +15,18 @@ PyTorch version:
      (the segment sum also beside ``torch.segment_reduce``, the symmetric
      conv's phase B beside a sparse product, the GatedMLP beside its
      composition: ``torch.addmm`` in full f32, two ``layer_norm``s and the
-     gate); the split-f32 kernels (the GatedMLP and flash attention in
-     f32) also against the bound of three TF32 products at the TF32 peak
-     and the f32 FMA bound, and must give equal bits on a second call with
-     the same inputs; the convs also with the
+     gate; the convs beside theirs: ``index_select`` gathers, the same
+     MLP, the envelope and ``torch.segment_reduce``); the split-f32
+     kernels (the convs, the GatedMLP and flash attention in f32) also
+     against the bound of three TF32 products at the TF32 peak and the
+     f32 FMA bound, and must give equal bits on a second call with the
+     same inputs; the convs also with the
      mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
      and the symmetric conv's two kernels; then ragged layouts and edge
-     values, and batches with self-image pairs and singleton undirected
-     entries;
+     values (for the convs: a row longer than a block's chunk, rows
+     straddling tiles, no edge at all, a single row, D = 128, each called
+     twice for equal bits), and batches with self-image pairs and
+     singleton undirected entries;
   4. backward: the kernel wrappers' backwards (recompute, or a gather for
      the segment sum) against plain autograd through ``kernels.ref`` on
      the card, and whether two backward runs give bitwise equal gradients;
@@ -281,6 +285,47 @@ def _check_bf16(name: str, got, want) -> tuple[float, float, float]:
     return err, tol, cos
 
 
+def conv_composition(parts, env, mlp, offsets, n_real: int):
+    """A conv as PyTorch calls, a yardstick timed beside the kernel and
+    never called on a path: the real edges' rows gathered with
+    ``index_select`` (``parts``, ``env``: (table, row ids or None for the
+    edge's own row)), ``torch.addmm`` in full f32, two ``layer_norm``s,
+    the gate and the envelope factors, then ``torch.segment_reduce`` over
+    the CSR offsets."""
+    w, b, lns, lnb = mlp
+    d = w.shape[1] // 2
+    offs64 = offsets.long()
+    parts = [(t, None if i is None else i[:n_real].long()) for t, i in parts]
+    env = [(t, None if i is None else i[:n_real].long()) for t, i in env]
+
+    def rows(t, i):
+        return t[:n_real] if i is None else t.index_select(0, i)
+
+    def run():
+        y = torch.addmm(b, torch.cat([rows(t, i) for t, i in parts], dim=1),
+                        w)
+        core, gate = (torch.nn.functional.layer_norm(
+            y[:, h], (d,), lns[h], lnb[h], 1e-5)
+            for h in (slice(None, d), slice(d, None)))
+        m = torch.nn.functional.silu(core) * torch.sigmoid(gate)
+        for t, i in env:
+            m = m * rows(t, i)
+        return torch.segment_reduce(m, "sum", offsets=offs64, axis=0)
+    return run
+
+
+def conv_plan_row(mode: str, dim: int, offsets) -> dict:
+    """The launch plan of a conv kernel on this card (``ops.conv_plan``)
+    and how its partition spreads this batch's edges over the blocks."""
+    n_rows = offsets.shape[0] - 1
+    plan = ops.conv_plan(mode, dim, n_rows, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    spans = [hi - lo for _, _, lo, hi in ops.conv_chunks(offsets, plan)]
+    return dict(plan._asdict(), busy_blocks=sum(x > 0 for x in spans),
+                max_block_edges=max(spans),
+                tiles=sum(-(-x // plan.tm) for x in spans))
+
+
 def kernel_cases(params, cfg, batch) -> list[dict]:
     """Each kernel's wrapper, plain version and inputs on one real packed
     batch, with the work it must do there: flops and bytes at the batch's
@@ -308,12 +353,17 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
                          + n_atoms + 1 + n_atoms * 3)
     bond_shape = {"atoms": n_atoms, "bonds": n_bonds,
                   "real_bonds": real_bonds, "dim": dim}
+    amlp = (am["w"], am["b"], am["ln_scale"], am["ln_bias"])
+    bmlp = (bm["w"], bm["b"], bm["ln_scale"], bm["ln_bias"])
     return [
         dict(name="atom_conv_fwd", wrapper=ops.fused_atom_conv,
              plain=ref.fused_atom_conv_ref,
-             args=(v, e, e_a, am["w"], am["b"], am["ln_scale"],
-                   am["ln_bias"], batch.bond_center, batch.bond_nbr,
-                   batch.bond_offsets),
+             args=(v, e, e_a) + amlp + (batch.bond_center, batch.bond_nbr,
+                                        batch.bond_offsets),
+             split=True, composition=conv_composition(
+                 [(v, batch.bond_center), (v, batch.bond_nbr), (e, None)],
+                 [(e_a, None)], amlp, batch.bond_offsets, real_bonds),
+             plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252",
              flops=2 * real_bonds * 3 * dim * 2 * dim,
              bytes=f * (real_atoms * dim + 2 * real_bonds * dim
@@ -322,9 +372,13 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
              shape=bond_shape),
         dict(name="bond_conv_fwd", wrapper=ops.fused_bond_conv,
              plain=ref.fused_bond_conv_ref,
-             args=(v, e, a, e_b, bm["w"], bm["b"], bm["ln_scale"],
-                   bm["ln_bias"], batch.angle_ij, batch.angle_ik, center,
-                   batch.angle_offsets),
+             args=(v, e, a, e_b) + bmlp + (batch.angle_ij, batch.angle_ik,
+                                           center, batch.angle_offsets),
+             split=True, composition=conv_composition(
+                 [(v, center), (e, batch.angle_ij), (e, batch.angle_ik),
+                  (a, None)], [(e_b, batch.angle_ij), (e_b, batch.angle_ik)],
+                 bmlp, batch.angle_offsets, real_angles),
+             plan=conv_plan_row("bond", dim, batch.angle_offsets),
              replaces=f"{TPU_FILE}:488",
              flops=2 * real_angles * 4 * dim * 2 * dim,
              bytes=f * (real_atoms * dim + 2 * real_bonds * dim
@@ -410,7 +464,11 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              path="FAST_FUSED_HALF",
              wrapper=lambda *a: ops.fused_atom_conv(*a, pair=pair),
              plain=lambda *a: ref.fused_atom_conv_ref(*a, pair),
-             args=(v, e_h, e_a) + amlp + atom_ids,
+             args=(v, e_h, e_a) + amlp + atom_ids, split=True,
+             composition=conv_composition(
+                 [(v, batch.bond_center), (v, batch.bond_nbr), (e_h, None)],
+                 [(e_a, pair)], amlp, batch.bond_offsets, real_bonds),
+             plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252", flops=atom_flops,
              bytes=atom_tail + f * (real_bonds * dim + real_eu * dim),
              shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
@@ -421,7 +479,11 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              wrapper=lambda *a: ops.fused_atom_conv(*a, pair=pair,
                                                     und_features=True),
              plain=lambda *a: ref.fused_atom_conv_ref(*a, pair, True),
-             args=(v, e_u, e_a) + amlp + atom_ids,
+             args=(v, e_u, e_a) + amlp + atom_ids, split=True,
+             composition=conv_composition(
+                 [(v, batch.bond_center), (v, batch.bond_nbr), (e_u, pair)],
+                 [(e_a, pair)], amlp, batch.bond_offsets, real_bonds),
+             plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252", flops=atom_flops,
              bytes=atom_tail + f * 2 * real_eu * dim,
              shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
@@ -434,6 +496,13 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              args=(v, e_h, a_h, e_b) + bmlp + (batch.angle_ij,
                                                 batch.angle_ik, center,
                                                 batch.angle_offsets),
+             split=True, composition=conv_composition(
+                 [(v, center), (e_h, batch.angle_ij), (e_h, batch.angle_ik),
+                  (a_h, None)],
+                 [(e_b, pair[batch.angle_ij.long()]),
+                  (e_b, pair[batch.angle_ik.long()])],
+                 bmlp, batch.angle_offsets, real_angles),
+             plan=conv_plan_row("bond", dim, batch.angle_offsets),
              replaces=f"{TPU_FILE}:488",
              flops=2 * real_angles * 4 * dim * 2 * dim,
              bytes=f * (real_atoms * dim + real_bonds * dim + real_eu * dim
@@ -664,11 +733,13 @@ def kernel_phase(cases) -> list[dict]:
     PyTorch call that computes the same function where there is one
     (``library``) and, for kernel 10, the plain LM path's composition of
     the same MLP (``composition``; for kernel 7, ``torch.addmm`` in full
-    f32, the two ``layer_norm``s and the gate): yardsticks only, the port
-    never calls them on a kernels' path.  A split-f32 case (``split``:
-    kernels 7 and 11 in f32) is bound by three TF32 products per f32
-    product at the TF32 peak, reports the f32 FMA bound beside it
-    (``bound_fma_ms``), and must give the same bits on a second call.
+    f32, the two ``layer_norm``s and the gate; for kernels 2 and 3,
+    ``conv_composition``): yardsticks only, the port never calls them on
+    a kernels' path.  A split-f32 case (``split``: kernels 2, 3, 7 and 11
+    in f32) is bound by three TF32 products per f32 product at the TF32
+    peak, reports the f32 FMA bound beside it (``bound_fma_ms``), and must
+    give the same bits on a second call.  A conv case also reports its
+    launch plan and how its partition spreads the batch (``plan``).
     The kernel and its yardsticks, which read the same inputs, are timed
     in turns; the plain version, whose f32 copies and intermediates sweep
     the L2 cache, on its own after them."""
@@ -781,10 +852,12 @@ def backward_phase(cases, seed: int) -> list[dict]:
 def edge_case_phase(params, seed: int) -> int:
     """Each kernel against its plain version on ragged CSR layouts: a
     padded tail, unaligned rows without padding, every edge padded, and
-    several rows per block; the force+virial kernel also with an empty
-    crystal slot; then the unfused tier's cases (``tier_edge_cases``) and
-    those of the undirected store and the symmetric trunk
-    (``sym_edge_cases``).  Returns the number of cases checked."""
+    several rows per block (``block_rows``, which the convs accept and no
+    longer use); the force+virial kernel also with an empty crystal slot;
+    then the convs' partition and tile edges (``conv_edge_cases``), the
+    unfused tier's cases (``tier_edge_cases``) and those of the undirected
+    store and the symmetric trunk (``sym_edge_cases``).  Returns the
+    number of cases checked."""
     rng = np.random.default_rng(seed)
 
     def f(*shape, scale=1.0):
@@ -845,9 +918,66 @@ def edge_case_phase(params, seed: int) -> int:
             _check_close(f"bond_conv case {n}", ops.fused_bond_conv(
                 *args, block_rows=per_block), ref.fused_bond_conv_ref(*args))
             n += 1
+        n += conv_edge_cases(f, ids, mlp, seed)
         n += tier_edge_cases(f, ids, csr)
         n += sym_edge_cases(params, f, ids, seed)
     torch.cuda.synchronize()
+    return n
+
+
+def conv_edge_cases(f, ids, mlp, seed: int) -> int:
+    """The split-f32 convs (kernels 2 and 3), directed and with their
+    mirror operands, against their plain versions on layouts at the edges
+    of their partition and tiles: one row longer than a chunk (700
+    edges), rows straddling tiles, every row empty with no edge, no real
+    edge before a padded tail, a single row, and D = 128 (64-edge tiles).
+    Each runs twice: the two calls must give equal bits.  Returns the
+    number of cases checked."""
+    rng = np.random.default_rng(seed + 2)
+    layouts = (
+        ("one row of 700 edges", [700, 3, 0, 5], 20, 64),
+        ("rows straddling tiles", rng.integers(0, 300, 12).tolist(), 5, 32),
+        ("every row empty", [0] * 6, 0, 16),
+        ("no real edge, padded tail", [0] * 6, 40, 8),
+        ("a single row", [300], 0, 64),
+        ("D = 128", rng.integers(0, 90, 30).tolist(), 17, 128))
+    n = 0
+    for label, lens, tail, d in layouts:
+        rows, n_real = len(lens), sum(lens)
+        n_edges = n_real + tail
+        seg = np.zeros(n_edges, np.int32)
+        seg[:n_real] = np.repeat(np.arange(rows), lens)
+        offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        seg, offs = (torch.from_numpy(x).cuda() for x in (seg, offs))
+        eu = n_edges // 2 + 1
+        pair, pair_b = ids(eu, n_edges), ids(eu, rows)
+        atoms = 7
+        atom = (seg, ids(rows, n_edges), offs)
+        bond = (seg, ids(rows, n_edges), ids(atoms, n_edges), offs)
+        cases = (
+            ("atom_conv", ops.fused_atom_conv, ref.fused_atom_conv_ref,
+             (f(rows, d), f(n_edges, d), f(n_edges, d)) + mlp(3 * d, d)
+             + atom, {}, ()),
+            ("atom_conv[pair]", ops.fused_atom_conv, ref.fused_atom_conv_ref,
+             (f(rows, d), f(n_edges, d), f(eu, d)) + mlp(3 * d, d) + atom,
+             {"pair": pair}, (pair,)),
+            ("atom_conv[pair+und]", ops.fused_atom_conv,
+             ref.fused_atom_conv_ref,
+             (f(rows, d), f(eu, d), f(eu, d)) + mlp(3 * d, d) + atom,
+             {"pair": pair, "und_features": True}, (pair, True)),
+            ("bond_conv", ops.fused_bond_conv, ref.fused_bond_conv_ref,
+             (f(atoms, d), f(rows, d), f(n_edges, d), f(rows, d))
+             + mlp(4 * d, d) + bond, {}, ()),
+            ("bond_conv[pair]", ops.fused_bond_conv, ref.fused_bond_conv_ref,
+             (f(atoms, d), f(rows, d), f(n_edges, d), f(eu, d))
+             + mlp(4 * d, d) + bond, {"pair": pair_b}, (pair_b,)))
+        for name, wrapper, plain, args, kw, extra in cases:
+            got = wrapper(*args, **kw)
+            if not torch.equal(got, wrapper(*args, **kw)):
+                raise RuntimeError(f"{name} on {label}: two calls on the "
+                                   "same inputs differ")
+            _check_close(f"{name} on {label}", got, plain(*args, *extra))
+            n += 1
     return n
 
 
@@ -1657,7 +1787,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in ("swiglu", "flash_attention", "gated_mlp"):
+    for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):

@@ -3,7 +3,8 @@
 // loads, wgmma descriptors and products, ldmatrix and mma.sync, and the
 // split-f32 (3xTF32) product on mma.sync.  Included by swiglu.cu (TMA +
 // mbarrier + wgmma), flash_attention.cu (cp.async + ldmatrix + mma.sync,
-// bf16 and split f32) and gated_mlp.cu (cp.async + split f32);
+// bf16 and split f32), gated_mlp.cu and message_passing.cu (cp.async +
+// split f32);
 // kernels/build.py hashes it into the digest of every source that
 // includes it, so an edit here rebuilds them all.
 #pragma once

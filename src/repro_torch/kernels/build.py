@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point, by library
 SIGNATURES = {
     "message_passing": {
-        "atom_conv_fwd": [_P] * 12 + [_I, _I, _I, _I, _P],
-        "bond_conv_fwd": [_P] * 15 + [_I, _I, _I, _P],
+        "atom_conv_fwd": [_P] * 12 + [_I] * 7 + [_P],
+        "bond_conv_fwd": [_P] * 15 + [_I] * 6 + [_P],
         "sym_msg_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],
         "force_readout_fwd": [_P] * 8 + [_I, _I, _I, _P],
         "force_virial_fwd": [_P] * 10 + [_I, _I, _I, _P],

@@ -75,11 +75,104 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _check_dim(dim: int) -> None:
-    # float4 row loads need dim % 4 == 0; the bond conv's shared-memory
-    # tile, 32 * 6 * dim floats, must stay within a block's 227 KB
+    # float4 row loads need dim % 4 == 0; the symmetric conv's
+    # shared-memory tile, 32 * 5 * dim floats, must stay within a block's
+    # 227 KB
     if dim % 4 or not 0 < dim <= 256:
         raise ValueError(f"feature width {dim} must be a multiple of 4 in "
                          "[4, 256] for the CUDA kernels")
+
+
+def _check_aligned(**tables) -> None:
+    # the split-f32 convs gather rows with 16-byte cp.async copies
+    for name, t in tables.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             "the CUDA conv kernels")
+
+
+# ---------------------------------------------------------------------------
+# Launch plan of the split-f32 convs (kernels 2 and 3)
+# ---------------------------------------------------------------------------
+
+# feature widths D the conv kernels are built for (their accumulators are
+# 2D / 8 tiles of 8 columns, their reduction D / 4 float4 columns)
+CONV_WIDTHS = (8, 16, 32, 64, 128)
+# csrc/message_passing.cu's conv_split_kernel: warps a block, input
+# columns a K chunk, cp.async stages; the H100's shared memory a SM and
+# the part CUDA reserves for each resident block
+_CONV_WARPS, _CONV_KC, _CONV_STAGES = 4, 32, 2
+_SM_SHARED, _BLOCK_RESERVED = 233_472, 1_024
+
+
+def _check_conv_dim(dim: int) -> None:
+    if dim not in CONV_WIDTHS:
+        raise ValueError(f"feature width {dim}: the CUDA conv kernels are "
+                         f"built for D in {CONV_WIDTHS}")
+
+
+class ConvPlan(NamedTuple):
+    """One ``fused_atom_conv`` / ``fused_bond_conv`` launch on the card
+    (``csrc/message_passing.cu`` ``conv_split_kernel``)."""
+    tm: int             # edges a tile: 32 a warp, 16 at D = 128
+    t: int              # least edges a chunk (see ``conv_chunks``)
+    warps: int
+    grid: int           # persistent blocks, one chunk each
+    smem: int           # dynamic shared memory of a block, bytes
+    k_chunks: int       # K chunks of 32 input columns a tile
+    blocks_per_sm: int
+
+
+def conv_plan(mode: str, dim: int, n_rows: int, sms: int) -> ConvPlan:
+    """The launch geometry of the split-f32 conv kernels: a tile of ``tm``
+    edges is 4 warps of two m16 tiles (one at D = 128) by all 2D columns;
+    a stage of its K loop holds the tile's 32 input columns (row stride
+    40 floats) and W's 32 rows (2D + 4); beside the two stages lie the
+    message tile (D + 8), bias and LayerNorm parameters, two carry rows
+    and the tile's row starts and runs.  Two blocks fit a SM for D <= 64.
+    The grid is those blocks on every SM (at most ``n_rows``: a chunk owns
+    at least one row); the kernel checks ``tm`` and ``smem`` against its
+    own."""
+    if mode not in ("atom", "bond"):
+        raise ValueError(f"mode must be 'atom' or 'bond', got {mode!r}")
+    _check_conv_dim(dim)
+    tm = _CONV_WARPS * 16 * (2 if dim <= 64 else 1)
+    stage = tm * (_CONV_KC + 8) + _CONV_KC * (2 * dim + 4)
+    floats = _CONV_STAGES * stage + tm * (dim + 8) + 6 * dim + 2 * dim
+    smem = 4 * floats + 4 * (3 * tm + 8)
+    per_sm = min(2, _SM_SHARED // (smem + _BLOCK_RESERVED))
+    d_in = (3 if mode == "atom" else 4) * dim
+    return ConvPlan(tm, tm, _CONV_WARPS, max(1, min(per_sm * sms, n_rows)),
+                    smem, -(-d_in // _CONV_KC), per_sm)
+
+
+def conv_chunks(offsets, plan: ConvPlan) -> list[tuple[int, int, int, int]]:
+    """The conv kernels' partition of the work, computed on the host:
+    ``(row_lo, row_hi, edge_lo, edge_hi)`` for each block of ``plan``.
+
+    With ``n_real = offsets[-1]`` and ``T = max(plan.t, ceil(n_real /
+    plan.grid))`` (the kernel reads ``n_real`` on the device), block c
+    owns the non-empty rows r in ``[row_lo, row_hi)``, those with
+    ``offsets[r]`` in ``[c T, (c + 1) T)``, and walks their edges
+    ``[edge_lo, edge_hi) = [offsets[row_lo], offsets[row_hi])``.  A row
+    stays whole in the block where it starts; the empty rows are zeroed
+    by a pass shared by all blocks."""
+    offs = torch.as_tensor(offsets).long().cpu()
+    n_real = int(offs[-1])
+    t = max(plan.t, -(-n_real // plan.grid))
+    out = []
+    for c in range(plan.grid):
+        lo, hi = (torch.tensor(min(x, n_real)) for x in (c * t, (c + 1) * t))
+        r_lo = int(torch.searchsorted(offs, lo))
+        r_hi = int(torch.searchsorted(offs, hi))
+        out.append((r_lo, r_hi, int(offs[r_lo]), int(offs[r_hi])))
+    return out
+
+
+def _conv_launch_plan(mode: str, dim: int, n_rows: int, dev) -> ConvPlan:
+    return conv_plan(mode, dim, n_rows,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
 
 
 def _launch(lib: str, fn: str, *args) -> None:
@@ -161,11 +254,11 @@ def _recompute_vjp(fn, dense, edge, needs, cotangents, n_real: int,
 # ---------------------------------------------------------------------------
 
 def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                    bond_nbr, bond_offsets, pair, und, block_rows):
+                    bond_nbr, bond_offsets, pair, und):
     a_rows, dim = v.shape
     n_edges = bond_center.shape[0]
     dev, f32, i32 = v.device, torch.float32, torch.int32
-    _check_dim(dim)
+    _check_conv_dim(dim)
     # the undirected store reads e_a (and, with und, e) at Eu rows
     eu = n_edges if pair is None else e_a.shape[0]
     for name, t, dt, shape in (
@@ -181,13 +274,15 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
         _check(name, t, dt, shape, dev)
     if pair is not None:
         _check("pair", pair, i32, (n_edges,), dev)
+    _check_aligned(v=v, e=e, e_a=e_a, w=w)
     out = torch.empty((a_rows, dim), dtype=f32, device=dev)
+    plan = _conv_launch_plan("atom", dim, a_rows, dev)
     _launch(_LIB, "atom_conv_fwd", v.data_ptr(), e.data_ptr(),
             e_a.data_ptr(), w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), bond_center.data_ptr(), bond_nbr.data_ptr(),
             None if pair is None else pair.data_ptr(),
-            bond_offsets.data_ptr(), out.data_ptr(), a_rows, dim, block_rows,
-            int(und), _stream(dev))
+            bond_offsets.data_ptr(), out.data_ptr(), a_rows, dim, int(und),
+            plan.grid, plan.t, plan.tm, plan.smem, _stream(dev))
     fused_atom_conv.launches += 1
     return out
 
@@ -195,7 +290,7 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
 class _AtomConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                bond_nbr, offsets, pair, und, block_rows, chunk):
+                bond_nbr, offsets, pair, und, chunk):
         # operands only: the messages are recomputed in the backward
         ctx.save_for_backward(v, e, e_a, w, b, ln_scale, ln_bias,
                               bond_center, bond_nbr, offsets, pair)
@@ -206,8 +301,7 @@ class _AtomConv(torch.autograd.Function):
                                            ln_bias, bond_center, bond_nbr,
                                            offsets, pair, und)
         return _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias,
-                               bond_center, bond_nbr, offsets, pair, und,
-                               block_rows)
+                               bond_center, bond_nbr, offsets, pair, und)
 
     @staticmethod
     def backward(ctx, g):
@@ -239,7 +333,7 @@ class _AtomConv(torch.autograd.Function):
             lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
         grads = dict(zip(tables + rows, rest))
         return (dv, grads["e"], grads["e_a"], dw, db, dls, dlb) \
-            + (None,) * 7
+            + (None,) * 6
 
 
 def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
@@ -250,7 +344,9 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
 
     Requires the sorted-segment layout (DESIGN.md §1): bonds sorted by
     ``bond_center`` with CSR ``bond_offsets`` whose last entry is the
-    real-bond count.  ``block_rows`` atom rows go to one CUDA block.
+    real-bond count.  On the card the kernel balances its blocks by edges
+    (``conv_plan``, ``conv_chunks``); ``block_rows`` is accepted for the
+    callers of the earlier kernel and no longer shapes the launch.
     The backward recomputes ``chunk`` edges at a time (default: sized by
     ``CHUNK_BYTES``); the result does not depend on it.
 
@@ -264,8 +360,7 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
     if und_features and pair is None:
         raise ValueError("und_features needs the pair mirror map")
     return _AtomConv.apply(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
-                           bond_nbr, bond_offsets, pair, und_features,
-                           block_rows, chunk)
+                           bond_nbr, bond_offsets, pair, und_features, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +369,12 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
 
 def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
                     angle_ik, center_ids, angle_offsets, env_ij, env_ik,
-                    mirror, block_rows):
+                    mirror):
     a_rows, dim = v.shape
     b_rows = e.shape[0]
     n_ang = angle_ij.shape[0]
     dev, f32, i32 = v.device, torch.float32, torch.int32
-    _check_dim(dim)
+    _check_conv_dim(dim)
     for name, t, dt, shape in (
             ("v", v, f32, (a_rows, dim)), ("e", e, f32, (b_rows, dim)),
             ("a", a, f32, (n_ang, dim)),
@@ -295,13 +390,15 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
             ("env_ik", env_ik, i32, (n_ang,)),
             ("angle_offsets", angle_offsets, i32, (b_rows + 1,))):
         _check(name, t, dt, shape, dev)
+    _check_aligned(v=v, e=e, a=a, e_b=e_b, w=w)
     out = torch.empty((b_rows, dim), dtype=f32, device=dev)
+    plan = _conv_launch_plan("bond", dim, b_rows, dev)
     _launch(_LIB, "bond_conv_fwd", v.data_ptr(), e.data_ptr(),
             a.data_ptr(), e_b.data_ptr(), w.data_ptr(), b.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), angle_ij.data_ptr(),
             angle_ik.data_ptr(), center_ids.data_ptr(), env_ij.data_ptr(),
             env_ik.data_ptr(), angle_offsets.data_ptr(), out.data_ptr(),
-            b_rows, dim, block_rows, _stream(dev))
+            b_rows, dim, plan.grid, plan.t, plan.tm, plan.smem, _stream(dev))
     fused_bond_conv.launches += 1
     return out
 
@@ -309,7 +406,7 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
 class _BondConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
-                angle_ik, center_ids, offsets, pair, block_rows, chunk):
+                angle_ik, center_ids, offsets, pair, chunk):
         # the rows of e_b each angle reads: its bonds on the directed
         # store, their undirected ids on the undirected one
         env_ij, env_ik = (angle_ij, angle_ik) if pair is None else (
@@ -324,7 +421,7 @@ class _BondConv(torch.autograd.Function):
                                            center_ids, offsets, pair)
         return _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias,
                                angle_ij, angle_ik, center_ids, offsets,
-                               env_ij, env_ik, pair is not None, block_rows)
+                               env_ij, env_ik, pair is not None)
 
     @staticmethod
     def backward(ctx, g):
@@ -348,7 +445,7 @@ class _BondConv(torch.autograd.Function):
             msgs, [v, e, e_b, w, b, lns, lnb], [a],
             [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
             lambda sl: g[ij[sl]], int(offs[-1]), ctx.chunk)
-        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 7
+        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 6
 
 
 def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
@@ -360,16 +457,16 @@ def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
 
     ``center_ids = bond_center[angle_ij]`` (a cheap int gather the caller
     performs).  Requires angles sorted by ``angle_ij`` with CSR
-    ``angle_offsets`` (DESIGN.md §1).  Few angles fall on each bond, so
-    ``block_rows`` bond rows share one CUDA block.  ``chunk`` is the
-    backward's recompute chunk, in angles.  ``pair`` (the undirected
-    store, DESIGN.md §5): ``e_b`` is the (Eu, D) envelope table and both
-    factors read rows ``pair[angle_ij]`` / ``pair[angle_ik]`` (int
-    gathers this wrapper composes).
+    ``angle_offsets`` (DESIGN.md §1).  On the card the kernel balances its
+    blocks by edges (``conv_plan``, ``conv_chunks``); ``block_rows`` is
+    accepted for the callers of the earlier kernel and no longer shapes
+    the launch.  ``chunk`` is the backward's recompute chunk, in angles.
+    ``pair`` (the undirected store, DESIGN.md §5): ``e_b`` is the (Eu, D)
+    envelope table and both factors read rows ``pair[angle_ij]`` /
+    ``pair[angle_ik]`` (int gathers this wrapper composes).
     """
     return _BondConv.apply(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
-                           angle_ik, center_ids, angle_offsets, pair,
-                           block_rows, chunk)
+                           angle_ik, center_ids, angle_offsets, pair, chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,8 @@ def test_every_library_has_its_source():
 
 def test_digest_follows_included_headers(tmp_path, monkeypatch):
     """A library's build key hashes the .cuh headers its source includes:
-    editing csrc/hopper.cuh rebuilds swiglu, flash_attention and gated_mlp,
-    and no other library."""
+    editing csrc/hopper.cuh rebuilds swiglu, flash_attention, gated_mlp and
+    message_passing, and no other library."""
     import shutil
 
     from repro_torch.kernels import build
@@ -66,7 +66,8 @@ def test_digest_follows_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: build._out_path(name) for name in build.SIGNATURES}
     changed = {n for n in build.SIGNATURES if before[n] != after[n]}
-    assert changed == {"swiglu", "flash_attention", "gated_mlp"}
+    assert changed == {"swiglu", "flash_attention", "gated_mlp",
+                       "message_passing"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

@@ -1,6 +1,8 @@
 """Numerics of the split-f32 (3xTF32) products of the CUDA kernels 7
-(GatedMLP, ``csrc/gated_mlp.cu``) and 11 (flash attention in f32,
-``csrc/flash_attention.cu``), emulated on the CPU.
+(GatedMLP, ``csrc/gated_mlp.cu``), 11 (flash attention in f32,
+``csrc/flash_attention.cu``), 2 and 3 (the atom and bond convs,
+``csrc/message_passing.cu``), emulated on the CPU, and the convs' launch
+plan, partition and width check.
 
 The kernels split each f32 operand x into TF32 parts hi = tf32(x) and lo =
 tf32(x - hi) (``cvt.rna``: round to nearest, ties away from zero) and
@@ -10,8 +12,10 @@ does the same with f32 matmuls of TF32 values (their products are exact in
 f32) and is held to a float64 product through the GatedMLP's LayerNorms
 and gate and through attention's softmax, within ``1e-5 * max(1,
 max|ref|)``; one TF32 product per f32 product does not meet that bound,
-which is why the kernels split.  The card holds the kernels themselves to
-their plain versions (``chip_smoke.py``).
+which is why the kernels split.  The convs are emulated as their kernel
+runs them, down to the ordered row sums over the launch's partition, and
+held to the float64 plain version for each mirror operand.  The card
+holds the kernels themselves to their plain versions (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -182,3 +186,227 @@ def test_gated_mlp_kernel_refuses_widths_it_is_not_built_for(d):
     with pytest.raises(ValueError, match="D = width / 2"):
         ops._gated_mlp_cuda(*args)
     assert ops.fused_gated_mlp_packed.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2 and 3: the split-f32 convs (csrc/message_passing.cu)
+# ---------------------------------------------------------------------------
+
+CONV_D = 64
+
+
+def _ragged_offsets(rng, rows: int, max_len: int, empty: float = 0.3):
+    """CSR offsets of ``rows`` rows of 1..max_len edges, a share of them
+    empty."""
+    lens = rng.integers(1, max_len + 1, rows)
+    lens[rng.random(rows) < empty] = 0
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+
+def _conv_inputs(mode: str, variant: str, seed: int = 0):
+    """A ragged batch for one conv and mirror variant: the wrapper's
+    arguments, the plain version's extra arguments, and the GEMM input's
+    parts and envelope factors as (table, row ids or None) pairs, as the
+    kernel gathers them."""
+    rng = np.random.default_rng(seed)
+    d, n_atoms, eu = CONV_D, 9, 40
+    rows = n_atoms if mode == "atom" else 60
+    offs = _ragged_offsets(rng, rows, 40 if mode == "atom" else 6)
+    n_real = int(offs[-1])
+    n_edges = n_real + 11  # a padded tail
+
+    def ids(high, n):
+        return torch.from_numpy(rng.integers(0, high, n).astype(np.int32))
+
+    seg = torch.zeros(n_edges, dtype=torch.int32)
+    seg[:n_real] = torch.from_numpy(np.repeat(np.arange(rows),
+                                              np.diff(offs)).astype(np.int32))
+    offsets = torch.from_numpy(offs.astype(np.int32))
+    d_in = (3 if mode == "atom" else 4) * d
+    mlp = (_normal(rng, d_in, 2 * d, scale=d_in ** -0.5),
+           _normal(rng, 2 * d, scale=0.1),
+           1.0 + _normal(rng, 2 * d, scale=0.1),
+           _normal(rng, 2 * d, scale=0.1))
+    if mode == "atom":
+        pair = ids(eu, n_edges)
+        nbr = ids(n_atoms, n_edges)
+        v = _normal(rng, n_atoms, d)
+        e = _normal(rng, eu if variant == "pair+und" else n_edges, d)
+        e_a = _normal(rng, n_edges if variant == "directed" else eu, d)
+        args = (v, e, e_a) + mlp + (seg, nbr, offsets)
+        mirror = None if variant == "directed" else pair
+        extra = {"directed": (), "pair": (pair,),
+                 "pair+und": (pair, True)}[variant]
+        parts = [(v, seg), (v, nbr),
+                 (e, pair if variant == "pair+und" else None)]
+        env = [(e_a, mirror)]
+    else:
+        pair = ids(eu, rows)
+        ik, ctr = ids(rows, n_edges), ids(n_atoms, n_edges)
+        v, e, a = (_normal(rng, n, d) for n in (n_atoms, rows, n_edges))
+        e_b = _normal(rng, rows if variant == "directed" else eu, d)
+        args = (v, e, a, e_b) + mlp + (seg, ik, ctr, offsets)
+        extra = () if variant == "directed" else (pair,)
+        parts = [(v, ctr), (e, seg), (e, ik), (a, None)]
+        env = [(e_b, seg if variant == "directed" else pair[seg.long()]),
+               (e_b, ik if variant == "directed" else pair[ik.long()])]
+    return args, extra, parts, env, offsets, mlp
+
+
+def _conv_emulated(mode, parts, env, mlp, offsets):
+    """A conv as its kernel runs it: each real edge's input row gathered
+    from its parts, the split GEMM, bias, LayerNorms and gate, the
+    envelope factors, then each row's edges summed in f32 in CSR order,
+    row by row of each block of the launch's partition."""
+    offs = offsets.long()
+    n_real = int(offs[-1])
+
+    def rows(t, i):
+        return t[:n_real] if i is None else t[i[:n_real].long()]
+
+    x = torch.cat([rows(t, i) for t, i in parts], dim=1)
+    msg = _mlp_emulated(x, *mlp, split=True)
+    for t, i in env:
+        msg = msg * rows(t, i)
+    out = torch.zeros(offs.shape[0] - 1, msg.shape[1])
+    plan = ops.conv_plan(mode, CONV_D, out.shape[0], 132)
+    for r_lo, r_hi, _, _ in ops.conv_chunks(offs, plan):
+        for r in range(r_lo, r_hi):
+            acc = torch.zeros(msg.shape[1])
+            for t in range(int(offs[r]), int(offs[r + 1])):
+                acc = acc + msg[t]
+            out[r] = acc
+    return out
+
+
+@pytest.mark.parametrize("mode,variant", [
+    ("atom", "directed"), ("atom", "pair"), ("atom", "pair+und"),
+    ("bond", "directed"), ("bond", "pair")])
+def test_split_conv_matches_float64(mode, variant):
+    """Kernels 2 and 3 emulated (split-f32 GEMM, ordered row sums) against
+    the float64 plain version, for each mirror variant."""
+    args, extra, parts, env, offsets, mlp = _conv_inputs(mode, variant)
+    plain = ref.fused_atom_conv_ref if mode == "atom" \
+        else ref.fused_bond_conv_ref
+    want = plain(*(t.double() if t.is_floating_point() else t
+                   for t in args), *extra)
+    got = _conv_emulated(mode, parts, env, mlp, offsets)
+    assert _err(got, want) <= TOL
+    # the plain f32 version meets the same bound
+    assert _err(plain(*args, *extra), want) <= TOL
+
+
+@pytest.mark.parametrize("mode", ["atom", "bond"])
+@pytest.mark.parametrize("dim", ops.CONV_WIDTHS)
+def test_conv_plan_fits_the_card(mode, dim):
+    """Every width's plan fits a block's 227 KB of shared memory, its
+    blocks per SM fit the SM's 228 KB (1 KB reserved per block), and its
+    tile is whole warp tiles: two m16 tiles a warp, one at D = 128."""
+    plan = ops.conv_plan(mode, dim, 394_496, 132)
+    assert plan.smem <= 232_448
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= 233_472
+    assert plan.blocks_per_sm == (2 if dim <= 64 else 1)
+    assert plan.tm == plan.warps * (32 if dim <= 64 else 16)
+    assert plan.tm % 16 == 0 and plan.t == plan.tm
+    assert plan.grid == plan.blocks_per_sm * 132
+    d_in = (3 if mode == "atom" else 4) * dim
+    assert (plan.k_chunks - 1) * 32 < d_in <= plan.k_chunks * 32
+    # a handful of rows: no more blocks than rows
+    assert ops.conv_plan(mode, dim, 5, 132).grid == 5
+
+
+_LAYOUTS = {
+    "ragged, empty rows": lambda rng: _ragged_offsets(rng, 500, 70),
+    "a row longer than a chunk": lambda rng: np.concatenate(
+        [[0], np.cumsum([3, 0, 700, 5] + [2] * 50)]),
+    "fewer edges than a chunk": lambda rng: _ragged_offsets(rng, 30, 3),
+    "every row empty": lambda rng: np.zeros(41, np.int64),
+}
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+def test_conv_partition_owns_every_row_once(layout):
+    """The partition of ``ops.conv_chunks``: the blocks' edge ranges are
+    in order, disjoint and cover [0, offs[-1]); every non-empty row is
+    owned by exactly one block, whole inside its edge range."""
+    offs = _LAYOUTS[layout](np.random.default_rng(3)).astype(np.int64)
+    n_rows, n_real = offs.shape[0] - 1, int(offs[-1])
+    for grid in (1, 7, 264):
+        plan = ops.conv_plan("atom", CONV_D, n_rows, 132)._replace(grid=grid)
+        chunks = ops.conv_chunks(torch.from_numpy(offs), plan)
+        assert len(chunks) == grid
+        owner = np.full(n_rows, -1)
+        pos = 0
+        for c, (r_lo, r_hi, e_lo, e_hi) in enumerate(chunks):
+            assert e_lo == pos and e_lo <= e_hi
+            pos = e_hi
+            for r in range(r_lo, r_hi):
+                if offs[r + 1] > offs[r]:
+                    assert owner[r] == -1
+                    owner[r] = c
+                    assert e_lo <= offs[r] and offs[r + 1] <= e_hi
+        assert pos == n_real
+        assert ((owner >= 0) == (np.diff(offs) > 0)).all()
+
+
+def _lower_bound_warp(offs, hi: int, x: int) -> int:
+    """``lower_bound_warp`` of csrc/message_passing.cu, its 32 lanes'
+    probes and ballots written out."""
+    lo = 0
+    while hi - lo >= 32:
+        step = (hi - lo + 31) // 32
+        ge = [offs[min(lo + (lane + 1) * step - 1, hi - 1)] >= x
+              for lane in range(32)]
+        if not any(ge):
+            return hi
+        lane = ge.index(True)
+        hi = min(lo + (lane + 1) * step - 1, hi - 1)
+        lo += lane * step
+    ge = [lo + lane >= hi or offs[lo + lane] >= x for lane in range(32)]
+    return min(lo + ge.index(True), hi)
+
+
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 1000, 394_496])
+def test_lower_bound_warp_finds_the_first_row(rows):
+    """The kernel's 32-ary search of the CSR offsets gives numpy's
+    ``searchsorted(..., 'left')`` for every probe a block makes (its
+    chunk's first edge and the end of its range, up to offs[-1])."""
+    rng = np.random.default_rng(rows)
+    offs = _ragged_offsets(rng, rows, 4)
+    n_real = int(offs[-1])
+    probes = {0, n_real, max(0, n_real - 1)} | set(
+        rng.integers(0, n_real + 1, 40).tolist())
+    for x in sorted(probes):
+        assert _lower_bound_warp(offs, rows, x) == \
+            np.searchsorted(offs, x, "left")
+
+
+@pytest.mark.parametrize("d", [4, 24, 256])
+@pytest.mark.parametrize("mode", ["atom", "bond"])
+def test_conv_kernels_refuse_widths_they_are_not_built_for(mode, d):
+    """Widths outside ``CONV_WIDTHS`` raise before any launch (the wrapper
+    never hands a CUDA tensor to the plain version)."""
+    assert d not in ops.CONV_WIDTHS
+    rng = np.random.default_rng(0)
+    n, rows = 12, 3
+    offs = torch.tensor([0, 5, 5, n], dtype=torch.int32)
+    seg = torch.tensor([0] * 5 + [2] * 7, dtype=torch.int32)
+
+    def mlp(d_in):
+        return (_normal(rng, d_in, 2 * d), _normal(rng, 2 * d),
+                _normal(rng, 2 * d), _normal(rng, 2 * d))
+
+    with pytest.raises(ValueError, match="built for D in"):
+        if mode == "atom":
+            ops._atom_conv_cuda(_normal(rng, rows, d), _normal(rng, n, d),
+                                _normal(rng, n, d), *mlp(3 * d), seg, seg,
+                                offs, None, False)
+        else:
+            ops._bond_conv_cuda(_normal(rng, rows, d), _normal(rng, rows, d),
+                                _normal(rng, n, d), _normal(rng, rows, d),
+                                *mlp(4 * d), seg, seg, seg, offs, seg, seg,
+                                False)
+    with pytest.raises(ValueError, match="built for D in"):
+        ops.conv_plan(mode, d, rows, 132)
+    assert ops.fused_atom_conv.launches == 0
+    assert ops.fused_bond_conv.launches == 0
