@@ -15,18 +15,24 @@ PyTorch version:
      (the segment sum also beside ``torch.segment_reduce``, the symmetric
      conv's phase B beside a sparse product, the GatedMLP beside its
      composition: ``torch.addmm`` in full f32, two ``layer_norm``s and the
-     gate; the convs beside theirs: ``index_select`` gathers, the same
-     MLP, the envelope and ``torch.segment_reduce``); the split-f32
-     kernels (the convs, the GatedMLP and flash attention in f32) also
+     gate; the convs, the symmetric conv's phase A and the force readouts
+     beside theirs: ``index_select`` gathers, the same MLP, the envelope,
+     ``torch.segment_reduce``); the wrapper calls as a caller sees them
+     and the launches alone (``device_ms``); the split-f32 kernels (the
+     convs, phase A, the force readouts, the GatedMLP and flash attention
+     in f32) also
      against the bound of three TF32 products at the TF32 peak and the
      f32 FMA bound, and must give equal bits on a second call with the
      same inputs; the convs also with the
      mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
      and the symmetric conv's two kernels; then ragged layouts and edge
      values (for the convs: a row longer than a block's chunk, rows
-     straddling tiles, no edge at all, a single row, D = 128, each called
-     twice for equal bits), and batches with self-image pairs and
-     singleton undirected entries;
+     straddling tiles, no edge at all, a single row, D = 128; for the force
+     readouts at every width: a 700-bond row, rows straddling tiles, a
+     crystal with no bonds between two that have them, every row padded;
+     for phase A at every width: 0, 1 and 64 +- 1, 128 +- 1 real rows with
+     self-image pairs; each called twice for equal bits), and batches with
+     self-image pairs and singleton undirected entries;
   4. backward: the kernel wrappers' backwards (recompute, or a gather for
      the segment sum) against plain autograd through ``kernels.ref`` on
      the card, and whether two backward runs give bitwise equal gradients;
@@ -232,6 +238,34 @@ def _time_turns(fns, reps: int = 20, inner: int = 10) -> list[float]:
     return [statistics.median(s) for s in samples]
 
 
+# spin cycles queued before a device-time sample, ~3 ms: longer than the
+# host takes to enqueue a sample's wrapper calls
+SPIN_CYCLES = 5_000_000
+
+
+def _time_device(fn, reps: int = 20, inner: int = 10) -> float:
+    """The device time of ``fn``'s launches per call: median over ``reps``
+    CUDA-event samples of ``inner`` calls queued behind a spin kernel
+    (``torch.cuda._sleep``), so that the card runs them back to back
+    whatever the host's cost of a call (``_time_ms`` times the calls as a
+    caller sees them, host cost included where it exceeds the kernel's)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop) / inner)
+    return statistics.median(samples)
+
+
 def _slots(n: int) -> int:
     """Crystal slots of a group of n replicas: the next power of two."""
     return 1 << max(0, (n - 1).bit_length())
@@ -262,6 +296,13 @@ def _check_close(name: str, got, want) -> tuple[float, float]:
     if not err <= tol:
         raise RuntimeError(f"{name}: max abs error {err} > {tol}")
     return err, tol
+
+
+def _equal(a, b) -> bool:
+    """Bitwise equality of two outputs, tensors or tuples of them."""
+    if isinstance(a, tuple):
+        return all(_equal(x, y) for x, y in zip(a, b, strict=True))
+    return torch.equal(a, b)
 
 
 def _check_bf16(name: str, got, want) -> tuple[float, float, float]:
@@ -314,9 +355,67 @@ def conv_composition(parts, env, mlp, offsets, n_real: int):
     return run
 
 
+def readout_composition(e, x_hat, mlp, offsets, n_real: int, dist=None,
+                        crystal_offsets=None):
+    """Kernel 4 as PyTorch calls, a yardstick timed beside the kernel and
+    never called on a path: ``torch.addmm`` in full f32, ``silu``, the
+    product with w2, the x_hat weighting and ``torch.segment_reduce`` over
+    the atom offsets; with ``dist`` (kernel 4b) also the outer product and
+    a ``segment_reduce`` over the crystals' bond offsets."""
+    w1, b1, w2, b2 = mlp
+    offs64 = offsets.long()
+
+    def run():
+        e_r, x_r = e[:n_real], x_hat[:n_real]
+        n = torch.nn.functional.silu(torch.addmm(b1, e_r, w1)) @ w2 + b2
+        forces = torch.segment_reduce(n * x_r, "sum", offsets=offs64, axis=0)
+        if dist is None:
+            return forces
+        outer = (x_r[:, :, None] * x_r[:, None, :]).reshape(-1, 9)
+        raw = torch.segment_reduce((n * dist[:n_real, None]) * outer, "sum",
+                                   offsets=crystal_offsets, axis=0)
+        return forces, raw.reshape(-1, 3, 3)
+    return run
+
+
+def sym_composition(v, e, a_u, e_b, mlp, ctr, du1, du2, n_real: int):
+    """Kernel 5 as PyTorch calls, a yardstick timed beside the kernel and
+    never called on a path: the real rows' ``index_select`` gathers, the e
+    add, ``torch.addmm`` in full f32 with the folded W (K = 3D), two
+    ``layer_norm``s, the gate and the envelope."""
+    w, b, lns, lnb = mlp
+    d = w.shape[1] // 2
+    w23 = torch.cat([w[:d], w[d:2 * d] + w[2 * d:3 * d], w[3 * d:]])
+    i0, i1, i2 = (t[:n_real].long() for t in (ctr, du1, du2))
+
+    def run():
+        x = torch.cat([v.index_select(0, i0),
+                       e.index_select(0, i1) + e.index_select(0, i2),
+                       a_u[:n_real]], dim=1)
+        y = torch.addmm(b, x, w23)
+        core, gate = (torch.nn.functional.layer_norm(
+            y[:, h], (d,), lns[h], lnb[h], 1e-5)
+            for h in (slice(None, d), slice(d, None)))
+        m = torch.nn.functional.silu(core) * torch.sigmoid(gate)
+        return m * e_b.index_select(0, i1) * e_b.index_select(0, i2)
+    return run
+
+
+def sym_plan_row(dim: int, n_real: int, n_rows: int) -> dict:
+    """The launch plan of kernel 5 on this card (``ops.conv_plan("sym")``)
+    and how its blocks stride over this batch's real rows."""
+    plan = ops.conv_plan("sym", dim, n_rows, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    tiles = -(-n_real // plan.tm)
+    return dict(plan._asdict(), tiles=tiles,
+                busy_blocks=min(plan.grid, tiles),
+                max_block_tiles=-(-tiles // plan.grid))
+
+
 def conv_plan_row(mode: str, dim: int, offsets) -> dict:
-    """The launch plan of a conv kernel on this card (``ops.conv_plan``)
-    and how its partition spreads this batch's edges over the blocks."""
+    """The launch plan of a reducing kernel on this card (the convs, the
+    force readouts: ``ops.conv_plan``) and how its partition spreads this
+    batch's edges over the blocks."""
     n_rows = offsets.shape[0] - 1
     plan = ops.conv_plan(mode, dim, n_rows, torch.cuda.get_device_properties(
         0).multi_processor_count)
@@ -353,6 +452,12 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
                          + n_atoms + 1 + n_atoms * 3)
     bond_shape = {"atoms": n_atoms, "bonds": n_bonds,
                   "real_bonds": real_bonds, "dim": dim}
+    fmlp = (l0["w"], l0["b"], l1["w"], l1["b"])
+    # the crystals' bond ranges: bond_crystal is nondecreasing over the
+    # real bonds (the packer's layout)
+    cry_offs = torch.searchsorted(
+        batch.bond_crystal[:real_bonds].contiguous(),
+        torch.arange(n_crys + 1, device=e.device, dtype=torch.int32))
     amlp = (am["w"], am["b"], am["ln_scale"], am["ln_bias"])
     bmlp = (bm["w"], bm["b"], bm["ln_scale"], bm["ln_bias"])
     return [
@@ -389,16 +494,24 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
                     "dim": dim}),
         dict(name="force_readout_fwd", wrapper=ops.fused_force_readout,
              plain=ref.fused_force_readout_ref,
-             args=(e, x_hat, l0["w"], l0["b"], l1["w"], l1["b"],
-                   batch.bond_center, batch.bond_offsets, n_atoms),
+             args=(e, x_hat) + fmlp + (batch.bond_center, batch.bond_offsets,
+                                       n_atoms),
+             split=True, composition=readout_composition(
+                 e, x_hat, fmlp, batch.bond_offsets, real_bonds),
+             plan=conv_plan_row("force", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:737", flops=readout_flops,
              bytes=readout_bytes, shape=bond_shape),
         # + per bond: n*d and 9 products of 2 factors; + the crystal sum
         dict(name="force_virial_fwd", wrapper=ops.fused_force_virial_readout,
              plain=ref.fused_force_virial_readout_ref,
-             args=(e, x_hat, dist, l0["w"], l0["b"], l1["w"], l1["b"],
-                   batch.bond_center, batch.bond_crystal, batch.bond_offsets,
-                   n_atoms, n_crys),
+             args=(e, x_hat, dist) + fmlp + (batch.bond_center,
+                                             batch.bond_crystal,
+                                             batch.bond_offsets, n_atoms,
+                                             n_crys),
+             split=True, composition=readout_composition(
+                 e, x_hat, fmlp, batch.bond_offsets, real_bonds, dist,
+                 cry_offs.long()),
+             plan=conv_plan_row("force", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:758",
              flops=readout_flops + 19 * real_bonds + 9 * n_atoms,
              bytes=readout_bytes + f * (real_bonds + n_atoms + 9 * n_crys),
@@ -515,7 +628,11 @@ def sym_kernel_cases(params, batch) -> list[dict]:
         dict(name="sym_msg_fwd", counter="sym_msg", path="FAST_FUSED_SYM",
              wrapper=lambda *a: ops.sym_msg(*a)[:real_au],
              plain=lambda *a: ref.sym_msg_ref(*a[:11])[:real_au],
-             args=sym_args, replaces=f"{TPU_FILE}:1002",
+             args=sym_args, split=True,
+             composition=sym_composition(v, e_u, a_u, e_b, bmlp, ctr, du1,
+                                         du2, real_au),
+             plan=sym_plan_row(dim, real_au, a_u.shape[0]),
+             replaces=f"{TPU_FILE}:1002",
              flops=2 * real_au * 3 * dim * 2 * dim,
              bytes=f * (real_atoms * dim + 2 * real_eu * dim + real_au * dim
                         + 3 * dim * 2 * dim + w_bytes + 3 * real_au + 1
@@ -588,7 +705,10 @@ def sym_edge_cases(params, f, ids, seed: int) -> int:
     their plain versions on the edge batches of ``sym_edge_batches`` and on
     random layouts: a self-image dedup row (du1 == du2), an Eu row with no
     incidences, a padded tail, every dedup row padded, and several rows
-    per block.  Returns the number of cases checked."""
+    per block; then phase A (kernel 5) at every width of
+    ``ops.CONV_WIDTHS`` with 0, 1, 63, 65, 127 and 129 real rows (its
+    64-row tiles, and 128 +- 1), self-image rows among them, each called
+    twice for equal bits.  Returns the number of cases checked."""
     n = 0
     for label, batch in sym_edge_batches(seed).items():
         for c in sym_kernel_cases(params, batch):
@@ -599,35 +719,56 @@ def sym_edge_cases(params, f, ids, seed: int) -> int:
     for a_rows, eu, au, n_real, d, per_block in (
             (7, 13, 24, 17, 8, 32), (30, 200, 400, 0, 64, 32),
             (50, 300, 500, 333, 64, 5), (9, 40, 64, 64, 16, 1)):
-        du1 = rng.integers(0, eu - 1, au).astype(np.int32)
-        du2 = rng.integers(0, eu - 1, au).astype(np.int32)
-        du2[: max(1, n_real // 7)] = du1[: max(1, n_real // 7)]
-        du1[n_real:] = du2[n_real:] = 0
-        dest = np.concatenate([du1[:n_real], du2[:n_real]])
-        rep = np.concatenate([np.arange(n_real, dtype=np.int32)] * 2)
-        order = np.argsort(dest, kind="stable")
-        sym_dest = np.zeros(2 * au, np.int32)
-        sym_rep = np.zeros(2 * au, np.int32)
-        sym_dest[:2 * n_real] = dest[order]
-        sym_rep[:2 * n_real] = rep[order]
-        offs = np.searchsorted(sym_dest[:2 * n_real], np.arange(eu + 1))
-        cuda = [torch.from_numpy(x.astype(np.int32)).cuda()
-                for x in (du1, du2, sym_rep, sym_dest, offs)]
-        args = (f(a_rows, d), f(eu, d), f(au, d), f(eu, d),
-                f(4 * d, 2 * d, scale=0.1), f(2 * d), f(2 * d).abs() + 0.5,
-                f(2 * d), ids(a_rows, au), cuda[0], cuda[1], cuda[2],
-                cuda[3], cuda[4])
+        args = _sym_layout(rng, f, ids, a_rows, eu, au, n_real, d)
         got = ops.fused_sym_bond_conv(*args, msg_block=per_block)
         want = ref.fused_sym_bond_conv_ref(*args)
         _check_close(f"sym_bond_conv case {n}", got, want)
         if got[-1].any():
             raise RuntimeError("sym_accum: an Eu row with no incidences "
                                "must be 0")
-        msg = ops.sym_msg(*args[:11], cuda[4], block_rows=per_block)
+        msg = ops.sym_msg(*args[:11], args[13], block_rows=per_block)
         _check_close(f"sym_msg case {n}", msg[:n_real],
                      ref.sym_msg_ref(*args[:11])[:n_real])
         n += 2
+    # kernel 5 at every width, real dedup counts at and around its 64-row
+    # tiles, a sixth of the rows self-image pairs (du1 == du2)
+    for d in ops.CONV_WIDTHS:
+        for n_real in (0, 1, 63, 65, 127, 129):
+            args = _sym_layout(rng, f, ids, 11, 90, n_real + 20, n_real, d)
+            got = ops.sym_msg(*args[:11], args[13])[:n_real]
+            if not torch.equal(got, ops.sym_msg(*args[:11],
+                                                args[13])[:n_real]):
+                raise RuntimeError(f"sym_msg D = {d}, {n_real} real rows: "
+                                   "two calls on the same inputs differ")
+            _check_close(f"sym_msg D = {d}, {n_real} real rows", got,
+                         ref.sym_msg_ref(*args[:11])[:n_real])
+            n += 1
     return n
+
+
+def _sym_layout(rng, f, ids, a_rows: int, eu: int, au: int, n_real: int,
+                d: int) -> tuple:
+    """``fused_sym_bond_conv``'s arguments on a random layout: ``au`` dedup
+    rows of which the first ``n_real`` are real, a seventh of them (at
+    least one) self-image pairs, their incidences sorted by destination
+    into the (Eu + 1,) offsets."""
+    du1 = rng.integers(0, eu - 1, au).astype(np.int32)
+    du2 = rng.integers(0, eu - 1, au).astype(np.int32)
+    du2[: max(1, n_real // 7)] = du1[: max(1, n_real // 7)]
+    du1[n_real:] = du2[n_real:] = 0
+    dest = np.concatenate([du1[:n_real], du2[:n_real]])
+    rep = np.concatenate([np.arange(n_real, dtype=np.int32)] * 2)
+    order = np.argsort(dest, kind="stable")
+    sym_dest = np.zeros(2 * au, np.int32)
+    sym_rep = np.zeros(2 * au, np.int32)
+    sym_dest[:2 * n_real] = dest[order]
+    sym_rep[:2 * n_real] = rep[order]
+    offs = np.searchsorted(sym_dest[:2 * n_real], np.arange(eu + 1))
+    cuda = [torch.from_numpy(x.astype(np.int32)).cuda()
+            for x in (du1, du2, sym_rep, sym_dest, offs)]
+    return (f(a_rows, d), f(eu, d), f(au, d), f(eu, d),
+            f(4 * d, 2 * d, scale=0.1), f(2 * d), f(2 * d).abs() + 0.5,
+            f(2 * d), ids(a_rows, au), *cuda)
 
 
 def tier_kernel_cases(params, cfg, batch) -> list[dict]:
@@ -729,14 +870,17 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
 
 
 def kernel_phase(cases) -> list[dict]:
-    """Each kernel against its plain version, both timed, beside the one
+    """Each kernel against its plain version, both timed (the kernel's
+    wrapper calls as a caller sees them, ``ms``, and its launches alone,
+    ``device_ms``), beside the one
     PyTorch call that computes the same function where there is one
     (``library``) and, for kernel 10, the plain LM path's composition of
     the same MLP (``composition``; for kernel 7, ``torch.addmm`` in full
     f32, the two ``layer_norm``s and the gate; for kernels 2 and 3,
-    ``conv_composition``): yardsticks only, the port never calls them on
-    a kernels' path.  A split-f32 case (``split``: kernels 2, 3, 7 and 11
-    in f32) is bound by three TF32 products per f32 product at the TF32
+    ``conv_composition``; for 4, ``readout_composition``; for 5,
+    ``sym_composition``): yardsticks only, the port never calls them on a
+    kernels' path.  A split-f32 case (``split``: kernels 2, 3, 4, 5, 7 and
+    11 in f32) is bound by three TF32 products per f32 product at the TF32
     peak, reports the f32 FMA bound beside it (``bound_fma_ms``), and must
     give the same bits on a second call.  A conv case also reports its
     launch plan and how its partition spreads the batch (``plan``).
@@ -752,7 +896,7 @@ def kernel_phase(cases) -> list[dict]:
             want = plain(*args)
             torch.cuda.synchronize()
             err, tol = check(c["name"], got, want)[:2]
-            if c.get("split") and not torch.equal(kernel(*args), got):
+            if c.get("split") and not _equal(kernel(*args), got):
                 raise RuntimeError(f"{c['name']}: two calls on the same "
                                    "inputs differ")
             fns = [lambda: kernel(*args)]
@@ -762,6 +906,7 @@ def kernel_phase(cases) -> list[dict]:
                     fns.append(c[key])
             times = _time_turns(fns)
             k_ms = times[0]
+            dev_ms = _time_device(fns[0])
             p_ms = _time_ms(lambda: plain(*args))
             yard = iter(times[1:])
             lib_ms = next(yard) if c.get("library") else None
@@ -780,7 +925,7 @@ def kernel_phase(cases) -> list[dict]:
                 "replaces": c["replaces"],
                 "wrapper": c.get("counter", kernel.__name__),
                 "max_abs_err": err, "tolerance": tol, "ms": k_ms,
-                "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms, "flops": c["flops"],
                 "bytes": c["bytes"], "shape": c["shape"],
             })
@@ -798,7 +943,8 @@ def kernel_phase(cases) -> list[dict]:
                 lib += (f", FMA bound {fma_ms:.4f} ms, two calls give "
                         "equal bits")
             print(f"kernel {c['name']}: max|k-p| {err:.3e} (tolerance "
-                  f"{tol:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                  f"{tol:.3e}), kernel {k_ms:.4f} ms (device {dev_ms:.4f}), "
+                  f"plain {p_ms:.4f} ms"
                   f"{lib}, bound {bound_ms:.4f} ms ({bound_by}), shape "
                   f"{c['shape']}", flush=True)
     return rows
@@ -855,9 +1001,10 @@ def edge_case_phase(params, seed: int) -> int:
     several rows per block (``block_rows``, which the convs accept and no
     longer use); the force+virial kernel also with an empty crystal slot;
     then the convs' partition and tile edges (``conv_edge_cases``), the
-    unfused tier's cases (``tier_edge_cases``) and those of the undirected
-    store and the symmetric trunk (``sym_edge_cases``).  Returns the
-    number of cases checked."""
+    force readouts' (``readout_edge_cases``), the unfused tier's cases
+    (``tier_edge_cases``) and those of the undirected store and the
+    symmetric trunk (``sym_edge_cases``).  Returns the number of cases
+    checked."""
     rng = np.random.default_rng(seed)
 
     def f(*shape, scale=1.0):
@@ -919,6 +1066,7 @@ def edge_case_phase(params, seed: int) -> int:
                 *args, block_rows=per_block), ref.fused_bond_conv_ref(*args))
             n += 1
         n += conv_edge_cases(f, ids, mlp, seed)
+        n += readout_edge_cases(f, seed)
         n += tier_edge_cases(f, ids, csr)
         n += sym_edge_cases(params, f, ids, seed)
     torch.cuda.synchronize()
@@ -978,6 +1126,56 @@ def conv_edge_cases(f, ids, mlp, seed: int) -> int:
                                    "same inputs differ")
             _check_close(f"{name} on {label}", got, plain(*args, *extra))
             n += 1
+    return n
+
+
+def readout_edge_cases(f, seed: int) -> int:
+    """The split-f32 force readouts (kernels 4a and 4b) against their plain
+    versions at every width of ``ops.CONV_WIDTHS`` on layouts at the edges
+    of their partition, tiles and crystal sum: one atom row of 700 bonds,
+    rows straddling tiles, a crystal with no bonds between two that have
+    them (and an empty crystal slot), every row padded.  Crystals own
+    contiguous atom ranges, as the packer lays them out.  Each runs twice:
+    the two calls must give equal bits.  Returns the number of cases
+    checked."""
+    rng = np.random.default_rng(seed + 3)
+    layouts = (  # bonds per atom row, crystal of each row, padded bonds
+        ("one row of 700 bonds", [700, 3, 0, 5], [0, 0, 1, 1], 20),
+        ("rows straddling tiles", rng.integers(0, 300, 12).tolist(),
+         [0] * 5 + [1] * 7, 5),
+        ("a crystal with no bonds between two",
+         [40, 0, 90, 0, 0, 150, 7, 60], [0, 0, 0, 1, 1, 2, 2, 2], 9),
+        ("every row padded", [0] * 6, [0, 0, 1, 1, 2, 2], 40))
+    n = 0
+    for label, lens, row_cry, tail in layouts:
+        rows, n_real, n_crys = len(lens), sum(lens), 4
+        seg = np.zeros(n_real + tail, np.int32)
+        seg[:n_real] = np.repeat(np.arange(rows), lens)
+        cry = np.zeros(n_real + tail, np.int32)
+        cry[:n_real] = np.asarray(row_cry, np.int32)[seg[:n_real]]
+        offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        seg, cry, offs = (torch.from_numpy(x).cuda()
+                          for x in (seg, cry, offs))
+        for d in ops.CONV_WIDTHS:
+            xh = f(n_real + tail, 3)
+            fargs = (f(n_real + tail, d), xh / xh.norm(dim=1, keepdim=True),
+                     f(d, d, scale=d ** -0.5), f(d, scale=0.1),
+                     f(d, 1, scale=d ** -0.5), f(1, scale=0.1), seg, offs,
+                     rows)
+            vargs = fargs[:2] + (f(n_real + tail).abs() + 0.5,) \
+                + fargs[2:7] + (cry, offs, rows, n_crys)
+            for name, wrapper, plain, args in (
+                    ("force_readout", ops.fused_force_readout,
+                     ref.fused_force_readout_ref, fargs),
+                    ("force_virial", ops.fused_force_virial_readout,
+                     ref.fused_force_virial_readout_ref, vargs)):
+                got = wrapper(*args)
+                if not _equal(got, wrapper(*args)):
+                    raise RuntimeError(f"{name} on {label}, D = {d}: two "
+                                       "calls on the same inputs differ")
+                _check_close(f"{name} on {label}, D = {d}", got,
+                             plain(*args))
+                n += 1
     return n
 
 
@@ -1086,7 +1284,7 @@ def profile_step(step, out_file: Path) -> dict:
                     key=lambda e: -e.self_device_time_total)
     out_file.parent.mkdir(parents=True, exist_ok=True)
     out_file.write_text(averages.table(sort_by="self_device_time_total",
-                                       row_limit=40))
+                                       row_limit=-1))
     return {
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "device_events": sum(e.count for e in events),

@@ -37,9 +37,9 @@ SIGNATURES = {
     "message_passing": {
         "atom_conv_fwd": [_P] * 12 + [_I] * 7 + [_P],
         "bond_conv_fwd": [_P] * 15 + [_I] * 6 + [_P],
-        "sym_msg_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],
-        "force_readout_fwd": [_P] * 8 + [_I, _I, _I, _P],
-        "force_virial_fwd": [_P] * 10 + [_I, _I, _I, _P],
+        "sym_msg_fwd": [_P] * 13 + [_I] * 6 + [_P],
+        "force_readout_fwd": [_P] * 8 + [_I] * 6 + [_P],
+        "force_virial_fwd": [_P] * 10 + [_I] * 6 + [_P],
         "virial_crystal_sum": [_P] * 4 + [_I, _I, _P],
     },
     "segment_sum": {

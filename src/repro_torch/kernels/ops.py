@@ -41,6 +41,7 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -74,17 +75,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_dim(dim: int) -> None:
-    # float4 row loads need dim % 4 == 0; the symmetric conv's
-    # shared-memory tile, 32 * 5 * dim floats, must stay within a block's
-    # 227 KB
-    if dim % 4 or not 0 < dim <= 256:
-        raise ValueError(f"feature width {dim} must be a multiple of 4 in "
-                         "[4, 256] for the CUDA kernels")
-
-
 def _check_aligned(**tables) -> None:
-    # the split-f32 convs gather rows with 16-byte cp.async copies
+    # the split-f32 kernels gather rows with 16-byte cp.async copies
     for name, t in tables.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
@@ -92,17 +84,19 @@ def _check_aligned(**tables) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Launch plan of the split-f32 convs (kernels 2 and 3)
+# Launch plan of the split-f32 message-passing kernels (2, 3, 4 and 5)
 # ---------------------------------------------------------------------------
 
-# feature widths D the conv kernels are built for (their accumulators are
-# 2D / 8 tiles of 8 columns, their reduction D / 4 float4 columns)
+# feature widths D the message-passing kernels are built for (their
+# accumulators are 2D / 8 or D / 8 tiles of 8 columns, the convs'
+# reduction D / 4 float4 columns)
 CONV_WIDTHS = (8, 16, 32, 64, 128)
-# csrc/message_passing.cu's conv_split_kernel: warps a block, input
-# columns a K chunk, cp.async stages; the H100's shared memory a SM and
-# the part CUDA reserves for each resident block
+# csrc/message_passing.cu's kernels: warps a block, input columns a K
+# chunk, cp.async stages; the H100's shared memory a SM and the part CUDA
+# reserves for each resident block
 _CONV_WARPS, _CONV_KC, _CONV_STAGES = 4, 32, 2
 _SM_SHARED, _BLOCK_RESERVED = 233_472, 1_024
+_PLAN_MODES = ("atom", "bond", "sym", "force")
 
 
 def _check_conv_dim(dim: int) -> None:
@@ -112,43 +106,86 @@ def _check_conv_dim(dim: int) -> None:
 
 
 class ConvPlan(NamedTuple):
-    """One ``fused_atom_conv`` / ``fused_bond_conv`` launch on the card
-    (``csrc/message_passing.cu`` ``conv_split_kernel``)."""
-    tm: int             # edges a tile: 32 a warp, 16 at D = 128
+    """One launch of a split-f32 message-passing kernel on the card
+    (``csrc/message_passing.cu``: ``conv_split_kernel`` for ``fused_atom_conv``
+    / ``fused_bond_conv`` / ``sym_msg``, ``force_split_kernel`` for the
+    force readouts)."""
+    tm: int             # edges (sym: rows) a tile
     t: int              # least edges a chunk (see ``conv_chunks``)
     warps: int
-    grid: int           # persistent blocks, one chunk each
+    grid: int           # persistent blocks
     smem: int           # dynamic shared memory of a block, bytes
-    k_chunks: int       # K chunks of 32 input columns a tile
+    k_chunks: int       # cp.async stages a tile
     blocks_per_sm: int
 
 
 def conv_plan(mode: str, dim: int, n_rows: int, sms: int) -> ConvPlan:
-    """The launch geometry of the split-f32 conv kernels: a tile of ``tm``
-    edges is 4 warps of two m16 tiles (one at D = 128) by all 2D columns;
-    a stage of its K loop holds the tile's 32 input columns (row stride
-    40 floats) and W's 32 rows (2D + 4); beside the two stages lie the
-    message tile (D + 8), bias and LayerNorm parameters, two carry rows
-    and the tile's row starts and runs.  Two blocks fit a SM for D <= 64.
-    The grid is those blocks on every SM (at most ``n_rows``: a chunk owns
-    at least one row); the kernel checks ``tm`` and ``smem`` against its
-    own."""
-    if mode not in ("atom", "bond"):
-        raise ValueError(f"mode must be 'atom' or 'bond', got {mode!r}")
+    """The launch geometry of the split-f32 message-passing kernels, the
+    numbers the kernel checks ``tm`` and ``smem`` against.
+
+    ``"atom"`` / ``"bond"`` (kernels 2, 3): a tile of ``tm`` edges is 4
+    warps of two m16 tiles (one at D = 128) by all 2D columns; a stage of
+    its K loop holds the tile's 32 input columns (row stride 40 floats)
+    and W's 32 rows (2D + 4); beside the two stages lie the message tile
+    (D + 8), bias and LayerNorm parameters, two carry rows and the tile's
+    row starts and runs.  Two blocks fit a SM for D <= 64.
+
+    ``"sym"`` (kernel 5, ``n_rows`` the dedup rows of the output): no
+    reduction, so no message tile; 64-row tiles (one m16 tile a warp),
+    whose K loop takes the v and a parts 32 columns a stage and the e part
+    16 columns of e[du1] beside the same 16 of e[du2] (``k_chunks`` = 8
+    at D = 64), two blocks a SM for D <= 64.  The real rows are counted
+    on the device, so the tile does not follow them: a training batch's
+    40.6k real rows are 636 tiles, 4.8 a SM, and a serving batch's 11.9k
+    are 187, where 128-row tiles would be 318 (1.2 waves of 264 blocks)
+    and 94 (38 SMs idle).  The grid is those blocks on every SM, at most
+    one a tile of ``n_rows``.
+
+    ``"force"`` (kernel 4, both variants): tiles of 64 bonds (one m16
+    tile a warp) whose e rows (stride max(D, 32) + 8), x_hat and
+    distances are one stage; W1 lies split into TF32 (hi, lo) pairs in
+    shared memory, (D / 2, D + 2) uint4; bias, w2, two carry rows of 12
+    floats, the row starts and runs.  Three blocks a SM for D <= 64 (12
+    warps: a tile's products are short, K = D, so one block's scans and
+    run sums overlap another's products).
+
+    The reducing kernels' grid is their blocks on every SM (at most
+    ``n_rows``: a chunk owns at least one row)."""
+    if mode not in _PLAN_MODES:
+        raise ValueError(f"mode must be one of {_PLAN_MODES}, got {mode!r}")
     _check_conv_dim(dim)
-    tm = _CONV_WARPS * 16 * (2 if dim <= 64 else 1)
-    stage = tm * (_CONV_KC + 8) + _CONV_KC * (2 * dim + 4)
-    floats = _CONV_STAGES * stage + tm * (dim + 8) + 6 * dim + 2 * dim
-    smem = 4 * floats + 4 * (3 * tm + 8)
-    per_sm = min(2, _SM_SHARED // (smem + _BLOCK_RESERVED))
-    d_in = (3 if mode == "atom" else 4) * dim
+    kc, stages, reserved = _CONV_KC, _CONV_STAGES, _BLOCK_RESERVED
+    if mode == "sym":
+        tm = _CONV_WARPS * 16
+        stage = tm * (kc + 8) + kc * (2 * dim + 4)
+        smem = 4 * (stages * stage + 6 * dim)
+        per_sm = min(2, _SM_SHARED // (smem + reserved))
+        k_chunks = 2 * (dim // min(dim, kc)) + dim // min(dim, 16)
+        return ConvPlan(tm, tm, _CONV_WARPS,
+                        max(1, min(per_sm * sms, -(-n_rows // tm))), smem,
+                        k_chunks, per_sm)
+    if mode == "force":
+        tm = _CONV_WARPS * 16
+        stage = tm * (max(dim, kc) + 8) + 4 * tm
+        smem = 16 * (dim // 2) * (dim + 2) \
+            + 4 * (stages * stage + 2 * dim + 4 + 24) + 4 * (3 * tm + 8)
+        k_chunks, blocks = 1, 3 if dim <= 64 else 2
+    else:
+        tm = _CONV_WARPS * 16 * (2 if dim <= 64 else 1)
+        stage = tm * (kc + 8) + kc * (2 * dim + 4)
+        floats = stages * stage + tm * (dim + 8) + 6 * dim + 2 * dim
+        smem = 4 * floats + 4 * (3 * tm + 8)
+        k_chunks = -(-(3 if mode == "atom" else 4) * dim // kc)
+        blocks = 2
+    per_sm = min(blocks, _SM_SHARED // (smem + reserved))
     return ConvPlan(tm, tm, _CONV_WARPS, max(1, min(per_sm * sms, n_rows)),
-                    smem, -(-d_in // _CONV_KC), per_sm)
+                    smem, k_chunks, per_sm)
 
 
 def conv_chunks(offsets, plan: ConvPlan) -> list[tuple[int, int, int, int]]:
-    """The conv kernels' partition of the work, computed on the host:
-    ``(row_lo, row_hi, edge_lo, edge_hi)`` for each block of ``plan``.
+    """The reducing kernels' partition of the work (the convs, the force
+    readouts), computed on the host: ``(row_lo, row_hi, edge_lo,
+    edge_hi)`` for each block of ``plan``.
 
     With ``n_real = offsets[-1]`` and ``T = max(plan.t, ceil(n_real /
     plan.grid))`` (the kernel reads ``n_real`` on the device), block c
@@ -169,10 +206,13 @@ def conv_chunks(offsets, plan: ConvPlan) -> list[tuple[int, int, int, int]]:
     return out
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _conv_launch_plan(mode: str, dim: int, n_rows: int, dev) -> ConvPlan:
-    return conv_plan(mode, dim, n_rows,
-                     torch.cuda.get_device_properties(dev)
-                     .multi_processor_count)
+    return conv_plan(mode, dim, n_rows, _sm_count(dev.index))
 
 
 def _launch(lib: str, fn: str, *args) -> None:
@@ -480,14 +520,23 @@ def sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2, offsets,
     e[du1] + e[du2]`` (``kernels.ref.sym_msg_ref``).  On the card only the
     real rows ``[0, offsets[-1] // 2)`` are computed, the count read on the
     device (``offsets`` is the (Eu + 1,) incidence CSR); the rows past it
-    are left unwritten.  ``block_rows`` rows go to one CUDA block."""
+    are left unwritten.  The kernel's persistent blocks stride over
+    64-row tiles of them (``conv_plan("sym", ...)``); ``block_rows`` is
+    accepted for the callers of the earlier kernel and no longer shapes
+    the launch."""
     if v.device.type == "cpu":
         return ref.sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
                                du1, du2)
+    return _sym_msg_cuda(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1,
+                         du2, offsets)
+
+
+def _sym_msg_cuda(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
+                  offsets):
     a_rows, dim = v.shape
     eu, au = e.shape[0], a_u.shape[0]
     dev, f32, i32 = v.device, torch.float32, torch.int32
-    _check_dim(dim)
+    _check_conv_dim(dim)
     for name, t, dt, shape in (
             ("v", v, f32, (a_rows, dim)), ("e", e, f32, (eu, dim)),
             ("a_u", a_u, f32, (au, dim)), ("e_b", e_b, f32, (eu, dim)),
@@ -500,12 +549,15 @@ def sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2, offsets,
     # both e slots read e_s: their weight blocks add once per call, K = 3D
     w23 = torch.cat([w[:dim], w[dim:2 * dim] + w[2 * dim:3 * dim],
                      w[3 * dim:]])
+    _check_aligned(v=v, e=e, a_u=a_u, e_b=e_b, w23=w23)
     out = torch.empty((au, dim), dtype=f32, device=dev)
+    plan = _conv_launch_plan("sym", dim, au, dev)
     _launch(_LIB, "sym_msg_fwd", v.data_ptr(), e.data_ptr(), a_u.data_ptr(),
             e_b.data_ptr(), w23.data_ptr(), b.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), ctr.data_ptr(),
             du1.data_ptr(), du2.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), eu, au, dim, block_rows, _stream(dev))
+            out.data_ptr(), eu, au, dim, plan.grid, plan.tm, plan.smem,
+            _stream(dev))
     sym_msg.launches += 1
     return out
 
@@ -538,7 +590,7 @@ def sym_accum(msg, rep, dest, offsets, eu_rows: int):
 class _SymBondConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
-                rep, dest, offsets, msg_block, chunk):
+                rep, dest, offsets, chunk):
         ctx.save_for_backward(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
                               du1, du2, offsets)
         ctx.chunk = chunk or _default_chunk(4 * v.shape[1])
@@ -547,7 +599,7 @@ class _SymBondConv(torch.autograd.Function):
                                                ln_scale, ln_bias, ctr, du1,
                                                du2, rep, dest, offsets)
         msg = sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
-                      offsets, block_rows=msg_block)
+                      offsets)
         out = sym_accum(msg, rep, dest, offsets, e.shape[0])
         fused_sym_bond_conv.launches += 2
         return out
@@ -579,7 +631,7 @@ class _SymBondConv(torch.autograd.Function):
             lambda sl: ref.gather_rows(g, du1[sl])
             + ref.gather_rows(g, du2[sl]),
             int(offs[-1]) // 2, ctx.chunk)
-        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 8
+        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 7
 
 
 def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
@@ -594,13 +646,14 @@ def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
     with one GatedMLP row per dedup angle, scattered to both undirected
     bonds of its pair through the sym-incidence store (``dest`` / ``rep``
     sorted by destination, CSR ``offsets``).  On the card two launches:
-    phase A (``sym_msg``, ``msg_block`` rows per block) and phase B
-    (``sym_accum``).  ``ctr = bond_center[und_angle_ij]``, ``du1 / du2 =
+    phase A (``sym_msg``) and phase B (``sym_accum``); ``msg_block`` is
+    accepted for the callers of the earlier phase A kernel and no longer
+    shapes its launch.  ``ctr = bond_center[und_angle_ij]``, ``du1 / du2 =
     bond_pair[und_angle_ij / und_angle_ik]``.  The backward recomputes
     ``chunk`` dedup rows at a time and is twice differentiable.
     """
     return _SymBondConv.apply(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
-                              du1, du2, rep, dest, offsets, msg_block, chunk)
+                              du1, du2, rep, dest, offsets, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +664,7 @@ def _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
                   num_atoms):
     n_edges, dim = e.shape
     dev, f32, i32 = e.device, torch.float32, torch.int32
-    _check_dim(dim)
+    _check_conv_dim(dim)
     for name, t, dt, shape in (
             ("e", e, f32, (n_edges, dim)), ("x_hat", x_hat, f32, (n_edges, 3)),
             ("w1", w1, f32, (dim, dim)), ("b1", b1, f32, (dim,)),
@@ -619,17 +672,19 @@ def _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
             ("bond_center", bond_center, i32, (n_edges,)),
             ("bond_offsets", bond_offsets, i32, (num_atoms + 1,))):
         _check(name, t, dt, shape, dev)
+    _check_aligned(e=e)
+    return _conv_launch_plan("force", dim, num_atoms, dev)
 
 
 def _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                        num_atoms, block_rows):
-    _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                  num_atoms)
+                        num_atoms):
+    plan = _force_checks(e, x_hat, w1, b1, w2, b2, bond_center,
+                         bond_offsets, num_atoms)
     out = torch.empty((num_atoms, 3), dtype=torch.float32, device=e.device)
     _launch(_LIB, "force_readout_fwd", e.data_ptr(), x_hat.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             bond_offsets.data_ptr(), out.data_ptr(), num_atoms, e.shape[1],
-            block_rows, _stream(e.device))
+            plan.grid, plan.t, plan.tm, plan.smem, _stream(e.device))
     fused_force_readout.launches += 1
     return out
 
@@ -642,7 +697,7 @@ def _bond_scalars(e, w1, b1, w2, b2):
 class _ForceReadout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, x_hat, w1, b1, w2, b2, bond_center, offsets,
-                num_atoms, block_rows, chunk):
+                num_atoms, chunk):
         ctx.save_for_backward(e, x_hat, w1, b1, w2, b2, bond_center,
                               offsets)
         ctx.chunk = chunk or _default_chunk(e.shape[1])
@@ -651,7 +706,7 @@ class _ForceReadout(torch.autograd.Function):
                                                bond_center, offsets,
                                                num_atoms)
         return _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center,
-                                   offsets, num_atoms, block_rows)
+                                   offsets, num_atoms)
 
     @staticmethod
     def backward(ctx, g):
@@ -667,7 +722,7 @@ class _ForceReadout(torch.autograd.Function):
             contribs, [w1, b1, w2, b2], [e, x_hat],
             [nig[2], nig[3], nig[4], nig[5], nig[0], nig[1]],
             lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
-        return (de, dxh, dw1, db1, dw2, db2) + (None,) * 5
+        return (de, dxh, dw1, db1, dw2, db2) + (None,) * 4
 
 
 def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
@@ -677,19 +732,21 @@ def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
 
     The per-bond scalar MLP (w1/b1 -> silu -> w2/b2), the x_hat weighting
     and the per-atom reduction run in one kernel over the sorted CSR rows;
-    ``n_ij`` never reaches device memory.  The kernel walks rows by
-    ``bond_offsets``; ``bond_center`` is checked and used by the plain
+    ``n_ij`` never reaches device memory.  On the card the kernel balances
+    its blocks by edges as the convs do (``conv_plan("force", ...)``,
+    ``conv_chunks``); ``block_rows`` is accepted for the callers of the
+    earlier kernel and no longer shapes the launch.  The kernel walks rows
+    by ``bond_offsets``; ``bond_center`` is checked and used by the plain
     version and the backward.
     """
     return _ForceReadout.apply(e, x_hat, w1, b1, w2, b2, bond_center,
-                               bond_offsets, num_atoms, block_rows, chunk)
+                               bond_offsets, num_atoms, chunk)
 
 
 def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
-                       bond_crystal, bond_offsets, num_atoms, num_crystals,
-                       block_rows):
-    _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                  num_atoms)
+                       bond_crystal, bond_offsets, num_atoms, num_crystals):
+    plan = _force_checks(e, x_hat, w1, b1, w2, b2, bond_center,
+                         bond_offsets, num_atoms)
     n_edges, dev = e.shape[0], e.device
     _check("dist", dist, torch.float32, (n_edges,), dev)
     _check("bond_crystal", bond_crystal, torch.int32, (n_edges,), dev)
@@ -700,7 +757,8 @@ def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
     _launch(_LIB, "force_virial_fwd", e.data_ptr(), x_hat.data_ptr(),
             dist.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), bond_offsets.data_ptr(), out.data_ptr(),
-            rows.data_ptr(), num_atoms, e.shape[1], block_rows, stream)
+            rows.data_ptr(), num_atoms, e.shape[1], plan.grid, plan.t,
+            plan.tm, plan.smem, stream)
     fused_force_virial_readout.launches += 1
     _launch(_LIB, "virial_crystal_sum", rows.data_ptr(),
             bond_crystal.data_ptr(), bond_offsets.data_ptr(), raw.data_ptr(),
@@ -712,8 +770,7 @@ def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
 class _ForceVirial(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, x_hat, dist, w1, b1, w2, b2, bond_center,
-                bond_crystal, offsets, num_atoms, num_crystals, block_rows,
-                chunk):
+                bond_crystal, offsets, num_atoms, num_crystals, chunk):
         ctx.save_for_backward(e, x_hat, dist, w1, b1, w2, b2, bond_center,
                               bond_crystal, offsets)
         ctx.chunk = chunk or _default_chunk(e.shape[1])
@@ -724,7 +781,7 @@ class _ForceVirial(torch.autograd.Function):
                 offsets, num_atoms, num_crystals)
         return _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2,
                                   bond_center, bond_crystal, offsets,
-                                  num_atoms, num_crystals, block_rows)
+                                  num_atoms, num_crystals)
 
     @staticmethod
     def backward(ctx, g_f, g_s):
@@ -744,7 +801,7 @@ class _ForceVirial(torch.autograd.Function):
             contribs, [w1, b1, w2, b2], [e, x_hat, dist],
             [nig[3], nig[4], nig[5], nig[6], nig[0], nig[1], nig[2]],
             lambda sl: (g_f[c[sl]], g_s[cr[sl]]), int(offs[-1]), ctx.chunk)
-        return (de, dxh, dd, dw1, db1, dw2, db2) + (None,) * 7
+        return (de, dxh, dd, dw1, db1, dw2, db2) + (None,) * 6
 
 
 def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
@@ -759,16 +816,20 @@ def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
     a virial epilogue that sums each atom row's nine partials while
     ``n_ij`` and ``x_hat`` are in shared memory (the (E, 3, 3) products
     never reach device memory), then an ordered per-crystal sum of those
-    rows.  That second step needs the packer's layout: every bond of an
-    atom row lies in the crystal of its center atom (``bond_crystal[b]``
-    is ``atom_crystal[bond_center[b]]``).  Volume normalization and units
+    rows, each crystal's rows found by searches.  That second step needs
+    the packer's layout: a crystal's atoms are one contiguous range,
+    crystals in slot order, so every bond of an atom row lies in the
+    crystal of its center atom (``bond_crystal[b]`` is
+    ``atom_crystal[bond_center[b]]``) and ``bond_crystal`` is
+    nondecreasing over the real bonds.  ``block_rows`` is accepted and
+    unused, as in ``fused_force_readout``.  Volume normalization and units
     live in ``core.heads``.  The backward takes both cotangents, the force
     one gathered through ``bond_center`` and the stress one through
     ``bond_crystal``.
     """
     return _ForceVirial.apply(e, x_hat, dist, w1, b1, w2, b2, bond_center,
                               bond_crystal, bond_offsets, num_atoms,
-                              num_crystals, block_rows, chunk)
+                              num_crystals, chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Numerics of the split-f32 (3xTF32) products of the CUDA kernels 7
 (GatedMLP, ``csrc/gated_mlp.cu``), 11 (flash attention in f32,
-``csrc/flash_attention.cu``), 2 and 3 (the atom and bond convs,
-``csrc/message_passing.cu``), emulated on the CPU, and the convs' launch
-plan, partition and width check.
+``csrc/flash_attention.cu``), 2 and 3 (the atom and bond convs), 5 (the
+symmetric conv's phase A) and 4 (the force readouts, with and without the
+virial; all four in ``csrc/message_passing.cu``), emulated on the CPU, and
+their launch plans, partitions and width checks.
 
 The kernels split each f32 operand x into TF32 parts hi = tf32(x) and lo =
 tf32(x - hi) (``cvt.rna``: round to nearest, ties away from zero) and
@@ -12,9 +13,10 @@ does the same with f32 matmuls of TF32 values (their products are exact in
 f32) and is held to a float64 product through the GatedMLP's LayerNorms
 and gate and through attention's softmax, within ``1e-5 * max(1,
 max|ref|)``; one TF32 product per f32 product does not meet that bound,
-which is why the kernels split.  The convs are emulated as their kernel
-runs them, down to the ordered row sums over the launch's partition, and
-held to the float64 plain version for each mirror operand.  The card
+which is why the kernels split.  The convs and the force readouts are
+emulated as their kernels run them, down to the ordered row sums over the
+launch's partition (and the readout's per-crystal sum), and held to the
+float64 plain versions, the convs for each mirror operand.  The card
 holds the kernels themselves to their plain versions (``chip_smoke.py``).
 """
 from __future__ import annotations
@@ -410,3 +412,231 @@ def test_conv_kernels_refuse_widths_they_are_not_built_for(mode, d):
         ops.conv_plan(mode, d, rows, 132)
     assert ops.fused_atom_conv.launches == 0
     assert ops.fused_bond_conv.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 5 and 4: the symmetric conv's phase A and the force readouts
+# ---------------------------------------------------------------------------
+
+def _sym_inputs(d: int, n_real: int, seed: int = 0):
+    """``sym_msg``'s arguments: 40 dedup rows of which the first
+    ``n_real`` are real, a fifth of them self-image pairs (du1 == du2)."""
+    rng = np.random.default_rng(seed + d)
+    a_rows, eu, au = 9, 30, n_real + 7
+
+    def ids(high):
+        return torch.from_numpy(rng.integers(0, high, au).astype(np.int32))
+
+    du1, du2 = ids(eu), ids(eu)
+    du2[: max(1, n_real // 5)] = du1[: max(1, n_real // 5)]
+    offsets = torch.zeros(eu + 1, dtype=torch.int32)
+    offsets[-1] = 2 * n_real  # the kernel reads the real count only
+    return (_normal(rng, a_rows, d), _normal(rng, eu, d),
+            _normal(rng, au, d), _normal(rng, eu, d),
+            _normal(rng, 4 * d, 2 * d, scale=(3 * d) ** -0.5),
+            _normal(rng, 2 * d, scale=0.1),
+            1.0 + _normal(rng, 2 * d, scale=0.1),
+            _normal(rng, 2 * d, scale=0.1), ids(a_rows), du1, du2, offsets)
+
+
+def _sym_emulated(v, e, a_u, e_b, w, b, lns, lnb, ctr, du1, du2, offsets):
+    """Kernel 5 as it runs: the real rows' v[ctr], e[du1] + e[du2] (added
+    in f32 before the split) and a_u rows, the split GEMM against W with
+    its two e blocks folded in f32 (K = 3D, in the kernel's column order),
+    bias, LayerNorms and gate, then the envelope factors."""
+    d, n_real = v.shape[1], int(offsets[-1]) // 2
+    w23 = torch.cat([w[:d], w[d:2 * d] + w[2 * d:3 * d], w[3 * d:]])
+    i0, i1, i2 = (t[:n_real].long() for t in (ctr, du1, du2))
+    x = torch.cat([v[i0], e[i1] + e[i2], a_u[:n_real]], dim=1)
+    return _mlp_emulated(x, w23, b, lns, lnb, split=True) * e_b[i1] * e_b[i2]
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("n_real", [1, 33])
+def test_split_sym_msg_matches_float64(d, n_real):
+    """Kernel 5 emulated against the float64 plain version on the real
+    rows (the kernel leaves the rest unwritten)."""
+    args = _sym_inputs(d, n_real)
+    want = ref.sym_msg_ref(*(t.double() if t.is_floating_point() else t
+                             for t in args[:11]))[:n_real]
+    assert _err(_sym_emulated(*args), want) <= TOL
+    assert _err(ref.sym_msg_ref(*args[:11])[:n_real], want) <= TOL
+
+
+def _readout_inputs(d: int, seed: int = 0):
+    """A ragged readout batch: 30 atom rows in 4 crystal slots (slot 1
+    holds atoms with no bonds, slot 3 none at all), the rows of a crystal
+    contiguous and bonds sorted by center, as the packer lays them out,
+    then a padded tail."""
+    rng = np.random.default_rng(seed + d)
+    lens = rng.integers(0, 60, 30)
+    row_cry = np.repeat([0, 1, 2], [12, 6, 12])
+    lens[row_cry == 1] = 0
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    n_real = int(offs[-1])
+    n_edges = n_real + 13
+    seg = np.zeros(n_edges, np.int32)
+    seg[:n_real] = np.repeat(np.arange(30), lens)
+    cry = np.zeros(n_edges, np.int32)
+    cry[:n_real] = row_cry[seg[:n_real]]
+    x_hat = _normal(rng, n_edges, 3)
+    x_hat = x_hat / x_hat.norm(dim=1, keepdim=True)
+    return (_normal(rng, n_edges, d), x_hat,
+            torch.from_numpy(rng.uniform(0.5, 5.0, n_edges).astype(
+                np.float32)),
+            _normal(rng, d, d, scale=d ** -0.5), _normal(rng, d, scale=0.1),
+            _normal(rng, d, 1, scale=d ** -0.5), _normal(rng, 1, scale=0.1),
+            torch.from_numpy(seg), torch.from_numpy(cry),
+            torch.from_numpy(offs), 30, 4)
+
+
+def _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offsets, cry,
+                      n_crys):
+    """Kernel 4 as it runs: h = silu of the split GEMM e W1 + b1, n = h .
+    w2 + b2, the contributions n x_hat and n d x_hat ⊗ x_hat, each row's
+    bonds summed in f32 in CSR order, row by row of each block of the
+    launch's partition; then each crystal's rows, found by searches of
+    the crystal ids and of the offsets, summed in row order."""
+    offs = offsets.long()
+    n_real = int(offs[-1])
+    h = torch.nn.functional.silu(mma_emulated(e[:n_real], w1) + b1)
+    n = (h * w2[:, 0]).sum(dim=1) + b2
+    xh = x_hat[:n_real]
+    outer = (xh[:, :, None] * xh[:, None, :]).reshape(-1, 9)
+    contrib = torch.cat([n[:, None] * xh,
+                         (n * dist[:n_real])[:, None] * outer], dim=1)
+    rows = torch.zeros(offs.shape[0] - 1, 12)
+    plan = ops.conv_plan("force", e.shape[1], rows.shape[0], 132)
+    for r_lo, r_hi, _, _ in ops.conv_chunks(offs, plan):
+        for r in range(r_lo, r_hi):
+            acc = torch.zeros(12)
+            for t in range(int(offs[r]), int(offs[r + 1])):
+                acc = acc + contrib[t]
+            rows[r] = acc
+    raw = torch.zeros(n_crys, 9)
+    cry_real = cry[:n_real].numpy()
+    for c in range(n_crys):
+        b_lo, b_hi = np.searchsorted(cry_real, [c, c + 1], "left")
+        r_lo, r_hi = np.searchsorted(offs.numpy(), [b_lo, b_hi], "left")
+        for r in range(r_lo, r_hi):
+            raw[c] = raw[c] + rows[r, 3:]
+    return rows[:, :3], raw.reshape(-1, 3, 3)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_split_force_readouts_match_float64(d):
+    """Kernels 4a and 4b emulated against the float64 plain versions: the
+    forces of both, the per-crystal virial sums of 4b (zeros for the
+    crystal without bonds and the empty slot)."""
+    (e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms,
+     n_crys) = _readout_inputs(d)
+    f64 = [t.double() for t in (e, x_hat, dist, w1, b1, w2, b2)]
+    forces, raw = _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offs,
+                                    cry, n_crys)
+    want_f = ref.fused_force_readout_ref(f64[0], f64[1], *f64[3:], seg,
+                                         offs, n_atoms)
+    want_f2, want_raw = ref.fused_force_virial_readout_ref(
+        *f64, seg, cry, offs, n_atoms, n_crys)
+    assert _err(forces, want_f) <= TOL
+    assert _err(forces, want_f2) <= TOL
+    assert _err(raw, want_raw) <= TOL
+    assert not raw[1].any() and not raw[3].any()
+    plain = ref.fused_force_virial_readout_ref(
+        e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms, n_crys)
+    assert _err(plain[0], want_f) <= TOL and _err(plain[1], want_raw) <= TOL
+
+
+@pytest.mark.parametrize("mode", ["sym", "force"])
+@pytest.mark.parametrize("dim", ops.CONV_WIDTHS)
+def test_sym_and_force_plans_fit_the_card(mode, dim):
+    """Kernel 5's and kernel 4's plans fit a block's 227 KB of shared
+    memory and their blocks a SM the SM's 228 KB (1 KB reserved a block);
+    both take 64-row tiles, one m16 tile a warp.  Kernel 5's K chunks
+    cover the 3D columns of its folded W in order, each in one part."""
+    plan = ops.conv_plan(mode, dim, 190_464, 132)
+    assert plan.smem <= 232_448
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= 233_472
+    assert plan.tm == plan.warps * 16 == 64
+    if mode == "force":
+        assert plan.k_chunks == 1
+        assert plan.blocks_per_sm == (3 if dim <= 64 else 1)
+        assert plan.grid == plan.blocks_per_sm * 132
+        return
+    assert plan.blocks_per_sm == 2
+    assert plan.grid == 264
+    kv, ke = min(dim, 32), min(dim, 16)
+    cols = [(0, k, kv) for k in range(0, dim, kv)] \
+        + [(1, dim + k, ke) for k in range(0, dim, ke)] \
+        + [(2, 2 * dim + k, kv) for k in range(0, dim, kv)]
+    assert len(cols) == plan.k_chunks
+    pos = 0
+    for part, k0, width in cols:
+        assert k0 == pos and k0 // dim == part
+        assert (k0 + width - 1) // dim == part  # one part a chunk
+        pos = k0 + width
+    assert pos == 3 * dim
+    # a few rows: no more blocks than 64-row tiles
+    assert ops.conv_plan("sym", dim, 65, 132).grid == 2
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+def test_force_partition_owns_every_row_once(layout):
+    """The force readouts' partition (``conv_chunks`` with their plan):
+    the blocks' bond ranges are in order, disjoint and cover [0,
+    offs[-1]); every atom row with bonds is owned by exactly one block,
+    whole inside its range."""
+    offs = _LAYOUTS[layout](np.random.default_rng(5)).astype(np.int64)
+    n_rows, n_real = offs.shape[0] - 1, int(offs[-1])
+    for grid in (1, 5, 396):
+        plan = ops.conv_plan("force", CONV_D, n_rows, 132)._replace(
+            grid=grid)
+        chunks = ops.conv_chunks(torch.from_numpy(offs), plan)
+        owner = np.full(n_rows, -1)
+        pos = 0
+        for c, (r_lo, r_hi, e_lo, e_hi) in enumerate(chunks):
+            assert e_lo == pos and e_lo <= e_hi
+            pos = e_hi
+            for r in range(r_lo, r_hi):
+                if offs[r + 1] > offs[r]:
+                    assert owner[r] == -1
+                    owner[r] = c
+        assert pos == n_real
+        assert ((owner >= 0) == (np.diff(offs) > 0)).all()
+
+
+@pytest.mark.parametrize("d", [4, 24, 256])
+@pytest.mark.parametrize("kernel", ["sym_msg", "force_readout",
+                                    "force_virial"])
+def test_readout_and_sym_kernels_refuse_widths_they_are_not_built_for(
+        kernel, d):
+    """Widths outside ``CONV_WIDTHS`` raise before any launch in kernel
+    5's and kernel 4's CUDA paths (the wrappers never hand a CUDA tensor
+    to the plain version)."""
+    assert d not in ops.CONV_WIDTHS
+    rng = np.random.default_rng(0)
+    n, rows = 12, 3
+    offs = torch.tensor([0, 5, 5, n], dtype=torch.int32)
+    seg = torch.tensor([0] * 5 + [2] * 7, dtype=torch.int32)
+    mlp = (_normal(rng, d, d), _normal(rng, d), _normal(rng, d, 1),
+           _normal(rng, 1))
+    with pytest.raises(ValueError, match="built for D in"):
+        if kernel == "sym_msg":
+            ops._sym_msg_cuda(
+                _normal(rng, rows, d), _normal(rng, rows, d),
+                _normal(rng, n, d), _normal(rng, rows, d),
+                _normal(rng, 4 * d, 2 * d), _normal(rng, 2 * d),
+                _normal(rng, 2 * d), _normal(rng, 2 * d), seg, seg, seg,
+                torch.tensor([0, 2, 4, 6], dtype=torch.int32))
+        elif kernel == "force_readout":
+            ops._force_readout_cuda(_normal(rng, n, d), _normal(rng, n, 3),
+                                    *mlp, seg, offs, rows)
+        else:
+            ops._force_virial_cuda(_normal(rng, n, d), _normal(rng, n, 3),
+                                   _normal(rng, n), *mlp, seg, seg, offs,
+                                   rows, 2)
+    with pytest.raises(ValueError, match="built for D in"):
+        ops.conv_plan("sym" if kernel == "sym_msg" else "force", d, rows,
+                      132)
+    assert ops.sym_msg.launches == 0
+    assert ops.fused_force_readout.launches == 0
+    assert ops.fused_force_virial_readout.launches == 0
