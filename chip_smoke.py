@@ -29,9 +29,12 @@ PyTorch version:
      values (for the convs: a row longer than a block's chunk, rows
      straddling tiles, no edge at all, a single row, D = 128; for the force
      readouts at every width: a 700-bond row, rows straddling tiles, a
-     crystal with no bonds between two that have them, every row padded;
-     for phase A at every width: 0, 1 and 64 +- 1, 128 +- 1 real rows with
-     self-image pairs; each called twice for equal bits), and batches with
+     crystal with no bonds between two that have them, every row padded,
+     crystal slots permuted and crystals interleaved; for phase A at every
+     width: 0, 1 and 64 +- 1, 128 +- 1 real rows with self-image pairs;
+     for the RBF and Fourier bases at K of 7, 31 and 127: 0, 1, 3, T +- 1
+     and 4 T + 3 rows with zero rows amid them; each called twice for
+     equal bits, the bases also on the batches' inputs), and batches with
      self-image pairs and singleton undirected entries;
   4. backward: the kernel wrappers' backwards (recompute, or a gather for
      the segment sum) against plain autograd through ``kernels.ref`` on
@@ -56,8 +59,9 @@ PyTorch version:
      the paper's baseline); the launch counters must show every kernel of
      each path, losses and gradient norms must be finite, on the first
      batch the loss and every gradient leaf of a kernels' path must agree
-     with its plain path; then the time of a step taken apart and the
-     peak memory;
+     with its plain path; then the time of a step taken apart, the peak
+     memory, and from one traced step the device time of kernel 4b's two
+     kernels (``FAST_FUSED_VIRIAL``) and of the bases (``FAST_PALLAS``);
   8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
@@ -841,6 +845,7 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
             shape={"rows": m, "d_in": d_in, "dim": d2 // 2})
 
     k_rbf, k_four = params["rbf_freqs"].shape[0], cfg.num_fourier
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return [
         seg_case("segment_sum_fwd", a, batch.angle_ij, batch.angle_offsets,
                  n_bonds, real_angles, True),
@@ -855,14 +860,16 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
              plain=ref.fused_rbf_ref,
              args=(dist, params["rbf_freqs"], cfg.r_cut_atom,
                    cfg.envelope_p),
-             source=f"{CSRC}/basis.cu",
+             source=f"{CSRC}/basis.cu", repeat=True,
+             plan=ops.basis_plan("rbf", n_bonds, k_rbf, sms)._asdict(),
              replaces=f"{TPU_DIR}/fused_rbf.py:36",
              flops=16 * n_bonds * k_rbf,
              bytes=f * (n_bonds + k_rbf + n_bonds * k_rbf),
              shape={"bonds": n_bonds, "basis": k_rbf}),
         dict(name="fourier_fwd", primary=True, wrapper=ops.fused_fourier,
              plain=ref.fused_fourier_ref, args=(theta, k_four),
-             source=f"{CSRC}/basis.cu",
+             source=f"{CSRC}/basis.cu", repeat=True,
+             plan=ops.basis_plan("fourier", n_ang, k_four, sms)._asdict(),
              replaces=f"{TPU_DIR}/fused_fourier.py:39",
              flops=3 * n_ang * k_four, bytes=f * (n_ang + n_ang * k_four),
              shape={"angles": n_ang, "basis": k_four}),
@@ -896,7 +903,8 @@ def kernel_phase(cases) -> list[dict]:
             want = plain(*args)
             torch.cuda.synchronize()
             err, tol = check(c["name"], got, want)[:2]
-            if c.get("split") and not _equal(kernel(*args), got):
+            repeat = c.get("split") or c.get("repeat")
+            if repeat and not _equal(kernel(*args), got):
                 raise RuntimeError(f"{c['name']}: two calls on the same "
                                    "inputs differ")
             fns = [lambda: kernel(*args)]
@@ -935,6 +943,9 @@ def kernel_phase(cases) -> list[dict]:
                 lib += f", composition {comp_ms:.4f} ms"
             if c.get("plan"):
                 rows[-1]["plan"] = c["plan"]
+            if c.get("repeat"):
+                rows[-1]["bitwise_repeatable"] = True
+                lib += ", two calls give equal bits"
             if c.get("split"):
                 # the same work as f32 FMAs on the CUDA cores, and the
                 # bitwise repeat checked above
@@ -1134,10 +1145,12 @@ def readout_edge_cases(f, seed: int) -> int:
     versions at every width of ``ops.CONV_WIDTHS`` on layouts at the edges
     of their partition, tiles and crystal sum: one atom row of 700 bonds,
     rows straddling tiles, a crystal with no bonds between two that have
-    them (and an empty crystal slot), every row padded.  Crystals own
-    contiguous atom ranges, as the packer lays them out.  Each runs twice:
-    the two calls must give equal bits.  Returns the number of cases
-    checked."""
+    them (and an empty crystal slot), every row padded; crystals owning
+    contiguous atom ranges in slot order, as the packer lays them out,
+    then in a permuted slot order with an empty slot between, and
+    crystals whose rows interleave (a row's bonds always in its atom's
+    crystal).  Each runs twice: the two calls must give equal bits.
+    Returns the number of cases checked."""
     rng = np.random.default_rng(seed + 3)
     layouts = (  # bonds per atom row, crystal of each row, padded bonds
         ("one row of 700 bonds", [700, 3, 0, 5], [0, 0, 1, 1], 20),
@@ -1145,7 +1158,11 @@ def readout_edge_cases(f, seed: int) -> int:
          [0] * 5 + [1] * 7, 5),
         ("a crystal with no bonds between two",
          [40, 0, 90, 0, 0, 150, 7, 60], [0, 0, 0, 1, 1, 2, 2, 2], 9),
-        ("every row padded", [0] * 6, [0, 0, 1, 1, 2, 2], 40))
+        ("every row padded", [0] * 6, [0, 0, 1, 1, 2, 2], 40),
+        ("crystal slots permuted", rng.integers(0, 90, 40).tolist(),
+         [3] * 12 + [0] * 9 + [2] * 19, 11),
+        ("crystals interleaved", rng.integers(0, 90, 40).tolist(),
+         rng.integers(0, 4, 40).tolist(), 7))
     n = 0
     for label, lens, row_cry, tail in layouts:
         rows, n_real, n_crys = len(lens), sum(lens), 4
@@ -1187,7 +1204,8 @@ def tier_edge_cases(f, ids, csr) -> int:
     255 and 257, an input width that is no multiple of 4, d_in 0, 7, 300
     and 1,000 (several and partial K chunks) at D 8, 32 and 128, and from
     unaligned views (its 4-byte copies); the RBF at
-    r = 0, 1e-9, r_cut and beyond; the Fourier basis at 0 and pi."""
+    r = 0, 1e-9, r_cut and beyond; the Fourier basis at 0 and pi; then
+    both bases at the edges of their tiles (``basis_edge_cases``)."""
     n = 0
     for d in (3, 64):
         for rows, n_edges, n_real in ((1, 10, 10), (7, 40, 0), (7, 50, 31),
@@ -1219,15 +1237,22 @@ def tier_edge_cases(f, ids, csr) -> int:
                  ref.gated_mlp_packed_ref(*args))
     n += 1
     r_cut = 6.0
-    dist = torch.cat([torch.tensor([0.0, 1e-9, r_cut, r_cut + 0.5, 1.0],
-                                   device="cuda"), f(400).abs() * 2.0])
+    # rows 5-8: the padded bonds' 1e-8 and phases f_k xi either side of
+    # 2^-12, where the kernel takes sin(x) = x
+    dist = torch.cat([torch.tensor([0.0, 1e-9, r_cut, r_cut + 0.5, 1.0, 1e-8,
+                                    1e-6, 1.4e-5, 1.6e-5], device="cuda"),
+                      f(400).abs() * 2.0])
     freqs = torch.arange(1, 32, dtype=torch.float32, device="cuda") * math.pi
     freqs = freqs + f(31, scale=0.05)
     got = ops.fused_rbf(dist, freqs, r_cut, 8)
-    _check_close(f"rbf case {n}", got,
-                 ref.fused_rbf_ref(dist, freqs, r_cut, 8))
+    want = ref.fused_rbf_ref(dist, freqs, r_cut, 8)
+    _check_close(f"rbf case {n}", got, want)
     if got[0].any():
         raise RuntimeError("rbf: a padded bond (r = 0) must give exactly 0")
+    tiny = (got[5:9] - want[5:9]).abs() / want[5:9].abs()
+    if not (tiny <= 5e-7).all():
+        raise RuntimeError(f"rbf: rows of tiny phases {tiny.max().item()} "
+                           "from the plain version, relative (4 ulp: 5e-7)")
     n += 1
     for k in (7, 31, 127):
         theta = torch.cat([torch.tensor([0.0, math.pi], device="cuda"),
@@ -1235,6 +1260,48 @@ def tier_edge_cases(f, ids, csr) -> int:
         _check_close(f"fourier case {n}", ops.fused_fourier(theta, k),
                      ref.fused_fourier_ref(theta, k))
         n += 1
+    return n + basis_edge_cases(f)
+
+
+def basis_edge_cases(f) -> int:
+    """The RBF and Fourier kernels against their plain versions at K of 7,
+    31 and 127 on row counts at the edges of their tiles (T of
+    ``ops.basis_plan``): 0, 1, 3, T - 1, T + 1 and 4 T + 3 rows, with zero
+    rows in the middle (padded bonds or angles amid real ones) and at the
+    end.  Each runs twice: the two calls must give equal bits; an RBF row
+    at r = 0 must be exactly 0.  Returns the number of cases checked."""
+    n = 0
+    r_cut = 6.0
+    for kind in ("rbf", "fourier"):
+        for k in (7, 31, 127):
+            tile = ops.basis_plan(kind, 1, k, 132).tile
+            for rows in (0, 1, 3, tile - 1, tile + 1, 4 * tile + 3):
+                x = (f(rows).abs() * 2.0 if kind == "rbf"
+                     else f(rows).abs().clamp(max=math.pi))
+                zero = torch.zeros(rows, dtype=torch.bool, device="cuda")
+                if rows >= 3:
+                    zero[rows // 2:rows // 2 + rows // 8 + 1] = True
+                    zero[-1] = True
+                x = torch.where(zero, 0.0, x)
+                if kind == "rbf":
+                    freqs = torch.arange(1, k + 1, dtype=torch.float32,
+                                         device="cuda") * math.pi \
+                        + f(k, scale=0.05)
+                    args = (x, freqs, r_cut, 8)
+                    wrapper, plain = ops.fused_rbf, ref.fused_rbf_ref
+                else:
+                    args = (x, k)
+                    wrapper, plain = ops.fused_fourier, ref.fused_fourier_ref
+                label = f"{kind}_fwd, K = {k}, {rows} rows"
+                got = wrapper(*args)
+                if not torch.equal(got, wrapper(*args)):
+                    raise RuntimeError(f"{label}: two calls on the same "
+                                       "inputs differ")
+                _check_close(label, got, plain(*args))
+                if kind == "rbf" and got[zero].any():
+                    raise RuntimeError(f"{label}: a padded bond (r = 0) "
+                                       "must give exactly 0")
+                n += 1
     return n
 
 
@@ -1263,11 +1330,12 @@ def serve_breakdown(md, serve) -> dict:
             "h2d_forward_d2h_ms": t_fwd * 1e3}
 
 
-def profile_step(step, out_file: Path) -> dict:
+def profile_step(step, out_file: Path | None, kernels=()) -> dict:
     """Trace one call of ``step`` (an MD step, a training step) with
-    torch.profiler: the device time summed over kernels and copies, and
-    the events that take most of it.  The full table goes to
-    ``out_file``."""
+    torch.profiler: the device time summed over kernels and copies, the
+    events that take most of it and, for each name in ``kernels``, the
+    launches and device time of the kernels whose names contain it.  The
+    full table goes to ``out_file`` where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1282,15 +1350,23 @@ def profile_step(step, out_file: Path) -> dict:
     events = sorted((e for e in averages if e.device_type != DeviceType.CPU
                      and e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
-    out_file.parent.mkdir(parents=True, exist_ok=True)
-    out_file.write_text(averages.table(sort_by="self_device_time_total",
-                                       row_limit=-1))
+    if out_file is not None:
+        out_file.parent.mkdir(parents=True, exist_ok=True)
+        out_file.write_text(averages.table(
+            sort_by="self_device_time_total", row_limit=-1))
+    named = {}
+    for name in kernels:
+        hits = [e for e in events if name in e.key]
+        named[name] = {
+            "count": sum(e.count for e in hits),
+            "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
     return {
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "device_events": sum(e.count for e in events),
         "top": [{"name": e.key[:60], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3}
                 for e in events[:12]],
+        "kernels": named,
     }
 
 
@@ -1420,12 +1496,14 @@ def step_split(tr, batches, n: int) -> dict:
 
 
 def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
-                seed: int, profile: str | None) -> dict:
+                seed: int, profile: str | None, traced=()) -> dict:
     """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals: on a
     kernels' path the plain-path check on the first batch; then 1 warm-up
     step, ``steps`` counted steps of the main path, two steps taken apart
-    and, with ``profile``, one traced step.  ``per_forward`` empty means a
-    path without kernels (``REFERENCE``), which must launch none."""
+    and, with ``profile`` or kernel names in ``traced``, one traced step,
+    in which each of those kernels must show (its device time printed).
+    ``per_forward`` empty means a path without kernels (``REFERENCE``),
+    which must launch none."""
     tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
                        loss=chgnet_mptrj.LOSS)
     tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
@@ -1465,11 +1543,17 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
         "grad_norms": [h["grad_norm"] for h in hist],
         "plain_path": plain, "split": step_split(tr, batches, 2),
     }
-    if profile:
+    if profile or traced:
         prof = row["profile"] = profile_step(
             lambda: tr.train(itertools.islice(batches, 1)),
-            Path(profile) / f"train_step_profile_{name}.txt")
+            Path(profile) / f"train_step_profile_{name}.txt" if profile
+            else None, traced)
         prof["busy_share"] = prof["device_ms"] / row["ms_per_step"]
+        for kernel, t in prof["kernels"].items():
+            if not t["count"]:
+                raise RuntimeError(f"{name}: no {kernel} in the traced step")
+            print(f"traced {name} step: {kernel} {t['count']} launches, "
+                  f"{t['device_ms'] * 1e3:.2f} us on the card", flush=True)
     print(f"train {name}: {row['ms_per_step']:.2f} ms per step "
           f"({row['pack_ms_per_step']:.2f} ms of it packing), "
           f"{row['crystals_per_s']:.1f} crystals/s, {row['atoms_per_s']:.0f} "
@@ -1985,7 +2069,8 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing"):
+    for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing",
+                "basis"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):
@@ -2092,6 +2177,10 @@ def main() -> None:
 
     # 7. train: each path driven with the counters set to 0 just before it
     train_rows = {}
+    # kernels whose device time in a training step is printed from a trace
+    traced = {"FAST_FUSED_VIRIAL": ("crystal_row_sum_kernel",
+                                    "force_split_kernel"),
+              "FAST_PALLAS": ("rbf_kernel", "fourier_kernel")}
     for name, tcfg, steps, per in (
             ("FAST_FUSED", chgnet_mptrj.FAST_FUSED, 5, PER_FORWARD),
             ("FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL, 3,
@@ -2104,7 +2193,8 @@ def main() -> None:
              PER_FORWARD),
             ("REFERENCE", chgnet_mptrj.REFERENCE, 2, {})):
         train_rows[name] = train_phase(name, tcfg, ds, train_caps, steps,
-                                       per, args.seed, args.profile)
+                                       per, args.seed, args.profile,
+                                       traced.get(name, ()))
     for row in rows + tier_rows:
         path = {"fused_force_virial_readout": "FAST_FUSED_VIRIAL",
                 "fused_segment_sum": "FAST_PALLAS",

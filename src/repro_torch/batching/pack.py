@@ -266,6 +266,8 @@ def batch_crystals(
         _validate_arrays(bond_mask, angle_mask, bond_center, angle_ij,
                          bond_offsets, angle_offsets,
                          atom_cap=caps.atoms, bond_cap=caps.bonds)
+        _validate_row_crystals(bond_mask, bond_center, bond_crystal,
+                               bond_offsets)
         _validate_mirror(bond_mask, bond_center, bond_nbr, bond_image,
                          bond_crystal, bond_pair, bond_sign, und_center,
                          und_nbr, und_image, und_crystal, und_mask)
@@ -324,7 +326,8 @@ def validate_layout(batch: CrystalGraphBatch) -> CrystalGraphBatch:
 
     Verifies (a few O(E) numpy passes): masks are contiguous real-prefix
     indicators, real bonds/angles are sorted by their segment key, the
-    CSR row pointers exactly describe the segment runs, and the mirror
+    CSR row pointers exactly describe the segment runs, every real bond
+    of an atom row carries the row's crystal id, and the mirror
     maps of the undirected half-graph store (DESIGN.md §5) exactly
     reconstruct every real directed bond.  Copies the fields to the host,
     so use it on externally produced batches; the pack path validates its
@@ -337,6 +340,8 @@ def validate_layout(batch: CrystalGraphBatch) -> CrystalGraphBatch:
         h["bond_offsets"], h["angle_offsets"],
         atom_cap=batch.atom_cap, bond_cap=batch.bond_cap,
     )
+    _validate_row_crystals(h["bond_mask"], h["bond_center"],
+                           h["bond_crystal"], h["bond_offsets"])
     _validate_mirror(
         h["bond_mask"], h["bond_center"], h["bond_nbr"], h["bond_image"],
         h["bond_crystal"], h["bond_pair"], h["bond_sign"], h["und_center"],
@@ -376,6 +381,19 @@ def _validate_arrays(bond_mask, angle_mask, bond_center, angle_ij,
         expect = np.searchsorted(ids[:n_real], np.arange(offs.shape[0]))
         _check(np.array_equal(offs, expect),
                f"{name}_offsets disagree with sorted {name} segment ids")
+
+
+def _validate_row_crystals(bond_mask, bond_center, bond_crystal,
+                           bond_offsets) -> None:
+    """Every real bond of an atom row carries the crystal of the row's
+    first bond, as a bond lies in its center atom's crystal.  Kernel 4b's
+    per-crystal sum (``fused_force_virial_readout`` on the card) counts a
+    row in that crystal; crystal slots themselves may come in any order.
+    Needs the row pointers ``_validate_arrays`` certifies."""
+    nb = int(bond_mask.sum())
+    first = bond_offsets[bond_center[:nb]]
+    _check(np.array_equal(bond_crystal[:nb], bond_crystal[first]),
+           "an atom row's bonds carry more than one crystal id")
 
 
 def _validate_mirror(bond_mask, bond_center, bond_nbr, bond_image,

@@ -982,40 +982,56 @@ __global__ void __launch_bounds__(CONV_THREADS, ForceShape<D>::BLOCKS)
 }
 
 // crystal_row_sum_kernel (entry virial_crystal_sum): raw[c] = sum of
-// vir[r] over the atom rows r of crystal c, in row order.  The layout it needs, as the packer lays
-// batches out (batching/pack.py): a crystal's atoms are one contiguous
-// range, crystals in slot order, and bonds sorted by center, so every
-// bond of a row lies in its center atom's crystal and bond_crystal is
-// nondecreasing over the real bonds.  Crystal c's bonds are then [b_lo,
-// b_hi), found by two warp searches of cry, and its rows those whose first
-// bond lies there, two more searches of offs; a row without bonds inside
-// that range holds zeros.  One warp per crystal: lane l takes rows r_lo +
-// l, + 32, ... in order, then a butterfly sum, so the order is the same
-// from run to run; a crystal slot with no bonds gets zeros.  The padded
-// tail past offs[-1] is never read.  It takes the place of the TPU
-// kernel's (Bp, 3*128) accumulator carried across its sequential grid.
-__global__ void crystal_row_sum_kernel(
+// vir[r] over the atom rows r of crystal c.  A row with bonds (offs[r] <
+// offs[r + 1]) belongs to cry[offs[r]], the crystal of its first bond; a
+// row without bonds holds zeros and is skipped.  So any order of crystal
+// ids over the rows gives the JAX kernel's sums (_force_virial_kernel adds
+// each bond into its crystal's row through a one-hot of bond_crystal):
+// slots permuted, crystals whose rows interleave, empty slots and bondless
+// crystals (zeros).  The one precondition the JAX kernel does not have:
+// every real bond of a row carries the crystal of the row's first bond,
+// as a bond lies in its center atom's crystal and every producer lays
+// batches out (batching/pack.py validate_layout checks it).  One block of
+// CRYSTAL_THREADS a crystal walks every row: thread t takes rows t, t +
+// 256, ... in row order, then a butterfly sum in each warp and the warp
+// sums in warp order, so the order is the same from run to run and there
+// are no atomics.  Bound: it reads C x A offsets (coalesced) and the
+// crystal id at each row's first bond (a gather), from L2 after the first
+// block: ~0.8 M reads at the train batch (128 crystals x 6,400 rows), and
+// each crystal's own rows of vir once.  The padded tail past offs[-1] is
+// never read.  It takes the place of the TPU kernel's (Bp, 3*128)
+// accumulator carried across its sequential grid.
+constexpr int CRYSTAL_THREADS = 256;
+
+__global__ void __launch_bounds__(CRYSTAL_THREADS) crystal_row_sum_kernel(
     const float* __restrict__ vir, const int* __restrict__ cry,
     const int* __restrict__ offs, float* __restrict__ raw, int n_rows) {
+  __shared__ float warp_part[CRYSTAL_THREADS / 32][9];
   const int c = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int n_real = __ldg(offs + n_rows);
-  const int b_lo = lower_bound_warp(cry, n_real, c, lane);
-  const int b_hi = lower_bound_warp(cry, n_real, c + 1, lane);
-  const int r_lo = lower_bound_warp(offs, n_rows, b_lo, lane);
-  const int r_hi = lower_bound_warp(offs, n_rows, b_hi, lane);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) acc[k] = 0.0f;
-  for (int r = r_lo + lane; r < r_hi; r += 32) {
+  for (int r = threadIdx.x; r < n_rows; r += CRYSTAL_THREADS) {
+    const int first = __ldg(offs + r);
+    if (first < __ldg(offs + r + 1) && __ldg(cry + first) == c) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) acc[k] += vir[(size_t)r * 9 + k];
+      for (int k = 0; k < 9; ++k) acc[k] += vir[(size_t)r * 9 + k];
+    }
   }
 #pragma unroll
   for (int k = 0; k < 9; ++k) acc[k] = warp_sum(acc[k]);
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) raw[(size_t)c * 9 + k] = acc[k];
+    for (int k = 0; k < 9; ++k) warp_part[warp][k] = acc[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < 9) {
+    float s = warp_part[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < CRYSTAL_THREADS / 32; ++w)
+      s += warp_part[w][threadIdx.x];
+    raw[(size_t)c * 9 + threadIdx.x] = s;
   }
 }
 
@@ -1225,8 +1241,9 @@ int force_virial_fwd(const float* e, const float* x_hat, const float* dist,
 int virial_crystal_sum(const float* vir, const int* cry, const int* offs,
                        float* raw, int n_rows, int n_crystals, void* stream) {
   if (n_crystals == 0) return 0;
-  crystal_row_sum_kernel<<<n_crystals, 32, 0, (cudaStream_t)stream>>>(
-      vir, cry, offs, raw, n_rows);
+  crystal_row_sum_kernel<<<n_crystals, CRYSTAL_THREADS, 0,
+                           (cudaStream_t)stream>>>(vir, cry, offs, raw,
+                                                   n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -50,8 +50,8 @@ SIGNATURES = {
         "gated_mlp_fwd": [_P] * 6 + [_I, _I, _I, _P],
     },
     "basis": {
-        "rbf_fwd": [_P] * 3 + [_I, _I, _F, _F, _I, _P],
-        "fourier_fwd": [_P] * 2 + [_I, _I, _P],
+        "rbf_fwd": [_P] * 3 + [_I, _I, _F, _F, _I, _I, _I, _P],
+        "fourier_fwd": [_P] * 2 + [_I, _I, _I, _I, _P],
     },
     "swiglu": {
         "swiglu_fwd": [_P] * 7 + [_I] * 9 + [_P],

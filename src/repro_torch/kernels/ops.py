@@ -816,12 +816,13 @@ def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
     a virial epilogue that sums each atom row's nine partials while
     ``n_ij`` and ``x_hat`` are in shared memory (the (E, 3, 3) products
     never reach device memory), then an ordered per-crystal sum of those
-    rows, each crystal's rows found by searches.  That second step needs
-    the packer's layout: a crystal's atoms are one contiguous range,
-    crystals in slot order, so every bond of an atom row lies in the
-    crystal of its center atom (``bond_crystal[b]`` is
-    ``atom_crystal[bond_center[b]]``) and ``bond_crystal`` is
-    nondecreasing over the real bonds.  ``block_rows`` is accepted and
+    rows, a row counted in the crystal of its first bond.  Crystal ids may
+    come in any order over the rows (slots permuted, crystals
+    interleaved, empty slots).  Precondition, which the JAX kernel does
+    not have: every real bond of an atom row carries the crystal of the
+    row's first bond, as a bond lies in its center atom's crystal
+    (``bond_crystal[b]`` is ``atom_crystal[bond_center[b]]``);
+    ``batching.validate_layout`` checks it.  ``block_rows`` is accepted and
     unused, as in ``fused_force_readout``.  Volume normalization and units
     live in ``core.heads``.  The backward takes both cotangents, the force
     one gathered through ``bond_center`` and the stress one through
@@ -961,15 +962,53 @@ def fused_gated_mlp(x, wc, bc, wg, bg, sc, oc, sg, og, *,
         torch.cat([sc, sg]), torch.cat([oc, og]), chunk=chunk)
 
 
+# Kernels 8 and 9 (csrc/basis.cu): 256-thread blocks, at most 8 an SM
+# (the RBF's 32 registers a thread let 8 stay resident; more blocks hide
+# a tile's barriers better than 4 in a probe on the H100), strided over
+# tiles of rows; the RBF's tile and largest basis, the Fourier basis'
+# shared output tile (floats) and largest tile.  basis.cu holds the same
+# numbers and refuses another tile.
+BASIS_BLOCKS_PER_SM = 8
+RBF_TILE = 128
+RBF_MAX_BASIS = 1024
+FOURIER_TILE_FLOATS = 8192
+FOURIER_MAX_TILE = 256
+
+
+class BasisPlan(NamedTuple):
+    tile: int  # rows a tile, a multiple of 4: 16-byte aligned tile starts
+    grid: int  # persistent blocks
+
+
+def basis_plan(kind: str, n: int, k: int, sms: int) -> BasisPlan:
+    """Launch plan of the RBF (``kind="rbf"``, K basis functions) or the
+    Fourier basis (``"fourier"``, K odd) over ``n`` rows on a card with
+    ``sms`` SMs: the rows a tile (the RBF 128; the Fourier basis the most,
+    a multiple of 4 and at most 256, whose T x K floats fit its shared
+    tile) and a grid of at most ``BASIS_BLOCKS_PER_SM`` blocks an SM."""
+    if kind == "rbf":
+        if not 0 <= k <= RBF_MAX_BASIS:
+            raise ValueError(f"the RBF kernel takes at most {RBF_MAX_BASIS} "
+                             f"basis functions, got {k}")
+        tile = RBF_TILE
+    elif kind == "fourier":  # K odd, at most 127: fused_fourier checks
+        tile = min(FOURIER_MAX_TILE, FOURIER_TILE_FLOATS // k // 4 * 4)
+    else:
+        raise ValueError(f"unknown basis kernel {kind!r}")
+    tiles = -(-n // tile)
+    return BasisPlan(tile, max(1, min(tiles, BASIS_BLOCKS_PER_SM * sms)))
+
+
 def _rbf_cuda(dist, freqs, r_cut, p):
     (n,), (k,) = dist.shape, freqs.shape
     dev = dist.device
     _check("dist", dist, torch.float32, (n,), dev)
     _check("freqs", freqs, torch.float32, (k,), dev)
+    plan = basis_plan("rbf", n, k, _sm_count(dev.index))
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     _launch("basis", "rbf_fwd", dist.data_ptr(), freqs.data_ptr(),
             out.data_ptr(), n, k, float(r_cut), math.sqrt(2.0 / r_cut), p,
-            _stream(dev))
+            plan.tile, plan.grid, _stream(dev))
     fused_rbf.launches += 1
     return out
 
@@ -1004,7 +1043,8 @@ def fused_rbf(dist, freqs, r_cut: float, p: int = 8, *,
 
     Differentiable with respect to the distances and the trainable
     frequencies: the forces/stress autodiff readout and training at
-    ``mlp_impl="pallas"`` both pass through its recompute backward.
+    ``mlp_impl="pallas"`` both pass through its recompute backward.  The
+    kernel takes K up to ``RBF_MAX_BASIS`` and raises above it.
     """
     return _RBF.apply(dist, freqs, r_cut, p, chunk)
 
@@ -1013,9 +1053,10 @@ def _fourier_cuda(theta, num_basis):
     (n,) = theta.shape
     dev = theta.device
     _check("theta", theta, torch.float32, (n,), dev)
+    plan = basis_plan("fourier", n, num_basis, _sm_count(dev.index))
     out = torch.empty((n, num_basis), dtype=torch.float32, device=dev)
     _launch("basis", "fourier_fwd", theta.data_ptr(), out.data_ptr(), n,
-            num_basis, _stream(dev))
+            num_basis, plan.tile, plan.grid, _stream(dev))
     fused_fourier.launches += 1
     return out
 

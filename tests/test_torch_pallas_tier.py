@@ -54,8 +54,18 @@ def _rbf(rng, n, k, n_zero, high=6.0):
 
 def _fourier(rng, n, k):
     theta = rng.uniform(0, np.pi, n).astype(np.float32)
-    theta[:2] = (0.0, np.pi)
+    theta[:2] = (0.0, np.pi)[:n]
     return theta, k
+
+
+def _zero_rows(args, n_mid):
+    """The same inputs with ``n_mid`` rows in the middle and the last row
+    at exactly 0 (padded bonds or angles amid and after the real ones)."""
+    x = args[0].copy()
+    mid = len(x) // 2
+    x[mid:mid + n_mid] = 0.0
+    x[-1] = 0.0
+    return (x,) + args[1:]
 
 
 CASES = {
@@ -77,12 +87,30 @@ CASES = {
     "fourier_7": ("fused_fourier", lambda r: _fourier(r, 40, 7)),
     "fourier_31": ("fused_fourier", lambda r: _fourier(r, 530, 31)),
 }
+# Forward cases at the CUDA kernels' tile edges (ops.basis_plan): row
+# counts of 1, 3 and no multiple of 4 (a ragged last tile), zero rows amid
+# the real ones, the widest Fourier basis.  Their backward is the same
+# recompute as CASES' (no kernel), held there.
+TILE_CASES = {
+    "tile_rbf_31_n1": ("fused_rbf", lambda r: _rbf(r, 1, 31, 0)),
+    "tile_rbf_31_n3": ("fused_rbf", lambda r: _rbf(r, 3, 31, 1)),
+    "tile_rbf_31_zero_rows": (
+        "fused_rbf", lambda r: _zero_rows(_rbf(r, 203, 31, 0), 5)),
+    "tile_fourier_7_n3": ("fused_fourier", lambda r: _fourier(r, 3, 7)),
+    "tile_fourier_31_n1": ("fused_fourier", lambda r: _fourier(r, 1, 31)),
+    "tile_fourier_127_zero_rows": (
+        "fused_fourier", lambda r: _zero_rows(_fourier(r, 203, 127), 5)),
+}
 ORACLES = {"fused_segment_sum": "sorted_segment_sum_ref",
            "fused_gated_mlp_packed": "gated_mlp_packed_ref",
            "fused_rbf": "fused_rbf_ref", "fused_fourier": "fused_fourier_ref"}
 
 
 def _inputs(case):
+    if case in TILE_CASES:
+        name, make = TILE_CASES[case]
+        return name, make(np.random.default_rng(
+            len(CASES) + sorted(TILE_CASES).index(case)))
     name, make = CASES[case]
     return name, make(np.random.default_rng(sorted(CASES).index(case)))
 
@@ -99,7 +127,7 @@ def _call(fn, args, floats, lib):
     return fn(*full)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(TILE_CASES))
 def test_forward_matches_jax(case):
     name, args = _inputs(case)
     tops.reset_launch_counts()
@@ -168,6 +196,91 @@ def test_rbf_is_zero_on_padded_bonds():
     out = tops.fused_rbf(torch.from_numpy(dist), torch.from_numpy(freqs),
                          r_cut, p)
     assert not out[:5].any() and out[5:].abs().sum() > 0
+
+
+def _umulhi(x, m):
+    return (x.astype(np.uint64) * np.uint64(m)) >> np.uint64(32)
+
+
+@pytest.mark.parametrize("d", [2, 3, 7, 15, 31, 63, 127, 1000, 1024])
+def test_multiply_high_divides_exactly(d):
+    """``basis.cu``'s row of a flat index: ``__umulhi(x, m)``, m = (2^32 -
+    1) // d + 1 (``div_magic``), equals x // d for every index a tile of
+    the widest kernel gives (below 2^17)."""
+    m = (2**32 - 1) // d + 1
+    x = np.arange(1 << 17, dtype=np.uint64)
+    assert np.array_equal(_umulhi(x, m), x // d)
+
+
+def _tile_walk(kind, n, k, plan):
+    """Which output element each store of ``basis.cu``'s tile walk writes,
+    as flat indices: the RBF's float4 groups (row and column stepped from
+    the first) and a ragged tail's scalars; the Fourier basis' column 0,
+    its (row, harmonic) pairs into the shared tile (cos at j, sin at L +
+    j) and the tile's copy.  Checks the row and column of every element
+    against its flat index on the way."""
+    t = plan.tile
+    hits = np.zeros(n * k, np.int64)
+    for tile in range(-(-n // t)):
+        row0, rows = tile * t, min(t, n - tile * t)
+        count = rows * k
+        base = row0 * k
+        assert base % 4 == 0  # 16-byte aligned tile start
+        if kind == "rbf":
+            f = 4 * np.arange(count // 4, dtype=np.uint64)
+            r = f.copy() if k == 1 else _umulhi(f, (2**32 - 1) // k + 1)
+            j = f - r * np.uint64(k)
+            for e in range(4):
+                assert np.array_equal(r * np.uint64(k) + j, f + np.uint64(e))
+                assert (r < rows).all() and (j < k).all()
+                np.add.at(hits, base + (f + np.uint64(e)).astype(np.int64), 1)
+                j = j + np.uint64(1)
+                wrap = j == k
+                j[wrap], r[wrap] = 0, r[wrap] + np.uint64(1)
+            tail = np.arange(4 * (count // 4), count)
+            np.add.at(hits, base + tail, 1)
+        else:
+            harm = (k - 1) // 2
+            shared = np.zeros(8192, np.int64)
+            assert rows * k <= shared.size
+            shared[np.arange(rows) * k] += 1
+            q = np.arange(rows * harm, dtype=np.uint64)
+            r = q if harm <= 1 else _umulhi(q, (2**32 - 1) // harm + 1)
+            j = (q - r * np.uint64(harm) + np.uint64(1)).astype(np.int64)
+            r = r.astype(np.int64)
+            assert (r < rows).all() and ((j >= 1) & (j <= harm)).all()
+            np.add.at(shared, r * k + j, 1)
+            np.add.at(shared, r * k + harm + j, 1)
+            assert (shared[:count] == 1).all() and not shared[count:].any()
+            hits[base:base + count] += 1
+    return hits
+
+
+@pytest.mark.parametrize("kind,k", [("rbf", 1), ("rbf", 7), ("rbf", 31),
+                                    ("rbf", 127), ("fourier", 1),
+                                    ("fourier", 3), ("fourier", 7),
+                                    ("fourier", 31), ("fourier", 127)])
+def test_basis_tile_walk_writes_every_output_once(kind, k):
+    """The CUDA RBF and Fourier kernels' walk over ``ops.basis_plan``'s
+    tiles, at the row counts ``chip_smoke.py`` takes to the card (0, 1, 3,
+    T - 1, T + 1, 4 T + 3, and more tiles than the grid's blocks): every
+    output element is written exactly once; the grid is at most 8 blocks
+    an SM and no more than the tiles."""
+    t = tops.basis_plan(kind, 1, k, 132).tile
+    assert t % 4 == 0 and (kind == "rbf" or t * k <= 8192)
+    for n in (0, 1, 3, t - 1, t + 1, 4 * t + 3, 531 * t + 5):
+        plan = tops.basis_plan(kind, n, k, 132)
+        assert plan.tile == t
+        assert 1 <= plan.grid <= max(1, min(-(-n // t), 8 * 132))
+        assert (_tile_walk(kind, n, k, plan) == 1).all()
+
+
+def test_rbf_plan_refuses_more_basis_functions_than_the_kernel_holds():
+    """An RBF wider than the kernel's shared frequencies raises before any
+    launch (the Fourier basis' bound is ``fused_fourier``'s own check)."""
+    assert tops.basis_plan("rbf", 10, 1024, 132).tile == 128
+    with pytest.raises(ValueError, match="1024"):
+        tops.basis_plan("rbf", 10, 1025, 132)
 
 
 def test_fourier_rejects_even_bases():

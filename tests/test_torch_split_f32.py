@@ -15,9 +15,10 @@ and gate and through attention's softmax, within ``1e-5 * max(1,
 max|ref|)``; one TF32 product per f32 product does not meet that bound,
 which is why the kernels split.  The convs and the force readouts are
 emulated as their kernels run them, down to the ordered row sums over the
-launch's partition (and the readout's per-crystal sum), and held to the
-float64 plain versions, the convs for each mirror operand.  The card
-holds the kernels themselves to their plain versions (``chip_smoke.py``).
+launch's partition (and the readout's per-crystal sum, whatever the order
+of the crystal slots), and held to the float64 plain versions, the convs
+for each mirror operand.  The card holds the kernels themselves to their
+plain versions (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -463,14 +464,26 @@ def test_split_sym_msg_matches_float64(d, n_real):
     assert _err(ref.sym_msg_ref(*args[:11])[:n_real], want) <= TOL
 
 
-def _readout_inputs(d: int, seed: int = 0):
-    """A ragged readout batch: 30 atom rows in 4 crystal slots (slot 1
-    holds atoms with no bonds, slot 3 none at all), the rows of a crystal
-    contiguous and bonds sorted by center, as the packer lays them out,
-    then a padded tail."""
+# crystal of each of the 30 atom rows of ``_readout_inputs``: slot 1 holds
+# atoms with no bonds, slot 3 none at all
+_ROW_CRYSTALS = {
+    # the rows of a crystal contiguous, slots in order, as the packer lays
+    # batches out
+    "packed": np.repeat([0, 1, 2], [12, 6, 12]),
+    # the same crystals with their slots permuted: 2, then 1, then 0
+    "permuted": np.repeat([2, 1, 0], [12, 6, 12]),
+    # crystals whose rows interleave
+    "interleaved": np.tile([0, 2, 1, 2, 0, 1], 5),
+}
+
+
+def _readout_inputs(d: int, seed: int = 0, layout: str = "packed"):
+    """A ragged readout batch: 30 atom rows in 4 crystal slots, bonds
+    sorted by center, a row's bonds in its atom's crystal, then a padded
+    tail."""
     rng = np.random.default_rng(seed + d)
     lens = rng.integers(0, 60, 30)
-    row_cry = np.repeat([0, 1, 2], [12, 6, 12])
+    row_cry = _ROW_CRYSTALS[layout]
     lens[row_cry == 1] = 0
     offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     n_real = int(offs[-1])
@@ -490,13 +503,24 @@ def _readout_inputs(d: int, seed: int = 0):
             torch.from_numpy(offs), 30, 4)
 
 
+def _butterfly(x):
+    """Lane 0's result of ``warp_sum`` over the 32 lanes of x (32, ...):
+    x_l += x_{l xor o} for o = 16, 8, 4, 2, 1."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[lanes ^ o]
+    return x[0]
+
+
 def _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offsets, cry,
                       n_crys):
     """Kernel 4 as it runs: h = silu of the split GEMM e W1 + b1, n = h .
     w2 + b2, the contributions n x_hat and n d x_hat ⊗ x_hat, each row's
     bonds summed in f32 in CSR order, row by row of each block of the
-    launch's partition; then each crystal's rows, found by searches of
-    the crystal ids and of the offsets, summed in row order."""
+    launch's partition; then, for each crystal c, 256 threads walk every
+    row, thread t rows t, t + 256, ... in order, summing the rows with
+    bonds whose first bond is in c; a butterfly in each warp, the warps
+    in order."""
     offs = offsets.long()
     n_real = int(offs[-1])
     h = torch.nn.functional.silu(mma_emulated(e[:n_real], w1) + b1)
@@ -514,12 +538,14 @@ def _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offsets, cry,
                 acc = acc + contrib[t]
             rows[r] = acc
     raw = torch.zeros(n_crys, 9)
-    cry_real = cry[:n_real].numpy()
     for c in range(n_crys):
-        b_lo, b_hi = np.searchsorted(cry_real, [c, c + 1], "left")
-        r_lo, r_hi = np.searchsorted(offs.numpy(), [b_lo, b_hi], "left")
-        for r in range(r_lo, r_hi):
-            raw[c] = raw[c] + rows[r, 3:]
+        acc = torch.zeros(256, 9)
+        for r in range(rows.shape[0]):
+            if offs[r] < offs[r + 1] and int(cry[offs[r]]) == c:
+                acc[r % 256] = acc[r % 256] + rows[r, 3:]
+        warps = [_butterfly(acc[w * 32:(w + 1) * 32]) for w in range(8)]
+        for w in warps:
+            raw[c] = raw[c] + w
     return rows[:, :3], raw.reshape(-1, 3, 3)
 
 
@@ -544,6 +570,24 @@ def test_split_force_readouts_match_float64(d):
     plain = ref.fused_force_virial_readout_ref(
         e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms, n_crys)
     assert _err(plain[0], want_f) <= TOL and _err(plain[1], want_raw) <= TOL
+
+
+@pytest.mark.parametrize("layout", ["permuted", "interleaved"])
+def test_split_crystal_sum_takes_any_slot_order(layout):
+    """Kernel 4b emulated on crystal slots out of atom order (permuted,
+    interleaved) against the float64 plain version, which sums bond by
+    bond through ``bond_crystal``: the per-crystal sums do not depend on
+    the order, zeros for the crystal without bonds and the empty slot."""
+    (e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms,
+     n_crys) = _readout_inputs(16, 1, layout)
+    f64 = [t.double() for t in (e, x_hat, dist, w1, b1, w2, b2)]
+    _, raw = _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offs, cry,
+                               n_crys)
+    _, want = ref.fused_force_virial_readout_ref(*f64, seg, cry, offs,
+                                                 n_atoms, n_crys)
+    assert _err(raw, want) <= TOL
+    assert not raw[1].any() and not raw[3].any()
+    assert raw[0].any() and raw[2].any()
 
 
 @pytest.mark.parametrize("mode", ["sym", "force"])

@@ -22,10 +22,12 @@ from repro.core.chgnet import chgnet_init as j_init  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.batching import BatchCapacities as TCaps  # noqa: E402
 from repro_torch.batching import batch_crystals as t_pack  # noqa: E402
+from repro_torch.batching import validate_layout  # noqa: E402
 from repro_torch.configs import chgnet_mptrj as TC  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core import CHGNet, basis, heads, neighbors as tn  # noqa: E402
 from repro_torch.core.chgnet import chgnet_apply, chgnet_init  # noqa: E402
+from repro_torch.core.graph import CrystalGraphBatch  # noqa: E402
 from repro_torch.data import SyntheticConfig, make_dataset  # noqa: E402
 from repro_torch.data.synthetic import _morse_dr  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -35,15 +37,42 @@ SMALL = dict(dim=16, num_blocks=2, num_rbf=7, num_fourier=7)
 TOL = dict(rtol=1e-4, atol=1e-5)  # the model tests' tolerance
 
 
-@pytest.mark.parametrize("a,b_crys,e_rows,n_real", [
+def _row_crystals(rng, layout, a, b_crys):
+    """The crystal of each of ``a`` atom rows: contiguous row ranges in a
+    permuted slot order, crystals whose rows interleave, or contiguous
+    ranges with an empty slot (1) between the others."""
+    if layout == "interleaved":
+        return rng.integers(0, b_crys, a).astype(np.int32)
+    slots = {"permuted": rng.permutation(b_crys),
+             "empty-slot": np.array([2, 0, 1 + b_crys // 2])}[layout]
+    cuts = np.sort(rng.choice(np.arange(1, a), len(slots) - 1,
+                              replace=False))
+    return np.repeat(slots, np.diff(np.concatenate([[0], cuts, [a]]))) \
+        .astype(np.int32)
+
+
+_VIRIAL_CASES = [
     (16, 4, 300, 260),   # padded tail
     (9, 3, 64, 64),      # no padding, unaligned rows
     (8, 2, 32, 0),       # all edges padded
     (14, 1, 180, 150),   # single crystal
-])
-def test_force_virial_matches_jax(a, b_crys, e_rows, n_real):
+]
+
+
+@pytest.mark.parametrize("a,b_crys,e_rows,n_real,layout", [
+    # random crystal ids bond by bond (the plain version takes any ids)
+    pytest.param(*c, "bonds", id="-".join(map(str, c)))
+    for c in _VIRIAL_CASES] + [
+    # a row's bonds in its atom's crystal, as kernel 4b needs on the card,
+    # crystal slots in any order over the rows
+    pytest.param(16, 4, 300, 260, layout, id=layout)
+    for layout in ("permuted", "interleaved", "empty-slot")])
+def test_force_virial_matches_jax(a, b_crys, e_rows, n_real, layout):
     rng = np.random.default_rng(a + n_real)
     args = virial_inputs(rng, a, b_crys, e_rows, 32, n_real)
+    if layout != "bonds":
+        seg, cry = args[7], args[8]
+        cry[:n_real] = _row_crystals(rng, layout, a, b_crys)[seg[:n_real]]
     tops.reset_launch_counts()
     f_t, s_t = tops.fused_force_virial_readout(
         *[torch.from_numpy(x) if isinstance(x, np.ndarray) else x
@@ -58,6 +87,8 @@ def test_force_virial_matches_jax(a, b_crys, e_rows, n_real):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(s_t.numpy(), s_t.numpy().transpose(0, 2, 1),
                                atol=1e-6)
+    if layout == "empty-slot":
+        assert not s_t[1].any()
 
 
 def _crystal(mod, n, seed):
@@ -82,6 +113,47 @@ def packed_pair(sizes=(7, 9), slots=3):
             sum(g.num_angles for g in jg) + 5)
     return (j_pack(jcr, jg, JCaps(*caps), num_crystal_slots=slots),
             t_pack(tcr, tg, TCaps(*caps), num_crystal_slots=slots))
+
+
+def _relabel(batch, perm):
+    """``batch`` with crystal slot c renamed ``perm[c]``, the per-crystal
+    fields moved with it: a valid layout whose slots are not in atom
+    order."""
+    h = batch.numpy()
+    for k in ("atom_crystal", "bond_crystal", "und_crystal"):
+        h[k] = perm[h[k]].astype(np.int32)
+    inv = np.argsort(perm)
+    for k in ("lattice", "crystal_mask", "energy", "stress",
+              "n_atoms_per_crystal"):
+        h[k] = h[k][inv]
+    return CrystalGraphBatch.from_numpy(h)
+
+
+def test_validate_layout_takes_permuted_slots():
+    """Crystal slots in any order over the atom rows are a valid layout
+    (kernel 4b sums a row into its first bond's crystal), and the stress
+    of FAST_FUSED_VIRIAL follows the slots."""
+    _, tb = packed_pair(sizes=(7, 9, 5), slots=4)
+    perm = np.array([2, 0, 3, 1])
+    moved = validate_layout(_relabel(tb, perm))
+    cfg = TC.FAST_FUSED_VIRIAL.with_(**SMALL)
+    params = chgnet_init(0, cfg)
+    want = chgnet_apply(params, cfg, tb)["stress"].detach().numpy()
+    got = chgnet_apply(params, cfg, moved)["stress"].detach().numpy()
+    np.testing.assert_allclose(got[perm], want, **TOL)
+
+
+def test_validate_layout_refuses_a_row_with_two_crystals():
+    """A row whose real bonds carry two crystal ids breaks kernel 4b's
+    precondition: the check names it."""
+    _, tb = packed_pair()
+    h = tb.numpy()
+    offs = h["bond_offsets"]
+    row = int(np.argmax(np.diff(offs) >= 2))
+    h["bond_crystal"][offs[row + 1] - 1] = \
+        (h["bond_crystal"][offs[row]] + 1) % tb.num_crystals
+    with pytest.raises(ValueError, match="more than one crystal"):
+        validate_layout(CrystalGraphBatch.from_numpy(h))
 
 
 @pytest.mark.parametrize("name", ["FAST_FUSED_VIRIAL", "FAST_VIRIAL"])
