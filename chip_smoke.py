@@ -19,8 +19,8 @@ PyTorch version:
      beside theirs: ``index_select`` gathers, the same MLP, the envelope,
      ``torch.segment_reduce``); the wrapper calls as a caller sees them
      and the launches alone (``device_ms``); the split-f32 kernels (the
-     convs, phase A, the force readouts, the GatedMLP and flash attention
-     in f32) also
+     convs, phase A, the force readouts, the GatedMLP, and the fused
+     feed-forward and flash attention in f32) also
      against the bound of three TF32 products at the TF32 peak and the
      f32 FMA bound, and must give equal bits on a second call with the
      same inputs; the convs also with the
@@ -56,12 +56,22 @@ PyTorch version:
      (1 + 3), ``FAST_PALLAS`` (1 + 3), ``WO_HEAD_PALLAS`` (1 + 2: a double
      backward through the wrappers), ``FAST_FUSED_SYM`` (1 + 3),
      ``FAST_FUSED_HALF`` (1 + 2) and ``REFERENCE`` (1 + 2, no kernels:
-     the paper's baseline); the launch counters must show every kernel of
+     the paper's baseline), all at ``capacity_for``; beside them
+     ``FAST_FUSED`` on ``ladder_for``'s buckets fed synchronously (1 + 3)
+     and, through ``Prefetcher(device="cuda")`` (pinned copies on a
+     stream of its own), ``FAST_FUSED`` and ``FAST_FUSED_SYM`` (1 + 5
+     each), the bucket of every counted step reported; the first
+     prefetched batch must equal the synchronous ``.to("cuda")`` batch bit
+     for bit and its step's loss that of the same step fed synchronously,
+     and the prefetcher's packing time, copy time and the steps' wait for
+     it are reported; the launch counters must show every kernel of
      each path, losses and gradient norms must be finite, on the first
      batch the loss and every gradient leaf of a kernels' path must agree
      with its plain path; then the time of a step taken apart, the peak
-     memory, and from one traced step the device time of kernel 4b's two
-     kernels (``FAST_FUSED_VIRIAL``) and of the bases (``FAST_PALLAS``);
+     memory (allocated and reserved), and from one traced step the device
+     time of kernel 4b's two kernels (``FAST_FUSED_VIRIAL``), of the bases
+     (``FAST_PALLAS``) and of ``embedding_dense_backward`` (the fused
+     tiers, at both capacities);
   8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
@@ -78,9 +88,11 @@ PyTorch version:
      agreement reported; both paths timed through ``serve.lm``'s
      ``prefill_step`` / ``decode_step`` in turns (plain, kernels, kernels,
      plain); the feed-forward kernel at the path's shapes (beside the
-     plain path's MLP at the same shapes, ``composition_ms``), in f32, at
-     the edges of its schedule (M = 1, 16, 64, 65, 129, 2,341) and at
-     ragged shapes, and the flash-attention kernel (on no model path: the
+     plain path's MLP at the same shapes, ``composition_ms``), in f32 at
+     full width (M = 4, 16, 128, 256: split f32, beside the plain path's
+     cuBLAS f32 MLP), at the edges of its schedule (M = 1, 16, 64, 65,
+     129, 2,341) and at ragged shapes, and the flash-attention kernel (on
+     no model path: the
      JAX package's prefill runs jnp attention) at (B 4, H 32, S 512, D
      128) and ragged shapes in both dtypes, each against its plain version
      (bf16 at the §4 bound, f32 within 1e-4), kernels and yardsticks timed
@@ -98,6 +110,7 @@ exits nonzero; without CUDA it exits nonzero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -106,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -115,14 +129,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.batching import (  # noqa: E402
     BatchCapacities,
+    CapacityLadder,
     batch_crystals,
     capacity_for,
+    ladder_for,
 )
 from repro_torch.configs import chgnet_mptrj  # noqa: E402
 from repro_torch.core import basis, chgnet, heads  # noqa: E402
 from repro_torch.core.neighbors import Crystal, build_graph  # noqa: E402
+from repro_torch.core.graph import FIELDS  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     BatchIterator,
+    Prefetcher,
     SyntheticConfig,
     generate_crystal,
     make_dataset,
@@ -1330,12 +1348,15 @@ def serve_breakdown(md, serve) -> dict:
             "h2d_forward_d2h_ms": t_fwd * 1e3}
 
 
-def profile_step(step, out_file: Path | None, kernels=()) -> dict:
+def profile_step(step, out_file: Path | None, kernels=(),
+                 aten_ops=()) -> dict:
     """Trace one call of ``step`` (an MD step, a training step) with
     torch.profiler: the device time summed over kernels and copies, the
-    events that take most of it and, for each name in ``kernels``, the
-    launches and device time of the kernels whose names contain it.  The
-    full table goes to ``out_file`` where one is given."""
+    events that take most of it, for each name in ``kernels`` the launches
+    and device time of the kernels whose names contain it and, for each
+    name in ``aten_ops``, the calls and own device time (the kernels they
+    launch) of the ``aten::`` operators whose names contain it.  The full
+    table goes to ``out_file`` where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1360,6 +1381,12 @@ def profile_step(step, out_file: Path | None, kernels=()) -> dict:
         named[name] = {
             "count": sum(e.count for e in hits),
             "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
+    for name in aten_ops:
+        hits = [e for e in averages if e.device_type == DeviceType.CPU
+                and name in e.key]
+        named[name] = {
+            "count": sum(e.count for e in hits),
+            "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
     return {
         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
         "device_events": sum(e.count for e in events),
@@ -1373,8 +1400,8 @@ def profile_step(step, out_file: Path | None, kernels=()) -> dict:
 def _epochs(ds, caps, batch: int, seed: int, log: list | None = None):
     """Endless single-device batches, one ``BatchIterator`` per epoch (the
     sampler's seed repeats the order, as tests/test_trainer_e2e.py does);
-    with ``log``, appends (pack seconds, real crystals, real atoms) of
-    each batch packed."""
+    with ``log``, appends (pack seconds, real crystals, real atoms,
+    (atom, bond, angle) capacities) of each batch packed, in order."""
     while True:
         it = iter(BatchIterator(ds, batch, 1, caps, seed=seed))
         while True:
@@ -1385,7 +1412,8 @@ def _epochs(ds, caps, batch: int, seed: int, log: list | None = None):
             if log is not None:
                 log.append((time.perf_counter() - t0,
                             int(b.crystal_mask.sum()),
-                            int(b.atom_mask.sum())))
+                            int(b.atom_mask.sum()),
+                            (b.atom_cap, b.bond_cap, b.angle_cap)))
             yield b
 
 
@@ -1495,70 +1523,171 @@ def step_split(tr, batches, n: int) -> dict:
     return parts
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms (the per-crystal ``index_add_``
+    sums of the heads otherwise add with atomics, in no fixed order), with
+    warnings only where an operator has none."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def _bucket(caps, shape) -> int | None:
+    """The index of the ladder bucket of (atom, bond, angle) capacities
+    ``shape`` (-1 for an overflow bucket), None for fixed capacities."""
+    if not isinstance(caps, CapacityLadder):
+        return None
+    keys = [(b.atoms, b.bonds, b.angles) for b in caps.buckets]
+    return keys.index(shape) if shape in keys else -1
+
+
+def prefetch_checks(tr, cfg, tcfg, first, batches, seed: int) -> dict:
+    """The first batch through ``Prefetcher(device="cuda")`` against the
+    synchronous ``.to("cuda")`` batch, field for field and bit for bit;
+    then the warm-up step on it, whose loss must equal bit for bit that of
+    the same step of a second ``Trainer`` fed the synchronous batch (both
+    under deterministic algorithms)."""
+    got = next(batches)
+    differ = [k for k in FIELDS if not torch.equal(getattr(got, k),
+                                                   getattr(first, k))]
+    if differ:
+        raise RuntimeError(f"prefetched first batch differs in {differ}")
+    with _deterministic():
+        loss = tr.train([got])[0]["loss"]
+        twin = Trainer(cfg, tcfg, seed=seed, device="cuda")
+        loss_sync = twin.train([first])[0]["loss"]
+    if loss != loss_sync:
+        raise RuntimeError(f"first step's loss {loss!r} through the "
+                           f"prefetcher, {loss_sync!r} fed synchronously")
+    del twin
+    return {"first_batch_bitwise_equal": True, "first_loss": loss,
+            "first_loss_sync": loss_sync}
+
+
 def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
-                seed: int, profile: str | None, traced=()) -> dict:
-    """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals: on a
+                seed: int, profile: str | None, traced=(), aten_ops=(),
+                prefetch: bool = False) -> dict:
+    """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals, at
+    fixed capacities or on a ``CapacityLadder`` (each batch in the smallest
+    bucket that fits; the bucket of each counted step is reported): on a
     kernels' path the plain-path check on the first batch; then 1 warm-up
     step, ``steps`` counted steps of the main path, two steps taken apart
-    and, with ``profile`` or kernel names in ``traced``, one traced step,
-    in which each of those kernels must show (its device time printed).
+    and, with ``profile`` or names in ``traced`` (kernels, each of which
+    must show) or ``aten_ops`` (operators), one traced step.
     ``per_forward`` empty means a path without kernels (``REFERENCE``),
-    which must launch none."""
+    which must launch none.  With ``prefetch`` the batches come through
+    ``Prefetcher(device="cuda")`` (``prefetch_checks`` on the first), and
+    the packing thread's time and the steps' wait for it are reported:
+    the share of packing the thread hides is 1 - wait / (pack + copy)."""
     tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
                        loss=chgnet_mptrj.LOSS)
     tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
-    log = []
-    batches = _epochs(ds, caps, TRAIN_BATCH, seed, log)
-    plain = None
-    if per_forward:
+    log, consumed = [], [0]
+
+    def counted(it):  # log[i] is the i-th batch consumed
+        for b in it:
+            consumed[0] += 1
+            yield b
+
+    source = _epochs(ds, caps, TRAIN_BATCH, seed, log)
+    first = plain = checks = pf = None
+    if per_forward or prefetch:
         first = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps,
-                                        seed=seed)))
-        plain = plain_path_check(tr.params, cfg, first.to("cuda"))
+                                        seed=seed))).to("cuda")
+    if per_forward:
+        plain = plain_path_check(tr.params, cfg, first)
         check_launches(f"{name} plain-path check", plain["launches"],
                        per_forward, 1)
-    tr.train(itertools.islice(batches, 1))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    log.clear()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    hist = tr.train(itertools.islice(batches, steps))
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    check_launches(name, counts, per_forward, steps)
-    for h in hist:
-        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
-            raise RuntimeError(f"{name}: non-finite loss or grad norm {h}")
-    crystals = sum(c for _, c, _ in log)
-    atoms = sum(a for _, _, a in log)
-    row = {
-        "config": name, "batch": TRAIN_BATCH, "steps": steps,
-        "ms_per_step": elapsed / steps * 1e3,
-        "pack_ms_per_step": sum(t for t, _, _ in log) / steps * 1e3,
-        "crystals_per_s": crystals / elapsed, "atoms_per_s": atoms / elapsed,
-        "peak_mem_bytes": peak, "launches": counts,
-        "losses": [h["loss"] for h in hist],
-        "grad_norms": [h["grad_norm"] for h in hist],
-        "plain_path": plain, "split": step_split(tr, batches, 2),
-    }
-    if profile or traced:
-        prof = row["profile"] = profile_step(
-            lambda: tr.train(itertools.islice(batches, 1)),
-            Path(profile) / f"train_step_profile_{name}.txt" if profile
-            else None, traced)
-        prof["busy_share"] = prof["device_ms"] / row["ms_per_step"]
-        for kernel, t in prof["kernels"].items():
-            if not t["count"]:
-                raise RuntimeError(f"{name}: no {kernel} in the traced step")
-            print(f"traced {name} step: {kernel} {t['count']} launches, "
-                  f"{t['device_ms'] * 1e3:.2f} us on the card", flush=True)
+    try:
+        if prefetch:
+            pf = Prefetcher(source, depth=2, device="cuda")
+            batches = counted(iter(pf))
+            checks = prefetch_checks(tr, cfg, tcfg, first, batches, seed)
+        else:
+            batches = counted(source)
+            tr.train(itertools.islice(batches, 1))
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = consumed[0]
+        stats0 = dict(pf.stats) if pf else None
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = tr.train(itertools.islice(batches, steps))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        stats = ({k: pf.stats[k] - stats0[k] for k in stats0} if pf
+                 else None)
+        check_launches(name, counts, per_forward, steps)
+        for h in hist:
+            if not (math.isfinite(h["loss"])
+                    and math.isfinite(h["grad_norm"])):
+                raise RuntimeError(f"{name}: non-finite loss or grad norm "
+                                   f"{h}")
+        steps_log = log[c0:c0 + steps]
+        crystals = sum(e[1] for e in steps_log)
+        atoms = sum(e[2] for e in steps_log)
+        row = {
+            "config": name, "batch": TRAIN_BATCH, "steps": steps,
+            "ms_per_step": elapsed / steps * 1e3,
+            "pack_ms_per_step": sum(e[0] for e in steps_log) / steps * 1e3,
+            "crystals_per_s": crystals / elapsed,
+            "atoms_per_s": atoms / elapsed,
+            "peak_mem_bytes": peak, "peak_reserved_bytes": peak_reserved,
+            "launches": counts,
+            "caps_per_step": [e[3] for e in steps_log],
+            "bucket_per_step": [_bucket(caps, e[3]) for e in steps_log],
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "plain_path": plain, "split": step_split(tr, batches, 2),
+        }
+        if pf:
+            # packing on the worker over the counted steps (the log's times
+            # are those of each batch's making, which ran ahead of them)
+            row["pack_ms_per_step"] = stats["source_s"] / steps * 1e3
+            work = stats["source_s"] + stats["copy_s"]
+            row["prefetch"] = dict(
+                checks, depth=2,
+                pack_ms_per_step=stats["source_s"] / steps * 1e3,
+                copy_ms_per_step=stats["copy_s"] / steps * 1e3,
+                wait_ms_per_step=stats["wait_s"] / steps * 1e3,
+                hidden_share=1 - stats["wait_s"] / work if work else None)
+        if profile or traced or aten_ops:
+            prof = row["profile"] = profile_step(
+                lambda: tr.train(itertools.islice(batches, 1)),
+                Path(profile) / f"train_step_profile_{name}.txt" if profile
+                else None, traced, aten_ops)
+            prof["busy_share"] = prof["device_ms"] / row["ms_per_step"]
+            for kernel, t in prof["kernels"].items():
+                if kernel in traced and not t["count"]:
+                    raise RuntimeError(f"{name}: no {kernel} in the traced "
+                                       "step")
+                print(f"traced {name} step: {kernel} {t['count']} launches, "
+                      f"{t['device_ms'] * 1e3:.2f} us on the card",
+                      flush=True)
+            print(f"traced {name} step: {prof['device_ms']:.2f} device ms "
+                  f"in {prof['device_events']} events, busy share "
+                  f"{prof['busy_share']:.2f}", flush=True)
+    finally:
+        if pf:
+            pf.close()
     print(f"train {name}: {row['ms_per_step']:.2f} ms per step "
           f"({row['pack_ms_per_step']:.2f} ms of it packing), "
           f"{row['crystals_per_s']:.1f} crystals/s, {row['atoms_per_s']:.0f} "
-          f"atoms/s, peak {peak / 2**20:.1f} MiB, launches {counts}, losses "
-          f"{row['losses']}; plain path {plain}; split {row['split']}",
+          f"atoms/s, peak {peak / 2**20:.1f} MiB (reserved "
+          f"{peak_reserved / 2**20:.1f}), buckets {row['bucket_per_step']}, "
+          f"launches {counts}, losses {row['losses']}; plain path {plain}; "
+          f"prefetch {row.get('prefetch')}; split {row['split']}",
           flush=True)
     del tr
     torch.cuda.empty_cache()
@@ -1726,21 +1855,23 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
     M D F flops and its operands read and output written once;
     attention's 4 D flops per unmasked (q, k) pair (q k and p v), q, k, v
     read and out written once.  Peak rate by the operand type: bf16 on the
-    tensor cores; f32 on the CUDA cores for kernel 10 and, for kernel 11's
-    split f32, three TF32 products per product (``kernel_phase``)."""
+    tensor cores; f32, for both kernels' split f32, three TF32 products
+    per product (``kernel_phase``), the f32 FMA bound beside it.  The f32
+    feed-forward also at full width at M 4, 16 and 256, each beside the
+    plain path's cuBLAS f32 MLP."""
     cases = []
     src10 = f"{CSRC}/swiglu.cu"
     src11 = f"{CSRC}/flash_attention.cu"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def swiglu(name, m, weights, act, dtype, path=None):
+    def swiglu(name, m, weights, act, dtype, path=None, yardstick=False):
         wg, wu, wd = weights
         d, f = wg.shape
         x = _rand(gen, (m, d), dtype)
         size = x.element_size()
         bf16 = dtype == torch.bfloat16
         composition = None
-        if path:
+        if path or yardstick:
             def composition(x=x, p={"wg": wg, "wu": wu, "wd": wd}, act=act):
                 return layers.gated_mlp_apply(p, x, act, use_pallas=False)
         cases.append(dict(
@@ -1748,7 +1879,7 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
             wrapper=lambda *a, act=act: ops.fused_swiglu(*a, activation=act),
             plain=lambda *a, act=act: ref.fused_swiglu_ref(*a, act),
             args=(x, wg, wu, wd), source=src10, composition=composition,
-            replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49",
+            replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49", split=not bf16,
             check=_check_bf16 if bf16 else _check_close,
             peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
             flops=6 * m * d * f, bytes=size * (2 * m * d + 3 * d * f),
@@ -1766,8 +1897,14 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
            torch.bfloat16, "prefill")
     swiglu("swiglu_fwd decode", LM_BATCH, full, "silu", torch.bfloat16,
            "decode")
-    swiglu("swiglu_fwd f32", 128, tuple(w.float() for w in full), "silu",
-           torch.float32)
+    # f32 in split f32 at full width, beside the plain path's cuBLAS f32
+    # MLP: M 128, decode (4, 16) and the f32 check's prefill (2 x 128)
+    full32 = tuple(w.float() for w in full)
+    swiglu("swiglu_fwd f32", 128, full32, "silu", torch.float32,
+           yardstick=True)
+    for m in (4, 16, 256):
+        swiglu(f"swiglu_fwd f32 M={m}", m, full32, "silu", torch.float32,
+               yardstick=True)
     for m in (1, 16, 64, 65, 129, 2341):
         swiglu(f"swiglu_fwd M={m}", m, full, "silu", torch.bfloat16)
     swiglu("swiglu_fwd ragged", 37, small(512, 1000, torch.bfloat16),
@@ -1913,12 +2050,14 @@ def lm_f32_check(seed: int) -> dict:
     ops.reset_launch_counts()
     got, _ = lm_forced_run(cfg, params, tokens, 4, 160, True, forced=fed,
                            cache_dtype=torch.float32)
-    check_launches("lm f32", ops.launch_counts(), {"fused_swiglu": 2}, 5)
+    counts = ops.launch_counts()
+    check_launches("lm f32", counts, {"fused_swiglu": 2}, 5)
     errs = [_check_close(f"lm f32 step {i}", g, p)
             for i, (g, p) in enumerate(zip(got, plain))]
     row = {"layers": 2, "prompts": 2, "prompt_len": 128, "decode_steps": 4,
            "max_abs_err": max(e for e, _ in errs),
-           "tolerance": min(t for _, t in errs)}
+           "tolerance": min(t for _, t in errs),
+           "launches": counts["fused_swiglu"]}
     print(f"lm f32 check ({LM_ARCH}, 2 layers, full width): logits of the "
           f"kernels' path within {row['max_abs_err']:.3e} of the plain "
           f"path's (tolerance {row['tolerance']:.3e})", flush=True)
@@ -2020,12 +2159,18 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
                            }.get(c.get("path"), 0)
         row["on_main_path"] = c["counter"] == "fused_swiglu"
     primary = [r for r in krows if r["name"] in (
-        "swiglu_fwd prefill", "swiglu_fwd decode",
+        "swiglu_fwd prefill", "swiglu_fwd decode", "swiglu_fwd f32",
         "flash_attention_fwd causal", "flash_attention_fwd",
         "flash_attention_fwd causal f32", "flash_attention_fwd f32")]
     del params, cases
     torch.cuda.empty_cache()
     f32 = lm_f32_check(seed)
+    # kernel 10's f32 path runs on the f32 check's path (2 layers, a
+    # prefill and 4 decode steps)
+    for row in krows:
+        if row["wrapper"] == "fused_swiglu" and row["shape"]["dtype"] == \
+                "float32":
+            row["launches"] = f32["launches"]
     row = {
         "arch": LM_ARCH, "parameters": n_params, "dtype": "bfloat16",
         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "max_len": LM_MAX_LEN,
@@ -2114,10 +2259,12 @@ def main() -> None:
     t0 = time.perf_counter()
     ds = make_dataset(SyntheticConfig())
     train_caps = capacity_for(ds, TRAIN_BATCH)
+    train_ladder = ladder_for(ds, TRAIN_BATCH)
     train_b0 = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, train_caps,
                                        seed=args.seed))).to("cuda")
     print(f"dataset: {len(ds)} crystals, {time.perf_counter() - t0:.2f} s; "
-          f"capacities {train_caps}", flush=True)
+          f"capacities {train_caps}; ladder {train_ladder.buckets}",
+          flush=True)
 
     # 3. kernels, on the first training batch and on the largest serving
     # group's batch
@@ -2175,26 +2322,42 @@ def main() -> None:
     # the undirected store against the directed one: the same function
     half_vs_fused = half_equals_fused_phase(args.seed, train_b0)
 
-    # 7. train: each path driven with the counters set to 0 just before it
+    # 7. train: each path driven with the counters set to 0 just before it;
+    # at capacity_for, and beside FAST_FUSED and FAST_FUSED_SYM the same
+    # on the ladder, fed synchronously ("ladder") and through the
+    # Prefetcher ("prefetch")
     train_rows = {}
     # kernels whose device time in a training step is printed from a trace
     traced = {"FAST_FUSED_VIRIAL": ("crystal_row_sum_kernel",
                                     "force_split_kernel"),
               "FAST_PALLAS": ("rbf_kernel", "fourier_kernel")}
-    for name, tcfg, steps, per in (
-            ("FAST_FUSED", chgnet_mptrj.FAST_FUSED, 5, PER_FORWARD),
-            ("FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL, 3,
-             PER_FORWARD_VIRIAL),
-            ("FAST_PALLAS", FAST_PALLAS, 3, PER_FORWARD_PALLAS),
-            ("WO_HEAD_PALLAS", WO_HEAD_PALLAS, 2, PER_FORWARD_WO_HEAD),
-            ("FAST_FUSED_SYM", chgnet_mptrj.FAST_FUSED_SYM, 3,
-             PER_FORWARD_SYM),
-            ("FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, 2,
-             PER_FORWARD),
-            ("REFERENCE", chgnet_mptrj.REFERENCE, 2, {})):
-        train_rows[name] = train_phase(name, tcfg, ds, train_caps, steps,
-                                       per, args.seed, args.profile,
-                                       traced.get(name, ()))
+    # operators whose device time in a training step is printed: the
+    # gathers' backward over the padded rows
+    padded = ("embedding_dense_backward",)
+    fused, sym = chgnet_mptrj.FAST_FUSED, chgnet_mptrj.FAST_FUSED_SYM
+    for name, tcfg, caps, steps, per, prefetch in (
+            ("FAST_FUSED", fused, train_caps, 5, PER_FORWARD, False),
+            ("FAST_FUSED ladder", fused, train_ladder, 3, PER_FORWARD,
+             False),
+            ("FAST_FUSED prefetch", fused, train_ladder, 5, PER_FORWARD,
+             True),
+            ("FAST_FUSED_VIRIAL", chgnet_mptrj.FAST_FUSED_VIRIAL,
+             train_caps, 3, PER_FORWARD_VIRIAL, False),
+            ("FAST_PALLAS", FAST_PALLAS, train_caps, 3, PER_FORWARD_PALLAS,
+             False),
+            ("WO_HEAD_PALLAS", WO_HEAD_PALLAS, train_caps, 2,
+             PER_FORWARD_WO_HEAD, False),
+            ("FAST_FUSED_SYM", sym, train_caps, 3, PER_FORWARD_SYM, False),
+            ("FAST_FUSED_SYM prefetch", sym, train_ladder, 5,
+             PER_FORWARD_SYM, True),
+            ("FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, train_caps, 2,
+             PER_FORWARD, False),
+            ("REFERENCE", chgnet_mptrj.REFERENCE, train_caps, 2, {},
+             False)):
+        train_rows[name] = train_phase(
+            name, tcfg, ds, caps, steps, per, args.seed, args.profile,
+            traced.get(name, ()),
+            padded if tcfg in (fused, sym) else (), prefetch)
     for row in rows + tier_rows:
         path = {"fused_force_virial_readout": "FAST_FUSED_VIRIAL",
                 "fused_segment_sum": "FAST_PALLAS",
@@ -2218,7 +2381,8 @@ def main() -> None:
         train_rows, FUSED_MLP_PALLAS=fused_mlp,
         FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
         learns=learns, kernel_extra_shapes=extra,
-        dataset={"crystals": len(ds), "caps": vars(train_caps)})}))
+        dataset={"crystals": len(ds), "caps": vars(train_caps),
+                 "ladder": [vars(b) for b in train_ladder.buckets]})}))
     # 10. the LM: every CHGNet phase's state is gone; return its cache
     torch.cuda.empty_cache()
     lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)

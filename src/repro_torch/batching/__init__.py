@@ -5,6 +5,7 @@ from .capacity import (
     CapacityLadder,
     capacity_for,
     capacity_from_stats,
+    ladder_for,
     ladder_from_stats,
 )
 from .engine import BatchingEngine, StepCache
@@ -12,7 +13,7 @@ from .pack import atom_offsets, batch_crystals, padding_waste, validate_layout
 
 __all__ = [
     "BatchCapacities", "CapacityLadder", "capacity_for",
-    "capacity_from_stats", "ladder_from_stats",
+    "capacity_from_stats", "ladder_for", "ladder_from_stats",
     "BatchingEngine", "StepCache",
     "atom_offsets", "batch_crystals", "padding_waste", "validate_layout",
 ]

@@ -232,3 +232,21 @@ def ladder_from_stats(
                 continue
         kept.append(b)
     return CapacityLadder(buckets=tuple(kept), align=align)
+
+
+def ladder_for(
+    ds,
+    per_device_batch: int,
+    *,
+    num_buckets: int = 4,
+    margin: float = 1.3,
+    align: int = 64,
+) -> CapacityLadder:
+    """Bucket ladder sized from dataset statistics (see ``ladder_from_stats``)."""
+    atoms = np.array([c.num_atoms for c in ds.crystals])
+    bonds = np.array([g.num_bonds for g in ds.graphs])
+    angles = np.array([g.num_angles for g in ds.graphs])
+    return ladder_from_stats(
+        atoms, bonds, angles, per_device_batch,
+        num_buckets=num_buckets, margin=margin, align=align,
+    )

@@ -13,7 +13,8 @@ fields), with the same padding and sorted-segment conventions:
 Ids stay int32, as the packer emits them; torch ops that need int64
 indices cast at the use site.  Host-side packing lives in
 ``repro_torch.batching``; a batch is built on the CPU and moved to the
-card with ``.to(device)``.
+card with ``.to(device)`` (or ``.pin_memory().to(device, non_blocking=
+True)``, as ``data.Prefetcher`` does).
 """
 from __future__ import annotations
 
@@ -94,9 +95,25 @@ class CrystalGraphBatch:
         return cls(**{k: torch.from_numpy(np.ascontiguousarray(mapping[k]))
                       for k in FIELDS})
 
-    def to(self, device) -> "CrystalGraphBatch":
-        return CrystalGraphBatch(**{k: getattr(self, k).to(device)
+    def to(self, device, non_blocking: bool = False) -> "CrystalGraphBatch":
+        """Every field on ``device``; ``non_blocking`` copies from pinned
+        host memory run asynchronously on the current stream."""
+        return CrystalGraphBatch(**{
+            k: getattr(self, k).to(device, non_blocking=non_blocking)
+            for k in FIELDS})
+
+    def pin_memory(self) -> "CrystalGraphBatch":
+        """A copy of this CPU batch in page-locked host memory, the source
+        of asynchronous copies to the card (needs CUDA)."""
+        return CrystalGraphBatch(**{k: getattr(self, k).pin_memory()
                                     for k in FIELDS})
+
+    def record_stream(self, stream) -> None:
+        """Mark every field's memory as in use on ``stream`` (CUDA batches
+        made on another stream), so that the caching allocator does not
+        hand it out again before ``stream``'s work on it is done."""
+        for k in FIELDS:
+            getattr(self, k).record_stream(stream)
 
     def numpy(self) -> dict[str, np.ndarray]:
         """Host copies of every field, keyed by name."""

@@ -57,9 +57,43 @@
 // with st.shared and fences it to the async proxy (cp.async needs rows
 // aligned to its copy size, which such shapes do not have).
 //
-// f32: the same two-kernel structure with an FMA mainloop on the CUDA
-// cores (no TF32: the f32 tier is held to 1e-4 of its plain version),
-// 64 x 128 tiles staged through a 3-stage cp.async ring.
+// f32: the same two-kernel structure on the tensor cores in split f32
+// (3xTF32, hopper.cuh: each operand split into TF32 hi and lo parts, a_lo
+// b_hi + a_hi b_lo + a_hi b_hi per k8 step, small products first, f32
+// accumulators), as kernel 7 and kernel 11's f32 path run; one TF32
+// product alone would miss the f32 tier's 1e-4 bound.  Bound at M = 128,
+// D = 4096, F = 14336: 6 M D F = 45.1 GFLOP, issued three times, 0.27 ms
+// at 495 TFLOP/s TF32 (0.67 ms as f32 FMAs); the weights' 705 MB take
+// 0.21 ms at 3.35 TB/s, so decode (M <= 16) is bound by bytes.
+//  - mma.sync m16n8k8 on tiles staged by a cp.async ring (16-byte copies
+//    where rows are 16-byte aligned, 4-byte ones element by element
+//    otherwise, so both stay in the ring).  Wide plan: 8 warps as 4 x 2
+//    on 128-row tiles, gate/up 64 columns of each weight (224 blocks at F
+//    = 14336, more than the 132 SMs), down 128 columns with split-K into
+//    at most two waves, 3 stages of K 64; narrow plan (M <= 16): 4 warps
+//    side by side on 16-row tiles, 64 columns, 4 stages of K 32, so that
+//    224 gate/up and 256 down blocks, two an SM, stream the weights.
+//  - Both operands are split at fragment load, in registers.  An element
+//    of x or h is split by the 2 warps that share its rows, a weight
+//    element by the 4 that share its columns (1 in the narrow plan): at
+//    4 instructions a split that is about 2 instructions per mma.sync,
+//    fewer than the tensor pipe leaves idle.  Splitting once a stage into
+//    shared memory would double each stage and the fragment loads.
+//  - Fragment order as in gated_mlp.cu: k = t / t + 4 are A columns 2t /
+//    2t + 1 (one 8-byte load) and B rows 2t / 2t + 1.  A row strides of
+//    40 words (= 8 mod 32) and B row strides of 68 / 132 (= 4 mod 32)
+//    make both fragment loads free of bank conflicts.
+//  - The tensor cores add each mma.sync's products into its accumulator
+//    rounding toward zero, so one accumulator carried over K = 14336
+//    (5,376 additions into it) drifts by ~1e-4 of the result: the first
+//    version of this kernel came near the f32 tier's bound on the card,
+//    and the CPU model in tests/test_torch_split_f32.py gives 1.3e-4.
+//    Each ring stage's products (12 or 24 an accumulator) therefore start
+//    from zero and are added into the f32 sum once a stage, rounding to
+//    nearest (3.8e-6 at M = 128 on the H100).
+//  - The gate/up epilogue computes h = act(g) u on the accumulators (g
+//    and u share one fragment layout) and stores h in f32; the down
+//    product stores once, or writes f32 partials for swiglu_split_sum.
 //
 // Any M, D, F >= 1: rows, columns and K past the edge load as zeros (TMA's
 // out-of-bounds fill or the producers' masks) and are masked on store.
@@ -288,23 +322,35 @@ __global__ void __launch_bounds__(128 * (WG + 1), WG == 1 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA GEMM on the CUDA cores
+// f32: split-f32 (3xTF32) GEMM on mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int FM = 64, FN = 128, FK = 16, F_THREADS = 256, F_STAGES = 3;
-constexpr int FA_LD = FK + 4, FB_LD = FN + 4;  // 16 bytes of row padding
+// Tile shape of one instantiation: WM x WN warps, each owning MT m16 tiles
+// by NT n8 tiles of every B operand (NB = 2 for the gate/up pair); a ring
+// of STAGES stages of SK (32 or 64) K each.
+template <int MT, int NT, int WM, int WN, bool DUAL, int SK_, int STAGES_>
+struct SplitShape {
+  static constexpr int NB = DUAL ? 2 : 1, SK = SK_, STAGES = STAGES_;
+  static constexpr int BM = WM * 16 * MT, BN = WN * 8 * NT;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int LDA = SK + 8;  // A rows: stride = 8 (mod 32) words
+  static constexpr int LDB = BN + 4;  // B rows: stride = 4 (mod 32) words
+  // a stage: A (BM, LDA), then NB B tiles (SK, LDB)
+  static constexpr int STAGE = BM * LDA + NB * SK * LDB;  // floats
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;
+};
 
 // the (ROWS, COLS) tile at (r0, c0) of a row-major (nrows, ncols) f32
-// matrix into shared memory with row stride ld; zeros outside the matrix
-// and at or past column `c_end`.  vec: 16-byte cp.async (ncols % 4 == 0,
-// 16-byte aligned base), else element by element.
-template <int ROWS, int COLS>
+// matrix into shared memory with row stride ld, zeros outside the matrix;
+// vec: 16-byte cp.async (ncols % 4 == 0, 16-byte aligned base), else
+// 4-byte cp.async, so that both stay in the ring.
+template <int ROWS, int COLS, int THREADS>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           int nrows, int ncols, int r0,
                                           int c0, bool vec) {
   if (vec) {
     constexpr int VPR = COLS / 4;
-    for (int i = threadIdx.x; i < ROWS * VPR; i += F_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
       const int r = i / VPR, c = (i - r * VPR) * 4;
       const int gr = r0 + r, gc = c0 + c;
       const bool in = gr < nrows && gc < ncols;
@@ -312,105 +358,159 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                  in);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * COLS; i += F_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
       const int r = i / COLS, c = i - r * COLS;
       const int gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] =
-          gr < nrows && gc < ncols ? src[(size_t)gr * ncols + gc] : 0.0f;
+      const bool in = gr < nrows && gc < ncols;
+      cp_async4(dst + r * ld + c, in ? src + (size_t)gr * ncols + gc : src,
+                in);
     }
   }
 }
 
-// Thread (ty = warp, tx = lane) owns rows [8 ty, +8) and columns [4 tx,
-// +4) of the 64 x 128 tile.  K runs over [z k_split, min(k, +k_split)).
-template <bool DUAL>
-__global__ void __launch_bounds__(F_THREADS)
-    fma_gemm(const Gemm p, bool vec) {
-  constexpr int NB = DUAL ? 2 : 1;
-  constexpr int STAGE = FM * FA_LD + NB * FK * FB_LD;
-  extern __shared__ __align__(16) float fsm[];
+// Block (x, y, z) owns rows [x BM, +BM), columns [y BN, +BN) and K [z
+// k_split, +k_split).  Warp w owns rows [(w % WM) 16 MT, +16 MT) and
+// columns [(w / WM) 8 NT, +8 NT) of the tile.  Fragment order (as in
+// gated_mlp.cu): k = t / t + 4 of each k8 step are A columns 2t / 2t + 1
+// (one 8-byte load) and B rows 2t / 2t + 1.
+template <int MT, int NT, int WM, int WN, bool DUAL, int SK_, int STAGES_>
+__global__ void __launch_bounds__(
+    SplitShape<MT, NT, WM, WN, DUAL, SK_, STAGES_>::THREADS)
+    split_gemm(const Gemm p, bool vec) {
+  using S = SplitShape<MT, NT, WM, WN, DUAL, SK_, STAGES_>;
+  constexpr int NB = S::NB, BM = S::BM, BN = S::BN, LDB = S::LDB;
+  constexpr int SK = S::SK, S_STAGES = S::STAGES, SA_LD = S::LDA;
+  extern __shared__ __align__(16) float ssm[];
   const float* a = static_cast<const float*>(p.a);
-  const float* b0 = static_cast<const float*>(p.b0);
-  const float* b1 = static_cast<const float*>(p.b1);
-  const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
+  const float* b[2] = {static_cast<const float*>(p.b0),
+                       static_cast<const float*>(p.b1)};
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int k_begin = blockIdx.z * p.k_split;
   const int k_end = min(p.k, k_begin + p.k_split);
-  const int steps = (k_end - k_begin + FK - 1) / FK;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int steps = (k_end - k_begin + SK - 1) / SK;
 
+  // columns of A and rows of B past k_end are never reached: k_end is k
+  // (zero fill past it) or a multiple of SK
   auto issue = [&](int s) {
     if (s < steps) {
-      float* slot = fsm + (s % F_STAGES) * STAGE;
-      const int k0 = k_begin + s * FK;
-      // columns of A and rows of B past k_end are never reached: k_end is
-      // k or a multiple of FK
-      load_tile<FM, FK>(slot, FA_LD, a, p.m, p.k, m0, k0, vec);
-      load_tile<FK, FN>(slot + FM * FA_LD, FB_LD, b0, p.k, p.n, k0, n0, vec);
-      if constexpr (DUAL)
-        load_tile<FK, FN>(slot + FM * FA_LD + FK * FB_LD, FB_LD, b1, p.k, p.n,
-                          k0, n0, vec);
+      float* slot = ssm + (s % S_STAGES) * S::STAGE;
+      const int k0 = k_begin + s * SK;
+      load_tile<BM, SK, S::THREADS>(slot, SA_LD, a, p.m, p.k, m0, k0, vec);
+#pragma unroll
+      for (int o = 0; o < NB; ++o)
+        load_tile<SK, BN, S::THREADS>(slot + BM * SA_LD + o * SK * LDB, LDB,
+                                      b[o], p.k, p.n, k0, n0, vec);
     }
+    // one group per stage, empty past the end, so the wait counts hold
     cp_async_commit();
   };
 
-  float c0[8][4], c1[DUAL ? 8 : 1][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp % WM) * 16 * MT, wc = (warp / WM) * 8 * NT;
+  float acc[NB][MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int o = 0; o < NB; ++o)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      c0[i][j] = 0.0f;
-      if constexpr (DUAL) c1[i][j] = 0.0f;
-    }
-  for (int s = 0; s < F_STAGES - 1; ++s) issue(s);
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][i][j][e] = 0.0f;
+
+  for (int s = 0; s < S_STAGES - 1; ++s) issue(s);
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<F_STAGES - 2>();
+    cp_async_wait<S_STAGES - 2>();
+    // stage s is visible to every warp, and every warp is done with stage
+    // s - 1, whose slot the issue below refills
     __syncthreads();
-    issue(s + F_STAGES - 1);
-    const float* xs = fsm + (s % F_STAGES) * STAGE;
-    const float* bs0 = xs + FM * FA_LD;
-    const float* bs1 = bs0 + FK * FB_LD;
-#pragma unroll 4
-    for (int k = 0; k < FK; ++k) {
-      float av[8];
+    issue(s + S_STAGES - 1);
+    const float* as = ssm + (s % S_STAGES) * S::STAGE + (wr + g) * SA_LD +
+                      2 * t;
+    const float* bs = ssm + (s % S_STAGES) * S::STAGE + BM * SA_LD +
+                      2 * t * LDB + wc + g;
+    // this stage's products sum into fresh accumulators, added into acc
+    // once a stage (see the header: the tensor cores round toward zero)
+    float part[NB][MT][NT][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = xs[(ty * 8 + i) * FA_LD + k];
-      const float4 g = *reinterpret_cast<const float4*>(bs0 + k * FB_LD +
-                                                        tx * 4);
-      float4 u = g;
-      if constexpr (DUAL)
-        u = *reinterpret_cast<const float4*>(bs1 + k * FB_LD + tx * 4);
+    for (int o = 0; o < NB; ++o)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        c0[i][0] = fmaf(av[i], g.x, c0[i][0]);
-        c0[i][1] = fmaf(av[i], g.y, c0[i][1]);
-        c0[i][2] = fmaf(av[i], g.z, c0[i][2]);
-        c0[i][3] = fmaf(av[i], g.w, c0[i][3]);
-        if constexpr (DUAL) {
-          c1[i][0] = fmaf(av[i], u.x, c1[i][0]);
-          c1[i][1] = fmaf(av[i], u.y, c1[i][1]);
-          c1[i][2] = fmaf(av[i], u.z, c1[i][2]);
-          c1[i][3] = fmaf(av[i], u.w, c1[i][3]);
-        }
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[o][i][j][e] = 0.0f;
+#pragma unroll
+    for (int k8 = 0; k8 < SK / 8; ++k8) {
+      // A fragments (rows g, g + 8 of each m tile), split once a warp
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float2 top = *reinterpret_cast<const float2*>(
+            as + 16 * i * SA_LD + k8 * 8);
+        const float2 bot = *reinterpret_cast<const float2*>(
+            as + (16 * i + 8) * SA_LD + k8 * 8);
+        const float xa[4] = {top.x, bot.x, top.y, bot.y};
+        split_frag(xa, ah[i], al[i]);
+      }
+#pragma unroll
+      for (int o = 0; o < NB; ++o) {
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            split_tf32(bs[o * SK * LDB + (k8 * 8 + e) * LDB + j * 8],
+                       bh[j][e], bl[j][e]);
+        // a_lo b_hi, a_hi b_lo, a_hi b_hi, each pass over all MT x NT
+        // accumulators of this operand before the next
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            mma_tf32(part[o][i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            mma_tf32(part[o][i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            mma_tf32(part[o][i][j], ah[i], bh[j][0], bh[j][1]);
       }
     }
+#pragma unroll
+    for (int o = 0; o < NB; ++o)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[o][i][j][e] += part[o][i][j][e];
   }
   cp_async_wait<0>();
 
+  // epilogue on the accumulators: this thread holds columns 2t, 2t + 1 of
+  // rows g (e = 0, 1) and g + 8 (e = 2, 3) of each (m tile, n tile); g and
+  // u share the layout, so h = act(g) u needs no shared memory
   float* out = static_cast<float*>(p.out) +
                (p.partial ? (size_t)blockIdx.z * p.m * p.n : 0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty * 8 + i;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      float v0 = c0[i][j], v1 = c0[i][j + 1];
-      if constexpr (DUAL) {
-        v0 = activate(v0, p.act) * c1[i][j];
-        v1 = activate(v1, p.act) * c1[i][j + 1];
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float v0 = acc[0][i][j][2 * h2], v1 = acc[0][i][j][2 * h2 + 1];
+        if constexpr (DUAL) {
+          v0 = activate(v0, p.act) * acc[NB - 1][i][j][2 * h2];
+          v1 = activate(v1, p.act) * acc[NB - 1][i][j][2 * h2 + 1];
+        }
+        store2(out, p.m, p.n, m0 + wr + 16 * i + g + 8 * h2,
+               n0 + wc + 8 * j + 2 * t, v0, v1);
       }
-      store2(out, p.m, p.n, row, n0 + tx * 4 + j, v0, v1);
-    }
-  }
 }
 
 // out[i] = sum of partial[s][i] over the splits, in split order
@@ -497,16 +597,35 @@ int launch_wgmma(const Gemm& p, int splits, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool DUAL>
-int launch_fma(const Gemm& p, int splits, bool vec, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * F_STAGES *
-                      (FM * FA_LD + (DUAL ? 2 : 1) * FK * FB_LD);
+template <int MT, int NT, int WM, int WN, bool DUAL, int SK, int STAGES>
+int launch_split(const Gemm& p, int splits, bool vec, cudaStream_t stream) {
+  using S = SplitShape<MT, NT, WM, WN, DUAL, SK, STAGES>;
+  static_assert(S::SMEM <= (size_t)SMEM_LIMIT, "ring exceeds shared memory");
+  auto kernel = split_gemm<MT, NT, WM, WN, DUAL, SK, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
-      fma_gemm<DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.m + FM - 1) / FM, (p.n + FN - 1) / FN, splits);
-  fma_gemm<DUAL><<<grid, F_THREADS, smem, stream>>>(p, vec);
+  const dim3 grid((p.m + S::BM - 1) / S::BM, (p.n + S::BN - 1) / S::BN,
+                  splits);
+  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(p, vec);
   return (int)cudaGetLastError();
+}
+
+// f32 schedules (kernels/ops.py swiglu_plan): wide, 8 warps as 4 x 2 on
+// 128-row tiles, gate/up 64 columns of each weight (2 x 4 n8 tiles a
+// warp), down 128 columns (8 n8 tiles a warp), a ring of 3 stages of K 64
+// (210 KB: one block an SM); narrow (M <= 16, decode), 4 warps side by
+// side on 16-row tiles, 64 columns in both products, 4 stages of K 32 (78
+// KB: two blocks an SM keep more weight bytes in flight)
+int launch_f32(const Gemm& gate, const Gemm& down, int wide, int splits,
+               bool vec, cudaStream_t stream) {
+  int err = wide ? launch_split<2, 4, 4, 2, true, 64, 3>(gate, 1, vec, stream)
+                 : launch_split<1, 2, 1, 4, true, 32, 4>(gate, 1, vec, stream);
+  if (err != 0) return err;
+  return wide
+             ? launch_split<2, 8, 4, 2, false, 64, 3>(down, splits, vec, stream)
+             : launch_split<1, 2, 1, 4, false, 32, 4>(down, splits, vec,
+                                                      stream);
 }
 
 template <bool TMA>
@@ -531,8 +650,8 @@ extern "C" {
 // f32, 1 = bf16 (x, the weights, h and out alike); activation 0 = silu,
 // 1 = gelu.  h is (m, f) scratch in the operand type; with splits > 1,
 // `partial` is f32 scratch of splits * m * d elements, else unused.  The
-// plan (kernels/ops.py swiglu_plan): wide = 1 for the 128-row bf16
-// schedule, 0 for the 64-row one (f32 ignores it); the down product's K =
+// plan (kernels/ops.py swiglu_plan): wide = 1 for the 128-row schedule,
+// 0 for the 64-row bf16 / 16-row f32 one; the down product's K =
 // f runs in `splits` slices of k_split (a multiple of 64) rows; tma = 1
 // loads the bf16 tiles with TMA (d, f multiples of 8, 16-byte aligned
 // bases), 0 element by element.  The caller checks shapes (x (m, d),
@@ -563,8 +682,7 @@ int swiglu_fwd(const void* x, const void* w_gate, const void* w_up,
     const bool vec = d % 4 == 0 && f % 4 == 0 && aligned16(x) &&
                      aligned16(w_gate) && aligned16(w_up) &&
                      aligned16(w_down) && aligned16(h);
-    err = launch_fma<true>(gate, 1, vec, st);
-    if (err == 0) err = launch_fma<false>(down, splits, vec, st);
+    err = launch_f32(gate, down, wide, splits, vec, st);
   }
   if (err != 0 || splits == 1) return err;
   const size_t n = (size_t)m * d;

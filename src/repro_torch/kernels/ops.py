@@ -1103,11 +1103,12 @@ _LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTIVATIONS = {"silu": 0, "gelu": 1}
 # csrc/swiglu.cu's schedules: bf16 wgmma tiles (rows, gate/up columns,
 # down columns) of the wide (M > 64) and narrow (decode) plans, K per ring
-# stage and ring stages; the f32 FMA tiles (rows, columns, K per stage,
-# stages)
+# stage and ring stages; the split-f32 plans (rows, gate/up columns, down
+# columns, K per stage, stages), wide for M > 16, else narrow
 _SW_WIDE, _SW_NARROW, _SW_BK, _SW_STAGES = (128, 128, 256), (64, 64, 64), \
     64, 4
-_SW_F32 = (64, 128, 16, 3)
+_SW_F32_WIDE, _SW_F32_NARROW = (128, 64, 128, 64, 3), (16, 64, 64, 32, 4)
+_SW_F32_NARROW_M = 16
 
 
 class SwigluPlan(NamedTuple):
@@ -1115,7 +1116,7 @@ class SwigluPlan(NamedTuple):
     gate/up GEMM over (row tile, F tile) blocks, then the down GEMM over
     (row tile, D tile, K split) blocks, then, with ``splits`` > 1, the
     fixed-order sum of the f32 partials."""
-    wide: bool          # bf16: two consumer warpgroups, 128-row tiles
+    wide: bool          # 128-row tiles (bf16: two consumer warpgroups)
     producer: str       # "tma", "elementwise" (bf16) or "cp.async" (f32)
     rows: int           # rows of a tile (both GEMMs)
     gate_cols: int      # F columns of a gate/up tile
@@ -1145,10 +1146,12 @@ def swiglu_plan(m: int, d: int, f: int, itemsize: int, sms: int,
     wgmma: 128-row tiles (128-column gate/up, 256-column down) for M > 64;
     at decode (M <= 64, bound by bytes) 64-row, 64-column tiles.  Its
     producer is TMA where rows are 16-byte aligned (D, F multiples of 8,
-    ``aligned`` bases), else element by element.  f32 runs 64 x 128 FMA
-    tiles.  When the down product has fewer tiles than the card has SMs,
-    its K = F is split so that at least ``2 * sms`` blocks stream Wd; the
-    slices' f32 partials are summed in split order."""
+    ``aligned`` bases), else element by element.  f32 runs split f32
+    (3xTF32) on ``mma.sync``: 128-row tiles (64-column gate/up, 128-column
+    down) for M > 16, at decode 16-row, 64-column tiles.  When the down
+    product has fewer tiles than the card has SMs, its K = F is split so
+    that at least (bf16) or at most (f32) ``2 * sms`` blocks stream Wd;
+    the slices' f32 partials are summed in split order."""
     bf16 = itemsize == 2
     if bf16:
         wide = m > 64
@@ -1162,22 +1165,27 @@ def swiglu_plan(m: int, d: int, f: int, itemsize: int, sms: int,
                 + 2 * stages * 8 + 1024
         smem_gate, smem_down = ring(gate_cols, 2), ring(down_cols, 1)
     else:
-        wide = False
-        rows, gate_cols, fk, stages = _SW_F32
-        down_cols = gate_cols
+        wide = m > _SW_F32_NARROW_M
+        rows, gate_cols, down_cols, bk, stages = \
+            _SW_F32_WIDE if wide else _SW_F32_NARROW
         producer = "cp.async"
 
-        def ring(operands):
-            return stages * (rows * (fk + 4) + operands * fk
-                             * (gate_cols + 4)) * 4
-        smem_gate, smem_down = ring(2), ring(1)
+        # a stage: the A tile with rows of bk + 8 floats, the B tiles with
+        # rows of cols + 4 (csrc/swiglu.cu SplitShape)
+        def ring(cols, operands):
+            return stages * (rows * (bk + 8) + operands * bk * (cols + 4)) \
+                * 4
+        smem_gate, smem_down = ring(gate_cols, 2), ring(down_cols, 1)
     row_tiles = -(-m // rows)
     gate_tiles, down_tiles = -(-f // gate_cols), -(-d // down_cols)
     k_steps = -(-f // _SW_BK)
     splits = 1
     if row_tiles * down_tiles < sms:
-        want = min(k_steps, -(-2 * sms // (row_tiles * down_tiles)))
-        per = -(-k_steps // want)
+        # bf16: at least two blocks an SM (2-3 are resident); f32, one
+        # block an SM (its ring takes 150 KB): at most two waves
+        tiles = row_tiles * down_tiles
+        want = -(-2 * sms // tiles) if bf16 else 2 * sms // tiles
+        per = -(-k_steps // min(k_steps, want))
         splits = -(-k_steps // per)
     k_split = -(-k_steps // splits) * _SW_BK
     scratch = m * f * itemsize + (splits * m * d * 4 if splits > 1 else 0)

@@ -195,10 +195,22 @@ SMS = 132  # the H100's SMs
     (4, 14336, 2, dict(wide=False, producer="tma", rows=64, gate_cols=64,
                        down_cols=64, gate_blocks=224, down_blocks=320,
                        splits=5, k_split=2880)),
-    # f32: the FMA tiles, 64 x 128, 3 stages
-    (2048, 14336, 4, dict(wide=False, producer="cp.async", rows=64,
-                          gate_cols=128, down_cols=128, down_blocks=1024,
-                          splits=1, stages=3)),
+    # f32: split f32 on mma.sync, 128-row tiles, 64-column gate/up and
+    # 128-column down tiles, a 3-stage ring of K 64 (210 KB)
+    (2048, 14336, 4, dict(wide=True, producer="cp.async", rows=128,
+                          gate_cols=64, down_cols=128, gate_blocks=3584,
+                          down_blocks=512, splits=1, stages=3,
+                          smem_gate=215040, smem_down=211968)),
+    # f32 at M 128 (the timed case): one row tile, 224 gate/up blocks for
+    # the 132 SMs; 32 down tiles x 8 K slices of 1,792 rows, two waves of
+    # one block an SM
+    (128, 14336, 4, dict(wide=True, rows=128, gate_cols=64, gate_blocks=224,
+                         down_blocks=256, splits=8, k_split=1792)),
+    # f32 decode: 16-row tiles; 64 down tiles x 4 K slices; a 4-stage
+    # ring of K 32 (78 KB: two blocks an SM)
+    (4, 14336, 4, dict(wide=False, rows=16, gate_cols=64, down_cols=64,
+                       gate_blocks=224, down_blocks=256, splits=4,
+                       k_split=3584, stages=4, smem_gate=79872)),
     # F = 1001 rows are not 16-byte aligned: the element-wise producer; 4
     # down tiles, so K splits into 16 slices of one 64-row stage
     (130, 1001, 2, dict(wide=True, producer="elementwise", splits=16,
@@ -218,6 +230,11 @@ def test_swiglu_plan(m, f, itemsize, want):
     assert plan.scratch_bytes == m * f * itemsize + partials
     if m <= 64 and itemsize == 2:
         assert plan.down_blocks >= 2 * SMS
+    if itemsize == 4 and m <= 256:
+        # every SM gets a gate/up block, and split-K fills the down
+        # product's two waves of one block an SM
+        assert plan.gate_blocks >= SMS
+        assert SMS < plan.down_blocks <= 2 * SMS
 
 
 @pytest.mark.parametrize("m,d,f,itemsize", [
@@ -225,7 +242,8 @@ def test_swiglu_plan(m, f, itemsize, want):
     (64, 4096, 14336, 2), (65, 4096, 14336, 2), (129, 4096, 14336, 2),
     (2048, 4096, 14336, 2), (2341, 4096, 14336, 2), (128, 4096, 14336, 4),
     (37, 512, 1000, 2), (130, 512, 1001, 2), (200, 100, 160, 4),
-    (65, 99, 160, 4),
+    (65, 99, 160, 4), (4, 4096, 14336, 4), (16, 4096, 14336, 4),
+    (17, 4096, 14336, 4), (256, 4096, 14336, 4), (37, 64, 1000, 4),
 ])
 def test_swiglu_plan_covers_every_tile_once(m, d, f, itemsize):
     """Blocks (x, y[, z]) of csrc/swiglu.cu own rows [x rows, +rows), the

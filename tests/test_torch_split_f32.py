@@ -1,6 +1,8 @@
 """Numerics of the split-f32 (3xTF32) products of the CUDA kernels 7
 (GatedMLP, ``csrc/gated_mlp.cu``), 11 (flash attention in f32,
-``csrc/flash_attention.cu``), 2 and 3 (the atom and bond convs), 5 (the
+``csrc/flash_attention.cu``), 10 (the fused feed-forward in f32,
+``csrc/swiglu.cu``, with its split-K and the tensor cores' rounding of
+each product's sum toward zero), 2 and 3 (the atom and bond convs), 5 (the
 symmetric conv's phase A) and 4 (the force readouts, with and without the
 virial; all four in ``csrc/message_passing.cu``), emulated on the CPU, and
 their launch plans, partitions and width checks.
@@ -174,6 +176,96 @@ def test_single_tf32_attention_misses_the_bound(d):
     want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
                                    causal=False, scale=float(d ** -0.5))
     assert _err(_attn_emulated(q, k, v, False, split=False), want) > TOL
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10 in f32: the fused feed-forward (csrc/swiglu.cu)
+# ---------------------------------------------------------------------------
+
+def _swiglu_inputs(m: int, f: int, d: int = 64, seed: int = 0):
+    rng = np.random.default_rng(seed + m + f)
+    return (_normal(rng, m, d), _normal(rng, d, f, scale=d ** -0.5),
+            _normal(rng, d, f, scale=d ** -0.5),
+            _normal(rng, f, d, scale=f ** -0.5))
+
+
+def _swiglu_emulated(x, wg, wu, wd, act: str, split: bool):
+    """Kernel 10's f32 path with emulated products: g and u in the split,
+    h = act(g) u in f32, then the down product over the K slices of
+    ``ops.swiglu_plan``, each slice's partial in the split, the partials
+    added in split order."""
+    h = ref.swiglu_act(mma_emulated(x, wg, split), act) \
+        * mma_emulated(x, wu, split)
+    (m, d), f = x.shape, wg.shape[1]
+    plan = ops.swiglu_plan(m, d, f, 4, 132)
+    out = torch.zeros(m, d, dtype=torch.float32)
+    for k0 in range(0, f, plan.k_split):
+        ks = slice(k0, k0 + plan.k_split)
+        out = out + mma_emulated(h[:, ks], wd[ks], split)
+    return out, plan.splits
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("m,f", [(16, 160), (16, 1000), (37, 160),
+                                 (37, 1000)])
+def test_split_swiglu_matches_float64(m, f, act):
+    args = _swiglu_inputs(m, f)
+    want = ref.fused_swiglu_ref(*(t.double() for t in args), act)
+    got, splits = _swiglu_emulated(*args, act, split=True)
+    assert splits > 1  # the down product's K runs in slices
+    assert _err(got, want) <= TOL
+    assert _err(ref.fused_swiglu_ref(*args, act), want) <= TOL
+
+
+def _round_toward_zero(x64):
+    """float64 -> float32, rounded toward zero."""
+    y = x64.float()
+    over = y.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mma_rz_emulated(a, b, stage_k: int):
+    """a (M, K) @ b (K, N) in split f32 with the tensor cores' rounding:
+    each mma.sync adds its 8 exact TF32 products into its accumulator and
+    rounds the sum toward zero.  The products of each ``stage_k`` slice of
+    K go into a fresh accumulator, which is added into the f32 result
+    (rounding to nearest) at the end of the slice, as csrc/swiglu.cu does
+    once a ring stage; ``stage_k = K`` is one accumulator carried over all
+    of K."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for s0 in range(0, a.shape[1], stage_k):
+        part = torch.zeros_like(out)
+        for k in range(s0, min(s0 + stage_k, a.shape[1]), 8):
+            ks = slice(k, k + 8)
+            for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                part = _round_toward_zero(
+                    part.double() + x[:, ks].double() @ y[ks].double())
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("stage_k,meets", [(32, True), (64, True),
+                                           (14336, False)])
+def test_swiglu_down_product_sums_a_stage_at_a_time(stage_k, meets):
+    """The down product's K = 14336 at llama3-8b's F: with the tensor
+    cores' round-toward-zero, one accumulator over all of K (5,376
+    products into it) drifts past the bound; the kernel's fresh
+    accumulator per ring stage (K 32 in the narrow plan, 64 in the wide
+    one) meets it."""
+    rng = np.random.default_rng(1)
+    h = _normal(rng, 16, 14336)
+    wd = _normal(rng, 14336, 64, scale=14336 ** -0.5)
+    want = h.double() @ wd.double()
+    assert (_err(mma_rz_emulated(h, wd, stage_k), want) <= TOL) == meets
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_single_tf32_swiglu_misses_the_bound(act):
+    args = _swiglu_inputs(37, 1000)
+    want = ref.fused_swiglu_ref(*(t.double() for t in args), act)
+    assert _err(_swiglu_emulated(*args, act, split=False)[0], want) > TOL
 
 
 # ---------------------------------------------------------------------------

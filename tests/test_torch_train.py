@@ -314,8 +314,6 @@ def test_unported_training_paths_raise(datasets):
         BatchIterator(tds, 4, 1, caps, load_balance="cost")
     with pytest.raises(NotImplementedError, match="item 9"):
         pipeline.BalancedBatchIterator(tds, 4, 1, caps)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipeline.Prefetcher(iter([]))
 
 
 def test_trainer_defaults_to_the_card():
