@@ -25,13 +25,19 @@ PyTorch version:
      f32 FMA bound, and must give equal bits on a second call with the
      same inputs; the convs also with the
      mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
-     and the symmetric conv's two kernels; then ragged layouts and edge
+     and the symmetric conv's two kernels; the bf16 paths of kernels 2, 3
+     and 4a (each conv variant) on the same batches' values rounded to
+     bf16, within one bf16 rounding (``2**-7 * max(1, max|plain|)``) of
+     their bf16 plain versions, equal bits on two calls, bound at the bf16
+     peak, their split-f32 kernels timed in turns beside them; then ragged
+     layouts and edge
      values (for the convs: a row longer than a block's chunk, rows
      straddling tiles, no edge at all, a single row, D = 128; for the force
      readouts at every width: a 700-bond row, rows straddling tiles, a
      crystal with no bonds between two that have them, every row padded,
      crystal slots permuted and crystals interleaved; for phase A at every
      width: 0, 1 and 64 +- 1, 128 +- 1 real rows with self-image pairs;
+     the convs and kernel 4a also in bf16;
      for the RBF and Fourier bases at K of 7, 31 and 127: 0, 1, 3, T +- 1
      and 4 T + 3 rows with zero rows amid them; each called twice for
      equal bits, the bases also on the batches' inputs), and batches with
@@ -45,29 +51,38 @@ PyTorch version:
      and Fourier kernels; 5 steps) and at ``WO_HEAD_PALLAS`` (the same tier
      with the autodiff readout: forces and stress are derivatives of the
      energy through the wrappers' backwards; 2 steps), at
-     ``FAST_FUSED_SYM`` (the symmetric half-graph trunk; 5 steps) and at
-     ``FAST_FUSED_HALF`` (the undirected store; 2 steps); the launch
-     counters must show every kernel of the path, the outputs must be
-     finite, and one batch through the plain path must agree;
+     ``FAST_FUSED_SYM`` (the symmetric half-graph trunk; 5 steps), at
+     ``FAST_FUSED_HALF`` (the undirected store; 2 steps) and at the mixed
+     tiers ``FAST_FUSED_MIXED`` (5 steps) and ``FAST_FUSED_HALF_MIXED`` (2
+     steps: bf16 operands, f32 sums and outputs, on the f32 parameters);
+     the launch counters must show every kernel of the path, the outputs
+     must be finite, and one batch through the plain path must agree (the
+     mixed tiers within DESIGN.md §4's bound, 3e-2 of the largest value
+     and cosine 0.999, also against their f32 configs);
   6. ``FAST_FUSED`` with ``mlp_impl="pallas"``: one forward and backward on
      the first training batch against the plain path, with launch counts;
   7. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
      at batch 128, at ``FAST_FUSED`` (1 + 5 steps), ``FAST_FUSED_VIRIAL``
      (1 + 3), ``FAST_PALLAS`` (1 + 3), ``WO_HEAD_PALLAS`` (1 + 2: a double
      backward through the wrappers), ``FAST_FUSED_SYM`` (1 + 3),
-     ``FAST_FUSED_HALF`` (1 + 2) and ``REFERENCE`` (1 + 2, no kernels:
-     the paper's baseline), all at ``capacity_for``; beside them
+     ``FAST_FUSED_HALF`` (1 + 2), ``FAST_FUSED_HALF_MIXED`` (1 + 2) and
+     ``REFERENCE`` (1 + 2, no kernels: the paper's baseline), all at
+     ``capacity_for``; beside them
      ``FAST_FUSED`` on ``ladder_for``'s buckets fed synchronously (1 + 3)
      and, through ``Prefetcher(device="cuda")`` (pinned copies on a
-     stream of its own), ``FAST_FUSED`` and ``FAST_FUSED_SYM`` (1 + 5
-     each), the bucket of every counted step reported; the first
+     stream of its own), ``FAST_FUSED``, ``FAST_FUSED_SYM`` and
+     ``FAST_FUSED_MIXED`` (1 + 5 each), the bucket of every counted step
+     reported; the mixed tiers report their loss scale and
+     ``grads_finite`` each step; the first
      prefetched batch must equal the synchronous ``.to("cuda")`` batch bit
      for bit and its step's loss that of the same step fed synchronously,
      and the prefetcher's packing time, copy time and the steps' wait for
      it are reported; the launch counters must show every kernel of
      each path, losses and gradient norms must be finite, on the first
      batch the loss and every gradient leaf of a kernels' path must agree
-     with its plain path; then the time of a step taken apart, the peak
+     with its plain path (the mixed tiers: the loss within 3e-2, the
+     gradients within 5% relative global norm and cosine 0.999); then the
+     time of a step taken apart, the peak
      memory (allocated and reserved), and from one traced step the device
      time of kernel 4b's two kernels (``FAST_FUSED_VIRIAL``), of the bases
      (``FAST_PALLAS``) and of ``embedding_dense_backward`` (the fused
@@ -75,8 +90,9 @@ PyTorch version:
   8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
-  9. learns: 60 steps at batch 8 at ``FAST_FUSED`` must bring a held-out
-     batch's loss below 0.6x its value before;
+  9. learns: 60 steps at batch 8 at ``FAST_FUSED``, and again at
+     ``FAST_FUSED_MIXED``, must bring a held-out batch's loss below 0.6x
+     its value before;
  10. lm: llama3-8b at full width and depth with bf16 weights from the
      seed (the CHGNet phases' memory returned first): 4 prompts of 512
      tokens prefilled into a 640-position KV cache, then 16 greedy decode
@@ -100,7 +116,10 @@ PyTorch version:
      against plain within 1e-4.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
-this script for tiers that are no named config of the package.  Prints
+this script for tiers that are no named config of the package.  bf16
+products outside the kernels (cuBLAS) sum in f32
+(``allow_bf16_reduced_precision_reduction`` off), as TF32 is off for f32
+ones.  Prints
 ``{"serve": ...}``, ``{"train": ...}``, ``{"lm": ...}`` and ``{"kernels":
 [...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero; without CUDA it exits nonzero before printing a result.
@@ -148,6 +167,7 @@ from repro_torch.data import (  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
+from repro_torch.precision import resolve_policy, scale_loss  # noqa: E402
 from repro_torch.serve import BatchedMD, ServeEngine  # noqa: E402
 from repro_torch.serve import lm  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
@@ -183,6 +203,8 @@ WO_HEAD_PALLAS = chgnet_mptrj.FAST_WO_HEAD.with_(**_PALLAS)
 FUSED_MLP_PALLAS = chgnet_mptrj.FAST_FUSED.with_(mlp_impl="pallas")
 
 # kernel launches per forward, by wrapper; every other counter must stay 0
+# (also FAST_FUSED_HALF and the mixed tiers FAST_FUSED_MIXED and
+# FAST_FUSED_HALF_MIXED, whose launches are the bf16 kernels')
 PER_FORWARD = {"fused_atom_conv": 4, "fused_bond_conv": 3,
                "fused_force_readout": 1}
 # FAST_FUSED_VIRIAL: the force+virial wrapper launches two kernels
@@ -348,6 +370,78 @@ def _check_bf16(name: str, got, want) -> tuple[float, float, float]:
     return err, tol, cos
 
 
+def _check_round_bf16(name: str, got, want) -> tuple[float, float]:
+    """A bf16 kernel against its bf16 plain version (both f32 inside,
+    rounded to bf16 once): within one bf16 rounding of the output,
+    ``2**-7 * max(1, max|want|)`` (the two sum in another order, so a
+    value near a rounding boundary may round the other way); raises if
+    not."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise RuntimeError(f"{name}: dtypes {got.dtype}, {want.dtype}, "
+                           "expected bfloat16")
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)} != "
+                           f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: non-finite values")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    tol = 2.0 ** -7 * max(1.0, want.abs().max().item() if want.numel()
+                          else 0.0)
+    if not err <= tol:
+        raise RuntimeError(f"{name}: max abs error {err} > {tol}")
+    return err, tol
+
+
+def _to_bf16(args) -> tuple:
+    return tuple(a.to(torch.bfloat16) if torch.is_tensor(a)
+                 and a.is_floating_point() else a for a in args)
+
+
+def _to_f32(args) -> tuple:
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def bf16_cases(cases) -> list[dict]:
+    """The bf16 paths of kernels 2, 3 and 4a (``FAST_FUSED_MIXED``,
+    ``FAST_FUSED_HALF_MIXED``) from their split-f32 cases on the same
+    batch: every float operand rounded to bf16, held to the bf16 plain
+    version within one bf16 rounding (``_check_round_bf16``) and called
+    twice for equal bits; bound by the flops at the bf16 peak and the
+    bytes with bf16 tables (int32 ids); the split-f32 kernel on the same
+    values in f32 timed in turns beside it (``f32_ms``, ``f32_device_ms``).
+    Kernel 4a's wrapper widens x_hat to f32 inside the timed call."""
+    out = []
+    for c in cases:
+        if c.get("counter", c["wrapper"].__name__) not in (
+                "fused_atom_conv", "fused_bond_conv", "fused_force_readout"):
+            continue
+        args = _to_bf16(c["args"])
+        twin_args = _to_f32(args)
+        base, _, variant = c["name"].partition("[")
+        name = base.replace("_fwd", "_bf16_fwd") + (f"[{variant}"
+                                                    if variant else "")
+        wrapper = c["wrapper"]
+        # the partition is the f32 plan's; the stages take half the bytes
+        bf = ops.conv_plan("force" if "force" in name else name[:4],
+                           c["shape"]["dim"], 1 << 30, torch.cuda
+                           .get_device_properties(0).multi_processor_count,
+                           itemsize=2)
+        out.append(dict(
+            name=name, counter=c.get("counter", wrapper.__name__),
+            path=c.get("path", "FAST_FUSED") + "_MIXED", wrapper=wrapper,
+            plain=c["plain"], args=args, check=_check_round_bf16,
+            repeat=True, peak=PEAK_BF16_FLOPS,
+            twin=lambda w=wrapper, a=twin_args: w(*a),
+            replaces=c["replaces"], flops=c["flops"],
+            bytes=2 * c["float_elems"] + 4 * c["int_elems"],
+            plan=dict(c["plan"], smem=bf.smem,
+                      blocks_per_sm=bf.blocks_per_sm),
+            shape=c["shape"]))
+    return out
+
+
 def conv_composition(parts, env, mlp, offsets, n_real: int):
     """A conv as PyTorch calls, a yardstick timed beside the kernel and
     never called on a path: the real edges' rows gathered with
@@ -447,6 +541,13 @@ def conv_plan_row(mode: str, dim: int, offsets) -> dict:
                 tiles=sum(-(-x // plan.tm) for x in spans))
 
 
+def _io(floats: int, ints: int) -> dict:
+    """A case's bytes from its float and int32 elements (f32: 4 bytes
+    each); ``bf16_cases`` counts the floats at 2 bytes."""
+    return dict(bytes=4 * (floats + ints), float_elems=floats,
+                int_elems=ints)
+
+
 def kernel_cases(params, cfg, batch) -> list[dict]:
     """Each kernel's wrapper, plain version and inputs on one real packed
     batch, with the work it must do there: flops and bytes at the batch's
@@ -470,8 +571,9 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
     f = 4  # bytes per f32 / int32 element
     readout_flops = (2 * real_bonds * dim * dim + 2 * real_bonds * dim
                      + 6 * real_bonds)
-    readout_bytes = f * (real_bonds * (dim + 3) + dim * dim + 2 * dim + 1
-                         + n_atoms + 1 + n_atoms * 3)
+    readout_io = _io(real_bonds * (dim + 3) + dim * dim + 2 * dim + 1
+                     + n_atoms * 3, n_atoms + 1)
+    readout_bytes = readout_io["bytes"]
     bond_shape = {"atoms": n_atoms, "bonds": n_bonds,
                   "real_bonds": real_bonds, "dim": dim}
     fmlp = (l0["w"], l0["b"], l1["w"], l1["b"])
@@ -493,9 +595,9 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
              plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252",
              flops=2 * real_bonds * 3 * dim * 2 * dim,
-             bytes=f * (real_atoms * dim + 2 * real_bonds * dim
-                        + 3 * dim * 2 * dim + 6 * dim + 2 * real_bonds
-                        + n_atoms + 1 + n_atoms * dim),
+             **_io(real_atoms * dim + 2 * real_bonds * dim
+                   + 3 * dim * 2 * dim + 6 * dim + n_atoms * dim,
+                   2 * real_bonds + n_atoms + 1),
              shape=bond_shape),
         dict(name="bond_conv_fwd", wrapper=ops.fused_bond_conv,
              plain=ref.fused_bond_conv_ref,
@@ -508,9 +610,9 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
              plan=conv_plan_row("bond", dim, batch.angle_offsets),
              replaces=f"{TPU_FILE}:488",
              flops=2 * real_angles * 4 * dim * 2 * dim,
-             bytes=f * (real_atoms * dim + 2 * real_bonds * dim
-                        + real_angles * dim + 4 * dim * 2 * dim + 6 * dim
-                        + 3 * real_angles + n_bonds + 1 + n_bonds * dim),
+             **_io(real_atoms * dim + 2 * real_bonds * dim
+                   + real_angles * dim + 4 * dim * 2 * dim + 6 * dim
+                   + n_bonds * dim, 3 * real_angles + n_bonds + 1),
              shape={"atoms": n_atoms, "bonds": n_bonds,
                     "angles": a.shape[0], "real_angles": real_angles,
                     "dim": dim}),
@@ -522,7 +624,7 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
                  e, x_hat, fmlp, batch.bond_offsets, real_bonds),
              plan=conv_plan_row("force", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:737", flops=readout_flops,
-             bytes=readout_bytes, shape=bond_shape),
+             **readout_io, shape=bond_shape),
         # + per bond: n*d and 9 products of 2 factors; + the crystal sum
         dict(name="force_virial_fwd", wrapper=ops.fused_force_virial_readout,
              plain=ref.fused_force_virial_readout_ref,
@@ -578,8 +680,9 @@ def sym_kernel_cases(params, batch) -> list[dict]:
     pair = batch.bond_pair
     atom_ids = (batch.bond_center, batch.bond_nbr, batch.bond_offsets)
     atom_flops = 2 * real_bonds * 3 * dim * 2 * dim
-    atom_tail = f * (real_atoms * dim + 3 * dim * 2 * dim + w_bytes
-                     + 3 * real_bonds + n_atoms + 1 + n_atoms * dim)
+    atom_floats = real_atoms * dim + 3 * dim * 2 * dim + w_bytes \
+        + n_atoms * dim
+    atom_ints = 3 * real_bonds + n_atoms + 1
     center = batch.bond_center[batch.angle_ij]
     sym_args = (v, e_u, a_u, e_b) + bmlp + (ctr, du1, du2,
                                              batch.sym_offsets)
@@ -605,7 +708,8 @@ def sym_kernel_cases(params, batch) -> list[dict]:
                  [(e_a, pair)], amlp, batch.bond_offsets, real_bonds),
              plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252", flops=atom_flops,
-             bytes=atom_tail + f * (real_bonds * dim + real_eu * dim),
+             **_io(atom_floats + real_bonds * dim + real_eu * dim,
+                   atom_ints),
              shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
                     "real_bonds": real_bonds, "real_und": real_eu,
                     "dim": dim}),
@@ -620,7 +724,7 @@ def sym_kernel_cases(params, batch) -> list[dict]:
                  [(e_a, pair)], amlp, batch.bond_offsets, real_bonds),
              plan=conv_plan_row("atom", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:252", flops=atom_flops,
-             bytes=atom_tail + f * 2 * real_eu * dim,
+             **_io(atom_floats + 2 * real_eu * dim, atom_ints),
              shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
                     "real_bonds": real_bonds, "real_und": real_eu,
                     "dim": dim}),
@@ -640,9 +744,9 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              plan=conv_plan_row("bond", dim, batch.angle_offsets),
              replaces=f"{TPU_FILE}:488",
              flops=2 * real_angles * 4 * dim * 2 * dim,
-             bytes=f * (real_atoms * dim + real_bonds * dim + real_eu * dim
-                        + real_angles * dim + 4 * dim * 2 * dim + w_bytes
-                        + 5 * real_angles + n_bonds + 1 + n_bonds * dim),
+             **_io(real_atoms * dim + real_bonds * dim + real_eu * dim
+                   + real_angles * dim + 4 * dim * 2 * dim + w_bytes
+                   + n_bonds * dim, 5 * real_angles + n_bonds + 1),
              shape={"atoms": n_atoms, "bonds": n_bonds, "und": n_eu,
                     "angles": batch.angle_cap, "real_angles": real_angles,
                     "dim": dim}),
@@ -907,11 +1011,14 @@ def kernel_phase(cases) -> list[dict]:
     kernels' path.  A split-f32 case (``split``: kernels 2, 3, 4, 5, 7 and
     11 in f32) is bound by three TF32 products per f32 product at the TF32
     peak, reports the f32 FMA bound beside it (``bound_fma_ms``), and must
-    give the same bits on a second call.  A conv case also reports its
-    launch plan and how its partition spreads the batch (``plan``).
-    The kernel and its yardsticks, which read the same inputs, are timed
-    in turns; the plain version, whose f32 copies and intermediates sweep
-    the L2 cache, on its own after them."""
+    give the same bits on a second call.  A bf16 case of kernels 2, 3 and
+    4a (``bf16_cases``) is bound at the bf16 peak and times the split-f32
+    kernel on the same values in turns with it (``twin``).  A conv case
+    also reports its launch plan and how its partition spreads the batch
+    (``plan``).  The kernel and its yardsticks, which read the same
+    inputs, are timed in turns; the plain version, whose f32 copies and
+    intermediates sweep the L2 cache, on its own after them (the median
+    of 5 samples of 2 calls: it takes 30-100x the kernel's time)."""
     rows = []
     with torch.inference_mode():
         for c in cases:
@@ -930,13 +1037,17 @@ def kernel_phase(cases) -> list[dict]:
                 if c.get(key):
                     check(f"{c['name']} {key}", c[key](), want)
                     fns.append(c[key])
+            if c.get("twin"):
+                fns.append(c["twin"])
             times = _time_turns(fns)
             k_ms = times[0]
             dev_ms = _time_device(fns[0])
-            p_ms = _time_ms(lambda: plain(*args))
+            # the plain version (30-100x slower): fewer, shorter samples
+            p_ms = _time_ms(lambda: plain(*args), 5, 2)
             yard = iter(times[1:])
             lib_ms = next(yard) if c.get("library") else None
             comp_ms = next(yard) if c.get("composition") else None
+            twin_ms = next(yard) if c.get("twin") else None
             if c.get("split"):
                 # the work the split-f32 kernel issues: three TF32
                 # products per f32 product
@@ -964,6 +1075,12 @@ def kernel_phase(cases) -> list[dict]:
             if c.get("repeat"):
                 rows[-1]["bitwise_repeatable"] = True
                 lib += ", two calls give equal bits"
+            if c.get("twin"):
+                # the split-f32 kernel on the same values, in turns
+                twin_dev = _time_device(c["twin"])
+                rows[-1].update(f32_ms=twin_ms, f32_device_ms=twin_dev)
+                lib += (f", split f32 {twin_ms:.4f} ms (device "
+                        f"{twin_dev:.4f})")
             if c.get("split"):
                 # the same work as f32 FMAs on the CUDA cores, and the
                 # bitwise repeat checked above
@@ -1108,8 +1225,9 @@ def conv_edge_cases(f, ids, mlp, seed: int) -> int:
     of their partition and tiles: one row longer than a chunk (700
     edges), rows straddling tiles, every row empty with no edge, no real
     edge before a padded tail, a single row, and D = 128 (64-edge tiles).
-    Each runs twice: the two calls must give equal bits.  Returns the
-    number of cases checked."""
+    Each runs in f32 and with its operands rounded to bf16 (the bf16
+    path, within one bf16 rounding of its plain version), twice: the two
+    calls must give equal bits.  Returns the number of cases checked."""
     rng = np.random.default_rng(seed + 2)
     layouts = (
         ("one row of 700 edges", [700, 3, 0, 5], 20, 64),
@@ -1149,12 +1267,16 @@ def conv_edge_cases(f, ids, mlp, seed: int) -> int:
              (f(atoms, d), f(rows, d), f(n_edges, d), f(eu, d))
              + mlp(4 * d, d) + bond, {"pair": pair_b}, (pair_b,)))
         for name, wrapper, plain, args, kw, extra in cases:
-            got = wrapper(*args, **kw)
-            if not torch.equal(got, wrapper(*args, **kw)):
-                raise RuntimeError(f"{name} on {label}: two calls on the "
-                                   "same inputs differ")
-            _check_close(f"{name} on {label}", got, plain(*args, *extra))
-            n += 1
+            for dtype, bargs, check in (
+                    ("f32", args, _check_close),
+                    ("bf16", _to_bf16(args), _check_round_bf16)):
+                got = wrapper(*bargs, **kw)
+                if not torch.equal(got, wrapper(*bargs, **kw)):
+                    raise RuntimeError(f"{name} {dtype} on {label}: two "
+                                       "calls on the same inputs differ")
+                check(f"{name} {dtype} on {label}", got,
+                      plain(*bargs, *extra))
+                n += 1
     return n
 
 
@@ -1167,8 +1289,10 @@ def readout_edge_cases(f, seed: int) -> int:
     contiguous atom ranges in slot order, as the packer lays them out,
     then in a permuted slot order with an empty slot between, and
     crystals whose rows interleave (a row's bonds always in its atom's
-    crystal).  Each runs twice: the two calls must give equal bits.
-    Returns the number of cases checked."""
+    crystal).  Each runs twice: the two calls must give equal bits.  The
+    force readout also runs with its operands rounded to bf16 (kernel 4a's
+    bf16 path, within one bf16 rounding of its plain version).  Returns
+    the number of cases checked."""
     rng = np.random.default_rng(seed + 3)
     layouts = (  # bonds per atom row, crystal of each row, padded bonds
         ("one row of 700 bonds", [700, 3, 0, 5], [0, 0, 1, 1], 20),
@@ -1199,17 +1323,20 @@ def readout_edge_cases(f, seed: int) -> int:
                      rows)
             vargs = fargs[:2] + (f(n_real + tail).abs() + 0.5,) \
                 + fargs[2:7] + (cry, offs, rows, n_crys)
-            for name, wrapper, plain, args in (
+            for name, wrapper, plain, args, check in (
                     ("force_readout", ops.fused_force_readout,
-                     ref.fused_force_readout_ref, fargs),
+                     ref.fused_force_readout_ref, fargs, _check_close),
+                    ("force_readout bf16", ops.fused_force_readout,
+                     ref.fused_force_readout_ref, _to_bf16(fargs),
+                     _check_round_bf16),
                     ("force_virial", ops.fused_force_virial_readout,
-                     ref.fused_force_virial_readout_ref, vargs)):
+                     ref.fused_force_virial_readout_ref, vargs,
+                     _check_close)):
                 got = wrapper(*args)
                 if not _equal(got, wrapper(*args)):
                     raise RuntimeError(f"{name} on {label}, D = {d}: two "
                                        "calls on the same inputs differ")
-                _check_close(f"{name} on {label}, D = {d}", got,
-                             plain(*args))
+                check(f"{name} on {label}, D = {d}", got, plain(*args))
                 n += 1
     return n
 
@@ -1417,10 +1544,31 @@ def _epochs(ds, caps, batch: int, seed: int, log: list | None = None):
             yield b
 
 
+def _check_grads_mixed(g_k, g_p) -> dict:
+    """DESIGN.md §4's gradient bound over every leaf: the global norm of
+    the difference within 5% of the plain path's, cosine at least 0.999
+    (the two paths round to bf16 at other places); raises if not."""
+    sq = lambda gs: sum((g.double() ** 2).sum() for g in gs)  # noqa: E731
+    norm = sq(g_p).sqrt()
+    rel = (sq([a.double() - b.double() for a, b in zip(g_k, g_p,
+                                                       strict=True)]).sqrt()
+           / norm).item()
+    cos = (sum((a.double() * b.double()).sum() for a, b in zip(g_k, g_p))
+           / (norm * sq(g_k).sqrt())).item()
+    if not (rel < 0.05 and cos >= 0.999):
+        raise RuntimeError(f"gradients: relative error {rel} (below 0.05), "
+                           f"cosine {cos} (at least 0.999)")
+    return {"grad_rel_err": rel, "grad_cosine": cos}
+
+
 def plain_path_check(params, cfg, batch) -> dict:
     """Loss and every gradient leaf of the kernels' path against the plain
-    path (``plain_config``) on the card; also the launches of the kernels'
-    forward (its backward launches none)."""
+    path (``plain_config``, at the same precision) on the card; also the
+    launches of the kernels' forward (its backward launches none).  In f32
+    each within ``1e-4 * max(1, max|plain|)``; at a bf16 compute dtype
+    (the mixed tiers) DESIGN.md §4's bounds: the loss within ``3e-2 *
+    max(1, |plain|)``, the gradients within 5% relative global norm and
+    cosine 0.999."""
     ops.reset_launch_counts()
     loss_k, _ = chgnet_loss_fn(params, cfg, batch, chgnet_mptrj.LOSS)
     g_k = grads_of(loss_k, params)
@@ -1431,6 +1579,12 @@ def plain_path_check(params, cfg, batch) -> dict:
                                chgnet_mptrj.LOSS)
     g_p = grads_of(loss_p, params)
     torch.cuda.synchronize()
+    if resolve_policy(cfg.precision).low_precision_compute:
+        err_l, tol_l, _ = _check_bf16("train loss", loss_k.detach(),
+                                      loss_p.detach())
+        return {"loss": loss_p.item(), "loss_max_abs_err": err_l,
+                "loss_tolerance": tol_l, "grad_leaves": len(g_k),
+                **_check_grads_mixed(g_k, g_p), "launches": launched}
     err_l, tol_l = _check_close("train loss", loss_k.detach(),
                                 loss_p.detach())
     errs = [_check_close(f"grad leaf {i}", a, b)
@@ -1486,7 +1640,8 @@ def half_equals_fused_phase(seed: int, batch) -> dict:
 def step_split(tr, batches, n: int) -> dict:
     """``n`` more steps taken apart: packing and the host-to-device copy on
     the host clock, then forward (model + loss), backward and optimizer
-    (clip + Adam) on CUDA events.  Means in ms."""
+    (clip + Adam; at a mixed tier also the unscale, the finite check and
+    its read) on CUDA events.  Means in ms."""
     from repro_torch.optim.schedule import cosine_annealing
 
     tcfg = tr.train_cfg
@@ -1503,14 +1658,18 @@ def step_split(tr, batches, n: int) -> dict:
         t2 = clock()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        loss, _ = chgnet_loss_fn(tr.params, tr.model_cfg, b, tcfg.loss)
+        loss, metrics = chgnet_loss_fn(tr.params, tr.model_cfg, b,
+                                       tcfg.loss)
+        scaler = tr.opt_state.get("loss_scale")
         ev[1].record()
-        grads = grads_of(loss, tr.params)
+        grads = grads_of(loss if scaler is None
+                         else scale_loss(loss, scaler), tr.params)
         ev[2].record()
         lr = cosine_annealing(tr.step, tcfg.total_steps, tcfg.init_lr,
                               warmup_steps=tcfg.warmup_steps)
-        tr.params, tr.opt_state, _ = apply_grads(grads, tr.opt_state,
-                                                 tr.params, lr, tcfg)
+        tr.params, tr.opt_state, _ = apply_grads(
+            grads, tr.opt_state, tr.params, lr, tcfg,
+            tcfg.loss_scale.resolved_kind(tr.model_cfg.precision), metrics)
         ev[3].record()
         torch.cuda.synchronize()
         tr.step += 1
@@ -1649,6 +1808,9 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
             "bucket_per_step": [_bucket(caps, e[3]) for e in steps_log],
             "losses": [h["loss"] for h in hist],
             "grad_norms": [h["grad_norm"] for h in hist],
+            # the mixed tiers' loss scaler (DESIGN.md §4)
+            "loss_scales": [h.get("loss_scale") for h in hist],
+            "grads_finite": [h.get("grads_finite") for h in hist],
             "plain_path": plain, "split": step_split(tr, batches, 2),
         }
         if pf:
@@ -1686,7 +1848,9 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
           f"{row['crystals_per_s']:.1f} crystals/s, {row['atoms_per_s']:.0f} "
           f"atoms/s, peak {peak / 2**20:.1f} MiB (reserved "
           f"{peak_reserved / 2**20:.1f}), buckets {row['bucket_per_step']}, "
-          f"launches {counts}, losses {row['losses']}; plain path {plain}; "
+          f"launches {counts}, losses {row['losses']}, loss scales "
+          f"{row['loss_scales']}, grads finite {row['grads_finite']}; "
+          f"plain path {plain}; "
           f"prefetch {row.get('prefetch')}; split {row['split']}",
           flush=True)
     del tr
@@ -1695,12 +1859,16 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
 
 
 def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
-                per_forward: dict, profile: str | None = None) -> dict:
+                per_forward: dict, profile: str | None = None,
+                reference=None) -> dict:
     """``ServeEngine`` / ``BatchedMD`` at ``cfg`` over the replicas: one
     warm-up MD step, then ``steps`` counted steps of the main path (launch
     counts, finite outputs); the largest group's batch (``probe``) against
-    the plain path; one forward per group timed on both paths; one step
-    taken apart on the host clock and, with ``profile``, one traced."""
+    the plain path (at a bf16 compute dtype within DESIGN.md §4's bound,
+    ``_check_bf16``) and, with ``reference`` (an f32 config of the same
+    function), against that config's outputs at the same bound; one
+    forward per group timed on both paths; one step taken apart on the
+    host clock and, with ``profile``, one traced."""
     autodiff = cfg.readout == "autodiff"
     # the autodiff readout differentiates: no inference tensors
     mode = torch.no_grad if autodiff else torch.inference_mode
@@ -1730,14 +1898,21 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
     plain_cfg = plain_config(cfg)
     keys = ("energy", "forces", "stress") if autodiff \
         else ("energy", "forces")
+    check = (_check_bf16 if resolve_policy(cfg.precision)
+             .low_precision_compute else _check_close)
     ops.reset_launch_counts()
     with mode():
         got = serve.model(big)
         check_launches(f"serve {name} plain-path check",
                        ops.launch_counts(), per_forward, 1)
         want = chgnet.chgnet_apply(tree, plain_cfg, big)
-    errs = {k: _check_close(f"serve {name} {k}", got[k], want[k])
+        want_ref = None if reference is None \
+            else chgnet.chgnet_apply(tree, reference, big)
+    errs = {k: check(f"serve {name} {k}", got[k], want[k])[:2]
             for k in keys}
+    ref_errs = {} if want_ref is None else {
+        k: _check_bf16(f"serve {name} {k} against f32", got[k],
+                       want_ref[k]) for k in keys}
 
     forward_ms, plain_forward_ms = [], []
     with mode():
@@ -1760,6 +1935,10 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
         "peak_mem_bytes": peak, "launches": counts,
         "plain_path_max_abs_err": {k: e for k, (e, _) in errs.items()},
         "plain_path_tolerance": {k: t for k, (_, t) in errs.items()},
+        # the mixed tiers against the f32 config (DESIGN.md §4)
+        "f32_max_abs_err": {k: e[0] for k, e in ref_errs.items()},
+        "f32_tolerance": {k: e[1] for k, e in ref_errs.items()},
+        "f32_cosine": {k: e[2] for k, e in ref_errs.items()},
         "forward_ms": forward_ms, "plain_forward_ms": plain_forward_ms,
         "breakdown": breakdown, "stats": md.stats(),
     }
@@ -1767,36 +1946,41 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
           f"step, {row['replica_steps_per_s']:.1f} replica-steps/s, "
           f"peak {peak / 2**20:.1f} MiB, launches {counts}; forward per "
           f"group {forward_ms} ms (plain path {plain_forward_ms} ms); "
-          f"plain-path errors {row['plain_path_max_abs_err']}; one step "
+          f"plain-path errors {row['plain_path_max_abs_err']} (against "
+          f"f32: {row['f32_max_abs_err']}, cosine {row['f32_cosine']}); "
+          f"one step "
           f"{breakdown}", flush=True)
     return row
 
 
-def learns_phase(seed: int) -> dict:
+def learns_phase(seed: int, cfg=chgnet_mptrj.FAST_FUSED) -> dict:
     """tests/test_trainer_e2e.py::test_training_reduces_loss on the card at
-    FAST_FUSED: 96 crystals of at most 20 atoms, batch 8, lr_k=1 with 5
-    warm-up steps; after 60 steps a held-out batch's loss must be below
-    0.6x its value before."""
+    ``cfg`` (FAST_FUSED, FAST_FUSED_MIXED): 96 crystals of at most 20
+    atoms, batch 8, lr_k=1 with 5 warm-up steps; after 60 steps a held-out
+    batch's loss must be below 0.6x its value before."""
     ds = make_dataset(SyntheticConfig(num_crystals=96, max_atoms=20,
                                       seed=0))
     caps = capacity_for(ds, 8)
     tcfg = TrainConfig(global_batch=8, total_steps=300, lr_k=1,
                        warmup_steps=5)
-    tr = Trainer(chgnet_mptrj.FAST_FUSED, tcfg, seed=seed, device="cuda")
+    tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
     held_out = next(iter(BatchIterator(ds, 8, 1, caps, seed=99)))
     before = tr.evaluate(held_out)["loss"]
     t0 = time.perf_counter()
-    tr.train(itertools.islice(_epochs(ds, caps, 8, 0), 60))
+    hist = tr.train(itertools.islice(_epochs(ds, caps, 8, 0), 60))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     after = tr.evaluate(held_out)["loss"]
-    print(f"learns: held-out loss {before:.4f} -> {after:.4f} after 60 "
-          f"steps ({elapsed:.2f} s)", flush=True)
+    skipped = sum(h.get("grads_finite", 1.0) == 0.0 for h in hist)
+    print(f"learns {cfg.precision}: held-out loss {before:.4f} -> "
+          f"{after:.4f} after 60 steps ({elapsed:.2f} s, {skipped} steps "
+          "skipped by the loss scaler)", flush=True)
     if not after < 0.6 * before:
         raise RuntimeError(f"held-out loss {before} -> {after}: not below "
                            "0.6x after 60 steps")
-    return {"before": before, "after": after, "ratio": after / before,
-            "steps": 60, "seconds": elapsed}
+    return {"precision": cfg.precision, "before": before, "after": after,
+            "ratio": after / before, "steps": 60, "seconds": elapsed,
+            "skipped_steps": skipped}
 
 
 def _rand(gen, shape, dtype, scale=1.0):
@@ -2187,6 +2371,11 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
     return row, primary
 
 
+def _stamp(t_start: float, phase: str) -> None:
+    print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2198,8 +2387,13 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this run needs a GPU")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the mixed tiers' plain bf16 products (torch.matmul, cuBLAS) sum in
+    # f32, as the JAX package's do (DESIGN.md §4)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
 
     # 1. environment
     smi = subprocess.run(
@@ -2215,7 +2409,7 @@ def main() -> None:
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing",
-                "basis"):
+                "message_passing_bf16", "basis"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):
@@ -2276,18 +2470,32 @@ def main() -> None:
     rows = kernel_phase(train_cases)
     tier_rows = kernel_phase(tier_cases)
     sym_rows = kernel_phase(sym_cases)
-    serve_kernel_rows = kernel_phase(kernel_cases(tree, cfg, probe[big]))
+    # the bf16 paths of kernels 2, 3 and 4a (the mixed tiers); their bf16
+    # and f32 copies of the batch's tables are freed at once (the train
+    # phases' peak memory must not hold them)
+    bf16_train_cases = bf16_cases(train_cases + sym_cases)
+    bf16_rows = kernel_phase(bf16_train_cases)
+    bf16_train_paths = [c["path"] for c in bf16_train_cases]
+    del bf16_train_cases
+    serve_cases = kernel_cases(tree, cfg, probe[big])
+    serve_kernel_rows = kernel_phase(serve_cases)
     serve_tier_rows = kernel_phase(tier_kernel_cases(tree, cfg, probe[big]))
     serve_sym_cases = sym_kernel_cases(tree, probe[big])
     serve_sym_rows = kernel_phase(serve_sym_cases)
+    bf16_serve_cases = bf16_cases(serve_cases + serve_sym_cases)
+    serve_bf16_rows = kernel_phase(bf16_serve_cases)
+    bf16_serve_paths = [c["path"] for c in bf16_serve_cases]
+    del bf16_serve_cases, serve_cases
     print(f"kernels: {edge_case_phase(tree, args.seed)} ragged-layout and "
           "edge cases agree with the plain versions", flush=True)
 
+    _stamp(t_start, "kernels and edge cases")
     # 4. the wrappers' backwards against plain autograd, on the training
     # batch
     backward_rows = backward_phase(
         train_cases + tier_cases + sym_backward_cases(sym_cases), args.seed)
 
+    _stamp(t_start, "backwards")
     # 5. serve: each path driven with the counters set to 0 just before it
     serve_rows = {
         "FAST_FUSED": serve_phase("FAST_FUSED", cfg, params, crystals, probe,
@@ -2305,6 +2513,16 @@ def main() -> None:
         "FAST_FUSED_HALF": serve_phase(
             "FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, params,
             crystals, probe, 2, PER_FORWARD),
+        # the mixed tiers on the f32 parameters (bf16 operands, f32 sums
+        # and outputs), against their plain paths and their f32 configs
+        "FAST_FUSED_MIXED": serve_phase(
+            "FAST_FUSED_MIXED", chgnet_mptrj.FAST_FUSED_MIXED, params,
+            crystals, probe, STEPS, PER_FORWARD, args.profile,
+            reference=cfg),
+        "FAST_FUSED_HALF_MIXED": serve_phase(
+            "FAST_FUSED_HALF_MIXED", chgnet_mptrj.FAST_FUSED_HALF_MIXED,
+            params, crystals, probe, 2, PER_FORWARD,
+            reference=chgnet_mptrj.FAST_FUSED_HALF),
     }
     for row in serve_kernel_rows:
         row["launches"] = serve_rows["FAST_FUSED"]["launches"][row["wrapper"]]
@@ -2312,11 +2530,17 @@ def main() -> None:
         row["launches"] = serve_rows["FAST_PALLAS"]["launches"][row["wrapper"]]
     for row, c in zip(serve_sym_rows, serve_sym_cases):
         row["launches"] = serve_rows[c["path"]]["launches"][row["wrapper"]]
+    for row, path in zip(serve_bf16_rows, bf16_serve_paths):
+        # [pair+und] is on no mixed path (FAST_FUSED_SYM at "mixed"
+        # raises: kernels 5 and 6 take f32 only)
+        row["launches"] = serve_rows[path]["launches"][row["wrapper"]] \
+            if path in serve_rows else 0
     serve_rows["FAST_FUSED"]["groups"] = group_sizes
     serve_rows["kernels_at_serve_batch"] = serve_kernel_rows \
-        + serve_tier_rows + serve_sym_rows
+        + serve_tier_rows + serve_sym_rows + serve_bf16_rows
     print(json.dumps({"serve": serve_rows}))
 
+    _stamp(t_start, "serve")
     # 6. the fused convs beside the unfused tier's GatedMLP and bases
     fused_mlp = fused_mlp_pallas_phase(args.seed, train_b0)
     # the undirected store against the directed one: the same function
@@ -2335,6 +2559,9 @@ def main() -> None:
     # gathers' backward over the padded rows
     padded = ("embedding_dense_backward",)
     fused, sym = chgnet_mptrj.FAST_FUSED, chgnet_mptrj.FAST_FUSED_SYM
+    mixed = chgnet_mptrj.FAST_FUSED_MIXED
+    traced["FAST_FUSED_MIXED prefetch"] = ("conv_split_kernel",
+                                           "force_split_kernel")
     for name, tcfg, caps, steps, per, prefetch in (
             ("FAST_FUSED", fused, train_caps, 5, PER_FORWARD, False),
             ("FAST_FUSED ladder", fused, train_ladder, 3, PER_FORWARD,
@@ -2352,12 +2579,16 @@ def main() -> None:
              PER_FORWARD_SYM, True),
             ("FAST_FUSED_HALF", chgnet_mptrj.FAST_FUSED_HALF, train_caps, 2,
              PER_FORWARD, False),
+            ("FAST_FUSED_MIXED prefetch", mixed, train_ladder, 5,
+             PER_FORWARD, True),
+            ("FAST_FUSED_HALF_MIXED", chgnet_mptrj.FAST_FUSED_HALF_MIXED,
+             train_caps, 2, PER_FORWARD, False),
             ("REFERENCE", chgnet_mptrj.REFERENCE, train_caps, 2, {},
              False)):
         train_rows[name] = train_phase(
             name, tcfg, ds, caps, steps, per, args.seed, args.profile,
             traced.get(name, ()),
-            padded if tcfg in (fused, sym) else (), prefetch)
+            padded if tcfg in (fused, sym, mixed) else (), prefetch)
     for row in rows + tier_rows:
         path = {"fused_force_virial_readout": "FAST_FUSED_VIRIAL",
                 "fused_segment_sum": "FAST_PALLAS",
@@ -2372,22 +2603,40 @@ def main() -> None:
         if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on "
                                f"{c['path']}")
+    # the bf16 rows: directed on FAST_FUSED_MIXED (through the
+    # prefetcher), [pair] on FAST_FUSED_HALF_MIXED, [pair+und] on no path
+    bf16_path = {"FAST_FUSED_MIXED": "FAST_FUSED_MIXED prefetch",
+                 "FAST_FUSED_HALF_MIXED": "FAST_FUSED_HALF_MIXED"}
+    bf16_on_path, bf16_extra = [], []
+    for row, case_path in zip(bf16_rows, bf16_train_paths):
+        path = bf16_path.get(case_path)
+        row["launches"] = train_rows[path]["launches"][row["wrapper"]] \
+            if path else 0
+        if path and not row["launches"]:
+            raise RuntimeError(f"{row['name']} was not launched on {path}")
+        (bf16_on_path if path else bf16_extra).append(row)
 
-    # 9. learns
+    _stamp(t_start, "train")
+    # 9. learns, in f32 and at the mixed tier
     learns = learns_phase(args.seed)
+    learns_mixed = learns_phase(args.seed, mixed)
     primary = [r for r, c in zip(tier_rows, tier_cases) if c["primary"]]
     extra = [r for r, c in zip(tier_rows, tier_cases) if not c["primary"]]
     print(json.dumps({"train": dict(
         train_rows, FUSED_MLP_PALLAS=fused_mlp,
         FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
-        learns=learns, kernel_extra_shapes=extra,
+        learns=learns, learns_mixed=learns_mixed,
+        kernel_extra_shapes=extra + bf16_extra,
         dataset={"crystals": len(ds), "caps": vars(train_caps),
                  "ladder": [vars(b) for b in train_ladder.buckets]})}))
+    _stamp(t_start, "learns")
     # 10. the LM: every CHGNet phase's state is gone; return its cache
     torch.cuda.empty_cache()
     lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)
     print(json.dumps({"lm": lm_row}))
-    print(json.dumps({"kernels": rows + primary + sym_rows
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
+    print(json.dumps({"kernels": rows + primary + sym_rows + bf16_on_path
                       + lm_kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

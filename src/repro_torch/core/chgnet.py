@@ -9,10 +9,16 @@ readout of reference CHGNet.  ``CHGNet`` wraps the same tree as an
 ``nn.Module`` whose parameter names follow it (``blocks.0.atom_mlp.w``,
 ...).
 
-``CHGNetConfig`` mirrors the JAX config field for field.  Values this
-port does not implement yet (``precision`` other than f32) raise
-``NotImplementedError`` naming the ROADMAP item that adds them;
-``table_residency`` is a TPU mechanic and is accepted and ignored.
+``CHGNetConfig`` mirrors the JAX config field for field.  Tiers this
+port does not implement yet raise ``NotImplementedError`` naming the
+ROADMAP entry that adds them (``check_supported``); ``table_residency``
+is a TPU mechanic and is accepted and ignored.
+
+``precision`` selects the policy of ``repro_torch.precision`` (DESIGN.md
+§4): parameters are stored in its ``param`` dtype (``rbf_freqs`` always
+f32), the geometry and the bases run in f32 and are cast to the compute
+dtype before the embeddings, the masks take the features' dtype, and the
+outputs are cast to the ``output`` dtype.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from torch import nn
 
 from repro_torch.kernels.ref import gather_rows
 from repro_torch.optim.tree import leaves
+from repro_torch.precision import cast_float_tree, resolve_policy
 from . import basis, heads
 from .graph import CrystalGraphBatch
 from .interaction import (
@@ -82,12 +89,31 @@ class CHGNetConfig:
         return dataclasses.replace(self, **kw)
 
 
+_BF16_NEXT = ("is not ported yet: its CUDA kernel has no bf16 operand "
+              "path (ROADMAP section 2, the next slice)")
+
+
 def check_supported(cfg: CHGNetConfig) -> None:
-    """Raise ``NotImplementedError`` for a tier this port lacks so far."""
-    if cfg.precision != "f32":
+    """Raise ``NotImplementedError`` for a tier this port lacks so far: at
+    a compute dtype below f32, a tier whose CUDA kernels take f32 only
+    (kernels 1 and 7 of the unfused Pallas tier, 5 and 6 of the fused
+    symmetric trunk, 4b of the fused virial), so that it fails when the
+    model is built, not in the middle of a step on the card."""
+    if not resolve_policy(cfg.precision).low_precision_compute:
+        return
+    tier = f"precision={cfg.precision!r} with"
+    if cfg.mlp_impl == "pallas" or (cfg.agg_impl == "pallas"
+                                    and cfg.conv_impl == "unfused"):
         raise NotImplementedError(
-            f"precision={cfg.precision!r} is not ported yet: ROADMAP "
-            "'Modules to port' item 8")
+            f"{tier} mlp_impl={cfg.mlp_impl!r}, agg_impl={cfg.agg_impl!r}, "
+            f"conv_impl={cfg.conv_impl!r} (kernels 1 and 7) {_BF16_NEXT}")
+    if cfg.conv_impl == "fused" and cfg.bond_features == "undirected":
+        raise NotImplementedError(
+            f"{tier} the fused symmetric trunk (kernels 5 and 6) "
+            f"{_BF16_NEXT}")
+    if cfg.conv_impl == "fused" and cfg.stress_mode == "bond_virial":
+        raise NotImplementedError(
+            f"{tier} the fused bond virial (kernel 4b) {_BF16_NEXT}")
 
 
 def resolve_device(device) -> torch.device:
@@ -101,7 +127,10 @@ def resolve_device(device) -> torch.device:
 
 
 def chgnet_init(seed: int | torch.Generator, cfg: CHGNetConfig) -> dict:
-    """Parameter tree (f32, on the CPU) from a seed or a ``torch.Generator``."""
+    """Parameter tree (on the CPU) from a seed or a ``torch.Generator``,
+    drawn in f32 and stored in ``cfg.precision``'s param dtype, except
+    ``rbf_freqs``: they feed the f32 basis and stay f32 under every
+    policy (a bf16 round trip would move them by ~0.4% a step)."""
     gen = seed if isinstance(seed, torch.Generator) \
         else torch.Generator().manual_seed(seed)
     params = {
@@ -125,6 +154,10 @@ def chgnet_init(seed: int | torch.Generator, cfg: CHGNetConfig) -> dict:
                 gen, cfg.dim, cfg.stress_scale)
         # stress_mode="bond_virial" shares the force head's n_ij: that
         # tier has no stress parameters (DESIGN.md §7)
+    param = resolve_policy(cfg.precision).param
+    if param != torch.float32:
+        freqs = params.pop("rbf_freqs")
+        params = dict(cast_float_tree(params, param), rbf_freqs=freqs)
     return params
 
 
@@ -144,7 +177,9 @@ def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
     ``mlp_impl="pallas"`` takes the bases from their kernels, whose
     envelope is always the factored one, as in the JAX package.
     ``displacement`` / ``strain`` perturb the geometry for the autodiff
-    readout.
+    readout.  The geometry and the bases are f32; the features from the
+    embeddings on, and the masks that multiply them, are in the policy's
+    compute dtype (DESIGN.md §4).
 
     ``bond_store="undirected"`` (DESIGN.md §5): the RBF and the bond
     embedding run once per undirected pair (Eu rows), the Fourier basis
@@ -179,24 +214,32 @@ def embed(params, cfg: CHGNetConfig, graph: CrystalGraphBatch, *,
         rbf = basis.smooth_rbf(rbf_dist, params["rbf_freqs"], cfg.r_cut_atom,
                                cfg.envelope_p, envelope=env)
         four = basis.fourier_basis(theta, cfg.num_fourier)
+    # the precision boundary: f32 geometry and bases above, the compute
+    # dtype from the embeddings on
+    cd = resolve_policy(cfg.precision).compute
+    rbf, four = rbf.to(cd), four.to(cd)
+
+    def mask(m):
+        return m[..., None].to(cd)
+
     packed = linear_apply(params["bond_embed"], rbf)  # (Nb or Eu, 3*dim)
     e0, e_a, e_b = packed.chunk(3, dim=-1)
-    v = gather_rows(params["atom_embed"], graph.atom_z) \
-        * graph.atom_mask[..., None]
+    v = gather_rows(params["atom_embed"].to(cd), graph.atom_z) \
+        * mask(graph.atom_mask)
     a = linear_apply(params["angle_embed"], four)
     if undirected:
-        umask = graph.und_mask[..., None]
+        umask = mask(graph.und_mask)
         e_a, e_b = e_a * umask, e_b * umask
-        a = a * graph.und_angle_mask[..., None]
+        a = a * mask(graph.und_angle_mask)
         if cfg.bond_features == "undirected":
             e = e0 * umask
         else:
             # padded angles and bonds carry pair 0: re-mask after expanding
-            a = gather_rows(a, graph.angle_pair) * graph.angle_mask[..., None]
-            e = gather_rows(e0, graph.bond_pair) * graph.bond_mask[..., None]
+            a = gather_rows(a, graph.angle_pair) * mask(graph.angle_mask)
+            e = gather_rows(e0, graph.bond_pair) * mask(graph.bond_mask)
     else:
-        a = a * graph.angle_mask[..., None]
-        e = e0 * graph.bond_mask[..., None]
+        a = a * mask(graph.angle_mask)
+        e = e0 * mask(graph.bond_mask)
     return (v, e, a, e_a.contiguous(), e_b.contiguous(), vec, dist, vec_und,
             dist_und)
 
@@ -256,7 +299,8 @@ def _autodiff_readout(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
 
 
 def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
-    """Energy (B,), forces (A,3), stress (B,3,3), magmom (A,), f32.
+    """Energy (B,), forces (A,3), stress (B,3,3), magmom (A,), in the
+    policy's output dtype (f32 under every built-in policy).
 
     ``readout="direct"``: one forward pass with the direct Force/Stress
     heads (FastCHGNet); ``stress_mode="bond_virial"`` takes the stress
@@ -268,15 +312,18 @@ def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     and ``graph`` must be on the same device.
     """
     check_supported(cfg)
+    out = resolve_policy(cfg.precision).output
     if cfg.readout == "autodiff":
-        return _autodiff_readout(params, cfg, graph)
+        return {k: x.to(out) for k, x in
+                _autodiff_readout(params, cfg, graph).items()}
     if cfg.readout != "direct":
         raise ValueError(f"unknown readout {cfg.readout!r}")
     v, e, _a, vec, dist, vec_und, dist_und = _trunk(params, cfg, graph)
     if cfg.bond_features == "undirected":
         # the heads read per-directed-bond features: expand the Eu-resident
         # e once, at the heads boundary (DESIGN.md §10)
-        e = gather_rows(e, graph.bond_pair) * graph.bond_mask[..., None]
+        e = gather_rows(e, graph.bond_pair) \
+            * graph.bond_mask[..., None].to(e.dtype)
     energy = heads.energy_head_apply(params["energy_head"], graph, v)
     magmom = heads.magmom_head_apply(params["magmom_head"], graph, v)
     if cfg.stress_mode == "bond_virial":
@@ -292,8 +339,8 @@ def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
         stress = heads.stress_head_apply(params["stress_head"], graph, v)
     else:
         raise ValueError(f"unknown stress mode {cfg.stress_mode!r}")
-    return {"energy": energy, "forces": forces, "stress": stress,
-            "magmom": magmom}
+    return {"energy": energy.to(out), "forces": forces.to(out),
+            "stress": stress.to(out), "magmom": magmom.to(out)}
 
 
 # ---------------------------------------------------------------------------

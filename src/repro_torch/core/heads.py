@@ -7,7 +7,10 @@
   Bond-virial stress (DESIGN.md §7): sigma = (1/2V) sum_ij n_ij d_ij
       x_hat_ij ⊗ x_hat_ij, from the force head's own n_ij (no parameters).
 
-The per-crystal energy/stress reductions are f32 (DESIGN.md §4).
+Precision (DESIGN.md §4): the head MLPs run at the features' (compute)
+dtype; the per-crystal energy and stress reductions, the stress head's
+lattice normals and the bond virial are pinned to f32, and
+``chgnet_apply`` casts every output to the policy's ``output_dtype``.
 """
 from __future__ import annotations
 
@@ -25,9 +28,12 @@ EV_A3_TO_GPA = 160.21766  # eV/A^3 -> GPa
 _UNIT_EPS = 1e-12
 
 
-def bond_unit_vectors(bond_vec, bond_dist):
-    """x_hat = vec / (dist + eps), the one shared normalization."""
-    return bond_vec / (bond_dist[..., None] + _UNIT_EPS)
+def bond_unit_vectors(bond_vec, bond_dist, dtype=None):
+    """x_hat = vec / (dist + eps), the one shared normalization.  The
+    geometry is f32; ``dtype`` (the bond features' compute dtype) is the
+    cast boundary after the f32 division."""
+    x_hat = bond_vec / (bond_dist[..., None] + _UNIT_EPS)
+    return x_hat if dtype is None else x_hat.to(dtype)
 
 
 def mlp_init(gen: torch.Generator, dims) -> list:
@@ -54,8 +60,9 @@ def energy_head_init(gen: torch.Generator, dim: int = 64) -> dict:
 
 
 def energy_head_apply(p, graph: CrystalGraphBatch, v):
-    """Per-site energies summed per crystal -> (B,) total energies [eV]."""
-    site_e = mlp_apply(p["mlp"], v)[..., 0] * graph.atom_mask
+    """Per-site energies summed per crystal -> (B,) total energies [eV],
+    the sum in f32."""
+    site_e = mlp_apply(p["mlp"], v)[..., 0].float() * graph.atom_mask
     return _per_crystal_sum(site_e, graph)
 
 
@@ -82,16 +89,19 @@ def force_head_apply(p, graph: CrystalGraphBatch, e, bond_vec, bond_dist,
     """Eq. 7: F_i = sum_j n_ij * x_hat_ij (rotation equivariant).
 
     With ``conv_impl="fused"`` the whole readout (scalar MLP -> x_hat
-    weighting -> reduce) is one kernel over the sorted CSR rows.
+    weighting -> reduce) is one kernel over the sorted CSR rows.  x_hat
+    and the head's weights take e's (compute) dtype.
     """
-    x_hat = bond_unit_vectors(bond_vec, bond_dist)
+    x_hat = bond_unit_vectors(bond_vec, bond_dist, e.dtype)
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
         l0, l1 = p["mlp"]  # force head is fixed at (dim -> dim -> 1)
+        cd = e.dtype
         out = kops.fused_force_readout(
-            e, x_hat, l0["w"], l0["b"], l1["w"], l1["b"],
-            graph.bond_center, graph.bond_offsets, graph.atom_cap,
+            e, x_hat, l0["w"].to(cd), l0["b"].to(cd), l1["w"].to(cd),
+            l1["b"].to(cd), graph.bond_center, graph.bond_offsets,
+            graph.atom_cap,
         )
         return out * graph.atom_mask[..., None].to(out.dtype)
     n_ij = mlp_apply(p["mlp"], e)[..., 0]  # (Nb,); masked by the aggregate
@@ -111,14 +121,16 @@ def stress_head_init(gen: torch.Generator, dim: int = 64,
 
 
 def stress_head_apply(p, graph: CrystalGraphBatch, v):
-    """Eq. 9. Returns (B, 3, 3) stresses [GPa]."""
+    """Eq. 9. Returns (B, 3, 3) stresses [GPa]; the lattice normals and the
+    per-crystal sum in f32."""
     lat = graph.lattice  # (B, 3, 3) rows are lattice vectors
     l_hat = lat / (torch.linalg.norm(lat, dim=-1, keepdim=True) + 1e-12)
     s = torch.sum(l_hat, dim=1)  # (B, 3)
     normal = torch.einsum("bm,bn->bmn", s, s)
-    per_atom = mlp_apply(p["mlp"], v) * graph.atom_mask[..., None]  # (A, 9)
+    per_atom = mlp_apply(p["mlp"], v).float() \
+        * graph.atom_mask[..., None]  # (A, 9)
     per_crystal = _per_crystal_sum(per_atom, graph).reshape(-1, 3, 3)
-    return p["scale"] * per_crystal * normal
+    return p["scale"].float() * per_crystal * normal
 
 
 # ------------------------- bond-virial stress ------------------------------
@@ -168,9 +180,10 @@ def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
     undirected pair from ``vec_und`` / ``dist_und`` (x_hat⊗x_hat does not
     depend on the bond's sign): the directed n d weights are summed onto
     the Eu rows through ``bond_pair`` first, in a fixed order
-    (``kernels.ref.scatter_rows``: ``bond_pair`` is not sorted).
+    (``kernels.ref.scatter_rows``: ``bond_pair`` is not sorted).  The
+    virial is f32 from the per-bond weights on (DESIGN.md §4).
     """
-    x_hat = bond_unit_vectors(bond_vec, bond_dist)
+    x_hat = bond_unit_vectors(bond_vec, bond_dist, e.dtype)
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 

@@ -21,6 +21,14 @@ at the undirected rows (Eu), read through ``graph.bond_pair``;
 ``bond_features="undirected"`` (§10, the symmetric trunk) keeps e at Eu
 and a at the angle-pair dedup rows (Au) too, with the symmetrized bond
 conv and angle update below.
+
+Precision (DESIGN.md §4), at the JAX package's cast boundaries: the
+features arrive in the policy's compute dtype; parameters are cast to it
+at their use sites (``linear_apply``, ``gated_mlp_apply``, the MLP trees
+handed to the fused kernels); products accumulate in f32 and are cast
+back to the operand dtype (``dot_accum``); LayerNorm statistics and every
+segment sum are f32, cast back; masks are cast to the feature dtype, so
+that a bf16 feature times an f32 mask stays bf16.
 """
 from __future__ import annotations
 
@@ -44,15 +52,32 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> dict:
             "b": torch.zeros((d_out,), dtype=torch.float32)}
 
 
+def dot_accum(x, w):
+    """x @ w with the products accumulated in f32 and the result cast back
+    to x's dtype (DESIGN.md §4); for f32 operands exactly ``x @ w``.  On
+    the card a bf16 product is cuBLAS's, which sums in f32 with
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off (``chip_smoke.py`` turns it off); on the CPU the operands are
+    widened and multiplied in f32."""
+    if x.dtype == torch.float32 or x.is_cuda:
+        return x @ w
+    return (x.float() @ w.float()).to(x.dtype)
+
+
 def linear_apply(p, x):
-    return x @ p["w"] + p["b"]
+    # cast-to-compute view: the parameters are cast to the activation
+    # dtype at the use site (no-op under f32)
+    return dot_accum(x, p["w"].to(x.dtype)) + p["b"].to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
-    # population variance over the last axis, as jnp.var
-    mu = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, correction=0)
-    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    # population variance over the last axis, as jnp.var; statistics in
+    # f32, the result cast back to x's dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -73,17 +98,18 @@ def gated_mlp_init(gen: torch.Generator, d_in: int, d_out: int) -> dict:
 
 def gated_mlp_apply(p, x, impl: str = "packed"):
     d = p["w"].shape[1] // 2
-    w, b = p["w"], p["b"]
+    # cast-to-compute view (DESIGN.md §4)
+    w, b = p["w"].to(x.dtype), p["b"].to(x.dtype)
     if impl == "ref":
-        core = layer_norm(x @ w[:, :d] + b[:d],
+        core = layer_norm(dot_accum(x, w[:, :d]) + b[:d],
                           p["ln_scale"][:d], p["ln_bias"][:d])
-        gate = layer_norm(x @ w[:, d:] + b[d:],
+        gate = layer_norm(dot_accum(x, w[:, d:]) + b[d:],
                           p["ln_scale"][d:], p["ln_bias"][d:])
         return F.silu(core) * torch.sigmoid(gate)
     if impl == "packed":
         # one GEMM against the pre-packed weights, shared epilogue with
         # silu(x) = x * sigmoid(x)
-        y = x @ w + b
+        y = dot_accum(x, w) + b
         core = layer_norm(y[..., :d], p["ln_scale"][:d], p["ln_bias"][:d])
         gate = layer_norm(y[..., d:], p["ln_scale"][d:], p["ln_bias"][d:])
         return (core * torch.sigmoid(core)) * torch.sigmoid(gate)
@@ -112,11 +138,14 @@ def segment_aggregate(values, segment_ids, num_segments, mask,
         segment sum.  Same sum as "scatter".
     impl="pallas" : the sorted-segment kernel
         (``kernels.ops.fused_segment_sum``); needs the CSR ``offsets``.
+
+    Every impl accumulates in f32 and casts the sum back to the operand
+    dtype (DESIGN.md §4).
     """
     v = values * mask[..., None].to(values.dtype)
     if impl == "matmul":
-        onehot = F.one_hot(segment_ids.long(), num_segments).to(v.dtype)
-        return torch.einsum("es,ed->sd", onehot, v)
+        onehot = F.one_hot(segment_ids.long(), num_segments).float()
+        return torch.einsum("es,ed->sd", onehot, v.float()).to(v.dtype)
     if impl == "pallas":
         if offsets is None:
             raise ValueError(
@@ -130,8 +159,9 @@ def segment_aggregate(values, segment_ids, num_segments, mask,
                                   num_segments - 1)
     elif impl != "scatter":
         raise ValueError(f"unknown aggregate impl {impl!r}")
-    out = v.new_zeros((num_segments,) + tuple(v.shape[1:]))
-    return out.index_add_(0, segment_ids.long(), v)
+    out = v.new_zeros((num_segments,) + tuple(v.shape[1:]),
+                      dtype=torch.float32)
+    return out.index_add_(0, segment_ids.long(), v.float()).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +195,8 @@ def atom_conv(p, graph: CrystalGraphBatch, v, e, e_a, *, mlp_impl, agg_impl,
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
-        mlp = p["atom_mlp"]
+        # the kernel's operands share the features' dtype (DESIGN.md §4)
+        mlp = {k: t.to(v.dtype) for k, t in p["atom_mlp"].items()}
         agg = kops.fused_atom_conv(
             v, e, e_a, mlp["w"], mlp["b"], mlp["ln_scale"], mlp["ln_bias"],
             graph.bond_center, graph.bond_nbr, graph.bond_offsets,
@@ -200,7 +231,7 @@ def bond_conv(p, graph: CrystalGraphBatch, v_in, e, a, e_b, *, mlp_impl,
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
-        mlp = p["bond_mlp"]
+        mlp = {k: t.to(e.dtype) for k, t in p["bond_mlp"].items()}
         agg = kops.fused_bond_conv(
             v_in, e, a, e_b, mlp["w"], mlp["b"], mlp["ln_scale"],
             mlp["ln_bias"], graph.angle_ij, graph.angle_ik, center,
@@ -276,7 +307,7 @@ def sym_bond_conv(p, graph: CrystalGraphBatch, v_in, e, a_u, e_b, *,
     if conv_impl == "fused":
         from repro_torch.kernels import ops as kops
 
-        mlp = p["bond_mlp"]
+        mlp = {k: t.to(e.dtype) for k, t in p["bond_mlp"].items()}
         ctr, du1, du2 = _sym_ids(graph)
         agg = kops.fused_sym_bond_conv(
             v_in, e, a_u, e_b, mlp["w"], mlp["b"], mlp["ln_scale"],

@@ -5,7 +5,9 @@ plain C interface, loaded with ``ctypes``; all sources compile in
 parallel.  Libraries go to ``build/kernels/<hash>/`` at the root of the
 checkout, keyed by a hash of the source text, of every ``csrc/*.cuh``
 header it includes (``hopper.cuh``: the TMA / mbarrier / wgmma /
-mma.sync helpers) and of the compiler flags, so an edited source or
+mma.sync helpers; ``message_passing.cuh``: the message-passing templates
+that ``message_passing.cu`` instantiates in f32 and
+``message_passing_bf16.cu`` in bf16) and of the compiler flags, so an edited source or
 header is rebuilt and an unchanged one is loaded as is.  Beside each
 library, ``lib<name>.log`` keeps the compiler's output (``-Xptxas -v``:
 registers, shared memory and spills of every kernel) and its build time.
@@ -41,6 +43,12 @@ SIGNATURES = {
         "force_readout_fwd": [_P] * 8 + [_I] * 6 + [_P],
         "force_virial_fwd": [_P] * 10 + [_I] * 6 + [_P],
         "virial_crystal_sum": [_P] * 4 + [_I, _I, _P],
+    },
+    # the same templates at bf16 operands, compiled beside the f32 ones
+    "message_passing_bf16": {
+        "atom_conv_bf16_fwd": [_P] * 12 + [_I] * 7 + [_P],
+        "bond_conv_bf16_fwd": [_P] * 15 + [_I] * 6 + [_P],
+        "force_readout_bf16_fwd": [_P] * 8 + [_I] * 6 + [_P],
     },
     "segment_sum": {
         "segment_sum_fwd": [_P] * 3 + [_I, _I, _I, _P],

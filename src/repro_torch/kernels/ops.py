@@ -9,6 +9,14 @@ path from the device of the tensors it is given:
     features, int32 ids), contiguity and shapes, or raise.  There is no
     fallback from the card to the plain version.
 
+The convs and the force readout without the virial (kernels 2, 3 and 4a)
+also take bf16 features (DESIGN.md §4, the mixed tiers): every float
+operand of a call in one dtype, bf16 kernels in the same templates
+(f32 sums, the result rounded to bf16 once), the output in the operand
+dtype.  Their backwards widen the operands to f32, recompute in f32 and
+cast each cotangent to its operand's dtype, as the JAX package's custom
+VJPs do.  The other wrappers take f32 only.
+
 The backward is the same code on both devices and mirrors the JAX
 package's custom VJPs: it keeps the operands, never the messages, and
 recomputes the messages (or the GatedMLP, or the basis) chunk by chunk of
@@ -50,6 +58,7 @@ import torch
 from . import build, ref
 
 _LIB = "message_passing"
+_LIB_BF16 = "message_passing_bf16"  # the bf16 entries of kernels 2, 3, 4a
 
 # Bytes of the widest per-edge tensor of one recompute chunk (the
 # concatenated GatedMLP input).  The JAX package's chunk of 256 edges is
@@ -73,6 +82,31 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _operand_dtype(t: torch.Tensor) -> torch.dtype:
+    """The float operand type of a call to a kernel with a bf16 path (the
+    convs, kernels 2 and 3, and the force readout, 4a): f32 or bf16, which
+    every float operand of the call must share (``_check`` raises a
+    ``TypeError`` otherwise).  The other kernels take f32 only."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"operands of dtype {t.dtype}: the CUDA kernel takes "
+                        "float32 or bfloat16")
+    return t.dtype
+
+
+def _upcast(tensors) -> list:
+    """f32 views of the recompute backward's operands: a bf16 operand is
+    widened (exactly) and its chunks recomputed in f32, as the JAX
+    package's custom VJPs do; f32 and float64 operands pass through."""
+    return [t.float() if t is not None and t.dtype == torch.bfloat16 else t
+            for t in tensors]
+
+
+def _cast_like(grads, operands) -> tuple:
+    """Cotangents accumulated in f32, cast to their operands' dtypes."""
+    return tuple(None if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, operands))
 
 
 def _check_aligned(**tables) -> None:
@@ -119,40 +153,50 @@ class ConvPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def conv_plan(mode: str, dim: int, n_rows: int, sms: int) -> ConvPlan:
-    """The launch geometry of the split-f32 message-passing kernels, the
-    numbers the kernel checks ``tm`` and ``smem`` against.
+def conv_plan(mode: str, dim: int, n_rows: int, sms: int,
+              itemsize: int = 4) -> ConvPlan:
+    """The launch geometry of the message-passing kernels, the numbers the
+    kernel checks ``tm`` and ``smem`` against.  ``itemsize`` is the
+    operand type's: 4 (f32, split f32) or 2 (bf16: the convs and the
+    force readout without the virial).
 
     ``"atom"`` / ``"bond"`` (kernels 2, 3): a tile of ``tm`` edges is 4
     warps of two m16 tiles (one at D = 128) by all 2D columns; a stage of
-    its K loop holds the tile's 32 input columns (row stride 40 floats)
-    and W's 32 rows (2D + 4); beside the two stages lie the message tile
-    (D + 8), bias and LayerNorm parameters, two carry rows and the tile's
-    row starts and runs.  Two blocks fit a SM for D <= 64.
+    its K loop holds the tile's 32 input columns (row stride 40 elements)
+    and W's 32 rows (2D elements and 16 bytes); beside the two stages lie
+    the f32 message tile (D + 8), bias and LayerNorm parameters (f32), two
+    carry rows and the tile's row starts and runs.  Two blocks a SM (the
+    registers of the accumulators: in bf16 the stages take half the bytes,
+    and three blocks would still not fit at D = 64).
 
-    ``"sym"`` (kernel 5, ``n_rows`` the dedup rows of the output): no
-    reduction, so no message tile; 64-row tiles (one m16 tile a warp),
-    whose K loop takes the v and a parts 32 columns a stage and the e part
-    16 columns of e[du1] beside the same 16 of e[du2] (``k_chunks`` = 8
-    at D = 64), two blocks a SM for D <= 64.  The real rows are counted
-    on the device, so the tile does not follow them: a training batch's
-    40.6k real rows are 636 tiles, 4.8 a SM, and a serving batch's 11.9k
-    are 187, where 128-row tiles would be 318 (1.2 waves of 264 blocks)
-    and 94 (38 SMs idle).  The grid is those blocks on every SM, at most
-    one a tile of ``n_rows``.
+    ``"sym"`` (kernel 5, ``n_rows`` the dedup rows of the output; f32
+    only): no reduction, so no message tile; 64-row tiles (one m16 tile a
+    warp), whose K loop takes the v and a parts 32 columns a stage and the
+    e part 16 columns of e[du1] beside the same 16 of e[du2] (``k_chunks``
+    = 8 at D = 64), two blocks a SM for D <= 64.  The real rows are
+    counted on the device, so the tile does not follow them: a training
+    batch's 40.6k real rows are 636 tiles, 4.8 a SM, and a serving batch's
+    11.9k are 187, where 128-row tiles would be 318 (1.2 waves of 264
+    blocks) and 94 (38 SMs idle).  The grid is those blocks on every SM,
+    at most one a tile of ``n_rows``.
 
-    ``"force"`` (kernel 4, both variants): tiles of 64 bonds (one m16
-    tile a warp) whose e rows (stride max(D, 32) + 8), x_hat and
-    distances are one stage; W1 lies split into TF32 (hi, lo) pairs in
-    shared memory, (D / 2, D + 2) uint4; bias, w2, two carry rows of 12
-    floats, the row starts and runs.  Three blocks a SM for D <= 64 (12
-    warps: a tile's products are short, K = D, so one block's scans and
-    run sums overlap another's products).
+    ``"force"`` (kernel 4, both variants in f32, 4a in bf16): tiles of 64
+    bonds (one m16 tile a warp) whose e rows (stride max(D, 32) + 8
+    elements), x_hat and distances (f32) are one stage; W1 lies in shared
+    memory split into TF32 (hi, lo) pairs, (D / 2, D + 2) uint4, or in
+    bf16 as packed m16n8k16 B fragments, (4 ceil(D / 16), 32 ceil(D / 32)
+    + 8) uint2; bias, w2, two carry rows of 12 floats, the row starts and
+    runs.  Three blocks a SM for D <= 64 (12 warps: a tile's products are
+    short, K = D, so one block's scans and run sums overlap another's
+    products).
 
     The reducing kernels' grid is their blocks on every SM (at most
     ``n_rows``: a chunk owns at least one row)."""
     if mode not in _PLAN_MODES:
         raise ValueError(f"mode must be one of {_PLAN_MODES}, got {mode!r}")
+    if itemsize not in (2, 4) or (itemsize == 2 and mode == "sym"):
+        raise ValueError(f"no {mode!r} kernel for operands of {itemsize} "
+                         "bytes")
     _check_conv_dim(dim)
     kc, stages, reserved = _CONV_KC, _CONV_STAGES, _BLOCK_RESERVED
     if mode == "sym":
@@ -166,15 +210,19 @@ def conv_plan(mode: str, dim: int, n_rows: int, sms: int) -> ConvPlan:
                         k_chunks, per_sm)
     if mode == "force":
         tm = _CONV_WARPS * 16
-        stage = tm * (max(dim, kc) + 8) + 4 * tm
-        smem = 16 * (dim // 2) * (dim + 2) \
-            + 4 * (stages * stage + 2 * dim + 4 + 24) + 4 * (3 * tm + 8)
+        if itemsize == 4:
+            w_bytes = 16 * (dim // 2) * (dim + 2)
+        else:
+            w_bytes = 8 * 4 * -(-dim // 16) * (-(-dim // 32) * 32 + 8)
+        stage = itemsize * tm * (max(dim, kc) + 8) + 16 * tm
+        smem = w_bytes + stages * stage + 4 * (2 * dim + 4 + 24) \
+            + 4 * (3 * tm + 8)
         k_chunks, blocks = 1, 3 if dim <= 64 else 2
     else:
         tm = _CONV_WARPS * 16 * (2 if dim <= 64 else 1)
-        stage = tm * (kc + 8) + kc * (2 * dim + 4)
-        floats = stages * stage + tm * (dim + 8) + 6 * dim + 2 * dim
-        smem = 4 * floats + 4 * (3 * tm + 8)
+        stage = itemsize * (tm * (kc + 8) + kc * (2 * dim + 16 // itemsize))
+        smem = stages * stage + 4 * (tm * (dim + 8) + 6 * dim + 2 * dim) \
+            + 4 * (3 * tm + 8)
         k_chunks = -(-(3 if mode == "atom" else 4) * dim // kc)
         blocks = 2
     per_sm = min(blocks, _SM_SHARED // (smem + reserved))
@@ -211,8 +259,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _conv_launch_plan(mode: str, dim: int, n_rows: int, dev) -> ConvPlan:
-    return conv_plan(mode, dim, n_rows, _sm_count(dev.index))
+def _conv_launch_plan(mode: str, dim: int, n_rows: int, dev,
+                      itemsize: int = 4) -> ConvPlan:
+    return conv_plan(mode, dim, n_rows, _sm_count(dev.index), itemsize)
 
 
 def _launch(lib: str, fn: str, *args) -> None:
@@ -297,17 +346,17 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
                     bond_nbr, bond_offsets, pair, und):
     a_rows, dim = v.shape
     n_edges = bond_center.shape[0]
-    dev, f32, i32 = v.device, torch.float32, torch.int32
+    dev, ft, i32 = v.device, _operand_dtype(v), torch.int32
     _check_conv_dim(dim)
     # the undirected store reads e_a (and, with und, e) at Eu rows
     eu = n_edges if pair is None else e_a.shape[0]
     for name, t, dt, shape in (
-            ("v", v, f32, (a_rows, dim)),
-            ("e", e, f32, (eu if und else n_edges, dim)),
-            ("e_a", e_a, f32, (eu, dim)),
-            ("w", w, f32, (3 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
-            ("ln_scale", ln_scale, f32, (2 * dim,)),
-            ("ln_bias", ln_bias, f32, (2 * dim,)),
+            ("v", v, ft, (a_rows, dim)),
+            ("e", e, ft, (eu if und else n_edges, dim)),
+            ("e_a", e_a, ft, (eu, dim)),
+            ("w", w, ft, (3 * dim, 2 * dim)), ("b", b, ft, (2 * dim,)),
+            ("ln_scale", ln_scale, ft, (2 * dim,)),
+            ("ln_bias", ln_bias, ft, (2 * dim,)),
             ("bond_center", bond_center, i32, (n_edges,)),
             ("bond_nbr", bond_nbr, i32, (n_edges,)),
             ("bond_offsets", bond_offsets, i32, (a_rows + 1,))):
@@ -315,9 +364,11 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
     if pair is not None:
         _check("pair", pair, i32, (n_edges,), dev)
     _check_aligned(v=v, e=e, e_a=e_a, w=w)
-    out = torch.empty((a_rows, dim), dtype=f32, device=dev)
-    plan = _conv_launch_plan("atom", dim, a_rows, dev)
-    _launch(_LIB, "atom_conv_fwd", v.data_ptr(), e.data_ptr(),
+    out = torch.empty((a_rows, dim), dtype=ft, device=dev)
+    plan = _conv_launch_plan("atom", dim, a_rows, dev, v.element_size())
+    lib, entry = (_LIB, "atom_conv_fwd") if ft == torch.float32 \
+        else (_LIB_BF16, "atom_conv_bf16_fwd")
+    _launch(lib, entry, v.data_ptr(), e.data_ptr(),
             e_a.data_ptr(), w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), bond_center.data_ptr(), bond_nbr.data_ptr(),
             None if pair is None else pair.data_ptr(),
@@ -345,8 +396,9 @@ class _AtomConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        v, e, e_a, w, b, lns, lnb, center, nbr, offs, pair = \
-            ctx.saved_tensors
+        *floats, center, nbr, offs, pair = ctx.saved_tensors
+        v, e, e_a, w, b, lns, lnb = _upcast(floats)
+        (g,) = _upcast([g])
         c = center.long()
         nig = ctx.needs_input_grad
         # e and e_a are per-edge operands (chunks of rows), or Eu tables
@@ -372,8 +424,8 @@ class _AtomConv(torch.autograd.Function):
             + [operands[n][2] for n in tables + rows],
             lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
         grads = dict(zip(tables + rows, rest))
-        return (dv, grads["e"], grads["e_a"], dw, db, dls, dlb) \
-            + (None,) * 6
+        return _cast_like((dv, grads["e"], grads["e_a"], dw, db, dls, dlb),
+                          floats) + (None,) * 6
 
 
 def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
@@ -413,16 +465,16 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
     a_rows, dim = v.shape
     b_rows = e.shape[0]
     n_ang = angle_ij.shape[0]
-    dev, f32, i32 = v.device, torch.float32, torch.int32
+    dev, ft, i32 = v.device, _operand_dtype(v), torch.int32
     _check_conv_dim(dim)
     for name, t, dt, shape in (
-            ("v", v, f32, (a_rows, dim)), ("e", e, f32, (b_rows, dim)),
-            ("a", a, f32, (n_ang, dim)),
+            ("v", v, ft, (a_rows, dim)), ("e", e, ft, (b_rows, dim)),
+            ("a", a, ft, (n_ang, dim)),
             # the undirected store reads e_b at Eu rows
-            ("e_b", e_b, f32, (e_b.shape[0] if mirror else b_rows, dim)),
-            ("w", w, f32, (4 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
-            ("ln_scale", ln_scale, f32, (2 * dim,)),
-            ("ln_bias", ln_bias, f32, (2 * dim,)),
+            ("e_b", e_b, ft, (e_b.shape[0] if mirror else b_rows, dim)),
+            ("w", w, ft, (4 * dim, 2 * dim)), ("b", b, ft, (2 * dim,)),
+            ("ln_scale", ln_scale, ft, (2 * dim,)),
+            ("ln_bias", ln_bias, ft, (2 * dim,)),
             ("angle_ij", angle_ij, i32, (n_ang,)),
             ("angle_ik", angle_ik, i32, (n_ang,)),
             ("center_ids", center_ids, i32, (n_ang,)),
@@ -431,9 +483,11 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
             ("angle_offsets", angle_offsets, i32, (b_rows + 1,))):
         _check(name, t, dt, shape, dev)
     _check_aligned(v=v, e=e, a=a, e_b=e_b, w=w)
-    out = torch.empty((b_rows, dim), dtype=f32, device=dev)
-    plan = _conv_launch_plan("bond", dim, b_rows, dev)
-    _launch(_LIB, "bond_conv_fwd", v.data_ptr(), e.data_ptr(),
+    out = torch.empty((b_rows, dim), dtype=ft, device=dev)
+    plan = _conv_launch_plan("bond", dim, b_rows, dev, v.element_size())
+    lib, entry = (_LIB, "bond_conv_fwd") if ft == torch.float32 \
+        else (_LIB_BF16, "bond_conv_bf16_fwd")
+    _launch(lib, entry, v.data_ptr(), e.data_ptr(),
             a.data_ptr(), e_b.data_ptr(), w.data_ptr(), b.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), angle_ij.data_ptr(),
             angle_ik.data_ptr(), center_ids.data_ptr(), env_ij.data_ptr(),
@@ -465,8 +519,10 @@ class _BondConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (v, e, a, e_b, w, b, lns, lnb, angle_ij, angle_ik, center_ids,
-         offs, env_ij, env_ik) = ctx.saved_tensors
+        (*floats, angle_ij, angle_ik, center_ids, offs, env_ij,
+         env_ik) = ctx.saved_tensors
+        v, e, a, e_b, w, b, lns, lnb = _upcast(floats)
+        (g,) = _upcast([g])
         ij = angle_ij.long()
 
         def msgs(dense, edge, sl):
@@ -485,7 +541,8 @@ class _BondConv(torch.autograd.Function):
             msgs, [v, e, e_b, w, b, lns, lnb], [a],
             [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
             lambda sl: g[ij[sl]], int(offs[-1]), ctx.chunk)
-        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 6
+        return _cast_like((dv, de, da, deb, dw, db, dls, dlb), floats) \
+            + (None,) * 6
 
 
 def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
@@ -661,27 +718,34 @@ def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
 # ---------------------------------------------------------------------------
 
 def _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                  num_atoms):
+                  num_atoms, ft=torch.float32):
     n_edges, dim = e.shape
-    dev, f32, i32 = e.device, torch.float32, torch.int32
+    dev, i32 = e.device, torch.int32
     _check_conv_dim(dim)
     for name, t, dt, shape in (
-            ("e", e, f32, (n_edges, dim)), ("x_hat", x_hat, f32, (n_edges, 3)),
-            ("w1", w1, f32, (dim, dim)), ("b1", b1, f32, (dim,)),
-            ("w2", w2, f32, (dim, 1)), ("b2", b2, f32, (1,)),
+            ("e", e, ft, (n_edges, dim)), ("x_hat", x_hat, ft, (n_edges, 3)),
+            ("w1", w1, ft, (dim, dim)), ("b1", b1, ft, (dim,)),
+            ("w2", w2, ft, (dim, 1)), ("b2", b2, ft, (1,)),
             ("bond_center", bond_center, i32, (n_edges,)),
             ("bond_offsets", bond_offsets, i32, (num_atoms + 1,))):
         _check(name, t, dt, shape, dev)
     _check_aligned(e=e)
-    return _conv_launch_plan("force", dim, num_atoms, dev)
+    return _conv_launch_plan("force", dim, num_atoms, dev, e.element_size())
 
 
 def _force_readout_cuda(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
                         num_atoms):
+    ft = _operand_dtype(e)
     plan = _force_checks(e, x_hat, w1, b1, w2, b2, bond_center,
-                         bond_offsets, num_atoms)
-    out = torch.empty((num_atoms, 3), dtype=torch.float32, device=e.device)
-    _launch(_LIB, "force_readout_fwd", e.data_ptr(), x_hat.data_ptr(),
+                         bond_offsets, num_atoms, ft)
+    out = torch.empty((num_atoms, 3), dtype=ft, device=e.device)
+    lib, entry = _LIB, "force_readout_fwd"
+    if ft == torch.bfloat16:
+        # the bf16 kernel reads x_hat in f32: its 6-byte bf16 rows do not
+        # suit the kernel's 4-byte copies, and widening bf16 is exact
+        x_hat = x_hat.float()
+        lib, entry = _LIB_BF16, "force_readout_bf16_fwd"
+    _launch(lib, entry, e.data_ptr(), x_hat.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             bond_offsets.data_ptr(), out.data_ptr(), num_atoms, e.shape[1],
             plan.grid, plan.t, plan.tm, plan.smem, _stream(e.device))
@@ -710,7 +774,9 @@ class _ForceReadout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        e, x_hat, w1, b1, w2, b2, center, offs = ctx.saved_tensors
+        *floats, center, offs = ctx.saved_tensors
+        e, x_hat, w1, b1, w2, b2 = _upcast(floats)
+        (g,) = _upcast([g])
         c = center.long()
 
         def contribs(dense, edge, sl):
@@ -722,7 +788,8 @@ class _ForceReadout(torch.autograd.Function):
             contribs, [w1, b1, w2, b2], [e, x_hat],
             [nig[2], nig[3], nig[4], nig[5], nig[0], nig[1]],
             lambda sl: g[c[sl]], int(offs[-1]), ctx.chunk)
-        return (de, dxh, dw1, db1, dw2, db2) + (None,) * 4
+        return _cast_like((de, dxh, dw1, db1, dw2, db2), floats) \
+            + (None,) * 4
 
 
 def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,

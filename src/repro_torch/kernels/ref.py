@@ -5,6 +5,13 @@ Mirrors ``repro.kernels.ref`` function for function.  The op wrappers in
 are the yardstick the CUDA kernels are held against.  The reductions use
 ``index_add_``, which on CUDA uses atomics: fine for a yardstick of
 correctness, never used by a kernel.
+
+The convs and the force readout (kernels 2, 3 and 4a) also take bf16
+operands, as the JAX kernels do in interpret mode: every operand is
+widened to f32 (exactly), the GEMM, both LayerNorms, the gate, the
+envelopes and the sums run in f32, and the result is rounded to the
+operand dtype once, at the end (not ``gated_mlp_packed_ref`` run in bf16,
+which would round after every op).
 """
 from __future__ import annotations
 
@@ -94,6 +101,11 @@ def gather_rows(table, ids):
     return F.embedding(ids, table)
 
 
+def _widen(*tensors):
+    """f32 views of bf16 operands; f32 and float64 ones pass through."""
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
+
+
 def _mask_real_edges(msg, offsets):
     """Zero everything past offsets[-1] (the real-edge count, DESIGN.md §1)."""
     valid = torch.arange(msg.shape[0], device=msg.device) < offsets[-1]
@@ -124,14 +136,18 @@ def fused_atom_conv_ref(v, e, e_a, w, b, ln_scale, ln_bias,
 
     ``pair`` (the undirected store, DESIGN.md §5): ``e_a`` is the (Eu, D)
     envelope table, read through the mirror map.  ``und_features`` (the
-    symmetric trunk, §10): ``e`` is an (Eu, D) table too."""
+    symmetric trunk, §10): ``e`` is an (Eu, D) table too.  bf16 operands:
+    f32 inside, the result rounded to bf16 once."""
+    dtype = v.dtype
+    v, e, e_a, w, b, ln_scale, ln_bias = _widen(v, e, e_a, w, b, ln_scale,
+                                                ln_bias)
     e_dir = gather_rows(e, pair) if und_features else e
     x = torch.cat([gather_rows(v, bond_center), gather_rows(v, bond_nbr),
                    e_dir], dim=-1)
     env = e_a if pair is None else gather_rows(e_a, pair)
     msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) * env
     msg = _mask_real_edges(msg, offsets)
-    return _segment_sum(msg, bond_center, v.shape[0])
+    return _segment_sum(msg, bond_center, v.shape[0]).to(dtype)
 
 
 def fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale, ln_bias,
@@ -139,7 +155,10 @@ def fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale, ln_bias,
     """Unfused Eq. 5 message path -> (E, D) (``center_ids =
     bond_center[angle_ij]``, precomputed by the caller).  ``pair``: ``e_b``
     is the (Eu, D) envelope table, both factors read through
-    ``pair[angle_*]``."""
+    ``pair[angle_*]``.  bf16 operands: f32 inside, rounded once."""
+    dtype = e.dtype
+    v, e, a, e_b, w, b, ln_scale, ln_bias = _widen(v, e, a, e_b, w, b,
+                                                   ln_scale, ln_bias)
     x = torch.cat([gather_rows(v, center_ids), gather_rows(e, angle_ij),
                    gather_rows(e, angle_ik), a], dim=-1)
     msg = gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias)
@@ -147,7 +166,7 @@ def fused_bond_conv_ref(v, e, a, e_b, w, b, ln_scale, ln_bias,
         (pair[angle_ij.long()], pair[angle_ik.long()])
     msg = msg * gather_rows(e_b, env_ij) * gather_rows(e_b, env_ik)
     msg = _mask_real_edges(msg, offsets)
-    return _segment_sum(msg, angle_ij, e.shape[0])
+    return _segment_sum(msg, angle_ij, e.shape[0]).to(dtype)
 
 
 def sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2):
@@ -182,11 +201,14 @@ def fused_sym_bond_conv_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
 
 def fused_force_readout_ref(e, x_hat, w1, b1, w2, b2, bond_center, offsets,
                             num_atoms):
-    """Unfused Eq. 7: per-bond scalar MLP -> n_ij * x_hat_ij -> atom reduce."""
+    """Unfused Eq. 7: per-bond scalar MLP -> n_ij * x_hat_ij -> atom reduce.
+    bf16 operands: f32 inside, the forces rounded to bf16 once."""
+    dtype = e.dtype
+    e, x_hat, w1, b1, w2, b2 = _widen(e, x_hat, w1, b1, w2, b2)
     h = F.silu(e @ w1 + b1)
     n = (h @ w2 + b2)[..., 0]
     contrib = _mask_real_edges(n[:, None] * x_hat, offsets)
-    return _segment_sum(contrib, bond_center, num_atoms)
+    return _segment_sum(contrib, bond_center, num_atoms).to(dtype)
 
 
 def fused_force_virial_readout_ref(e, x_hat, dist, w1, b1, w2, b2,

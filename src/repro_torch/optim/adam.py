@@ -8,6 +8,12 @@ step count, so the port does not use ``torch.optim.Adam``.  The update
 runs in place under ``torch.no_grad()`` (the JAX package donates the
 buffers instead) with multi-tensor ``torch._foreach_*`` ops, each in the
 JAX expression's order.  Extra keys of the state dict pass through.
+
+Mixed precision (DESIGN.md §4): ``adam_init(params, master_dtype=...)``
+grows an f32 master copy of low-precision parameters in the state
+(``state["master"]``); ``adam_update`` then steps the master weights
+(the moments are kept at master precision) and writes the cast view
+into the live parameters.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.precision import cast_float_tree
 
 from .tree import leaves
 
@@ -29,11 +37,11 @@ class AdamConfig:
 
 def adam_init(params, *, master_dtype=None) -> dict:
     """Zero moments like ``params`` and a step count (a CPU int32 scalar:
-    host bookkeeping, so the bias corrections need no device read)."""
-    if master_dtype is not None:
-        raise NotImplementedError(
-            "f32 master weights belong to the precision policy: ROADMAP "
-            "'Modules to port' item 8")
+    host bookkeeping, so the bias corrections need no device read).
+    ``master_dtype`` (e.g. ``torch.float32``) adds a master copy of the
+    parameters in that dtype, and the moments take it too."""
+    ref = params if master_dtype is None \
+        else cast_float_tree(params, master_dtype)
 
     def zeros(t):
         if isinstance(t, dict):
@@ -42,17 +50,26 @@ def adam_init(params, *, master_dtype=None) -> dict:
             return [zeros(v) for v in t]
         return torch.zeros_like(t, requires_grad=False)
 
-    return {"mu": zeros(params), "nu": zeros(params),
-            "count": torch.zeros((), dtype=torch.int32)}
+    state = {"mu": zeros(ref), "nu": zeros(ref),
+             "count": torch.zeros((), dtype=torch.int32)}
+    if master_dtype is not None:
+        state["master"] = ref
+    return state
 
 
 @torch.no_grad()
 def adam_update(grads, state: dict, params, lr, cfg: AdamConfig = AdamConfig()):
     """One Adam step.  ``params``, ``state["mu"]`` and ``state["nu"]`` are
     updated in place; returns ``(params, state)`` with the count advanced.
-    ``grads`` is a tree like ``params`` or the list of its leaves."""
-    p = leaves(params)
-    g = leaves(grads)
+    ``grads`` is a tree like ``params`` or the list of its leaves.  With a
+    master copy in the state the step runs on it, in its dtype, and the
+    parameters receive its cast."""
+    master = state.get("master")
+    live = leaves(params)
+    p = live if master is None else leaves(master)
+    # the gradients arrive in the backward's dtype; the moments and the
+    # step run at master precision
+    g = [x.to(t.dtype) for x, t in zip(leaves(grads), p)]
     mu, nu = leaves(state["mu"]), leaves(state["nu"])
     count = state["count"] + 1
     b1, b2 = cfg.b1, cfg.b2
@@ -76,4 +93,8 @@ def adam_update(grads, state: dict, params, lr, cfg: AdamConfig = AdamConfig()):
         torch._foreach_add_(upd, torch._foreach_mul(p, cfg.weight_decay))
     torch._foreach_mul_(upd, float(lr))
     torch._foreach_sub_(p, upd)
+    if master is not None:
+        # live parameters are the cast of the master weights
+        for x, t in zip(live, p):
+            x.copy_(t)
     return params, dict(state, count=count)

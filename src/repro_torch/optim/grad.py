@@ -1,7 +1,7 @@
 """Gradient transformations, PyTorch port of part of ``repro.optim.grad``:
 the global norm, the global-norm clip (with the JAX package's
-``norm + 1e-12``, not ``torch.nn.utils.clip_grad_norm_``'s epsilon) and the
-all-finite check.  The compressed all-reduce (``compress``, ``ef_init``)
+``norm + 1e-12``, not ``torch.nn.utils.clip_grad_norm_``'s epsilon), the
+all-finite check and the loss scaler's unscale.  The compressed all-reduce (``compress``, ``ef_init``)
 comes with multi-GPU training, ROADMAP 'Modules to port' item 13.
 
 Each function takes a tree (a list of leaves is one).  Nothing here
@@ -20,6 +20,14 @@ def tree_all_finite(tree) -> torch.Tensor:
     if not flat:
         return torch.tensor(True)
     return torch.stack([torch.isfinite(x).all() for x in flat]).all()
+
+
+def unscale_grads(grads, scale) -> list:
+    """Undo loss scaling and upcast to f32, before the clip, so that the
+    clip threshold is in true-gradient units (DESIGN.md §4).  ``scale`` is
+    a 0-d tensor (a CPU one multiplies a tensor on any device)."""
+    inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32)
+    return [g.float() * inv for g in leaves(grads)]
 
 
 def global_norm(tree) -> torch.Tensor:

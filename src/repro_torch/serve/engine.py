@@ -71,6 +71,10 @@ class ServeEngine:
 
     ``params`` is a parameter tree (``chgnet_init`` or
     ``convert.params_from_numpy``); ``device=None`` means the card.
+    ``precision`` overrides ``model_cfg.precision`` for serving (DESIGN.md
+    §4): MD inference may take ``"mixed"`` (bf16 operands, f32 sums and
+    f32 outputs, so integrators see no change); the parameters may stay in
+    their training dtype, the model casts them at their use sites.
     """
 
     def __init__(
@@ -81,7 +85,10 @@ class ServeEngine:
         *,
         device=None,
         validate_layout: bool = True,
+        precision: str | None = None,
     ):
+        if precision is not None:
+            model_cfg = model_cfg.with_(precision=precision)
         self.model = CHGNet(model_cfg, params, device=device)
         self.model_cfg = model_cfg
         self.device = self.model.device
@@ -97,6 +104,7 @@ class ServeEngine:
         *,
         device=None,
         validate_layout: bool = True,
+        precision: str | None = None,
         **ladder_kw,
     ) -> "ServeEngine":
         graphs = graphs or [
@@ -105,7 +113,8 @@ class ServeEngine:
         ]
         return cls(params, model_cfg,
                    structure_ladder(graphs, crystals, **ladder_kw),
-                   device=device, validate_layout=validate_layout)
+                   device=device, validate_layout=validate_layout,
+                   precision=precision)
 
     def step_fn(self, caps: BatchCapacities, num_slots: int):
         """Serve step for (bucket, slots, config): a packed CPU batch in,

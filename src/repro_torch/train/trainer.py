@@ -8,11 +8,22 @@ the step.  There is no ``jit``: PyTorch runs eagerly, and Adam updates
 the parameters in place, which takes the place of the JAX package's
 buffer donation.
 
-Ported: ``TrainConfig`` field for field, ``chgnet_loss_fn``, the f32
-branch of ``_apply_grads`` (``apply_grads``), ``make_chgnet_step_fns``
-and a ``Trainer`` with ``train``, ``evaluate`` and ``serve``.  Every
-Trainer feature of a later ROADMAP item raises ``NotImplementedError``
-naming it: the loss scaler (item 8), divergence rollback and cost-model
+Ported: ``TrainConfig`` field for field, ``chgnet_loss_fn``,
+``_apply_grads`` (``apply_grads``) with the loss scaler, ``make_chgnet_
+step_fns`` and a ``Trainer`` with ``train``, ``evaluate`` and ``serve``.
+
+Mixed precision (DESIGN.md §4): when the policy computes below f32 the
+step scales the loss (``TrainConfig.loss_scale``, state in
+``opt_state["loss_scale"]``), unscales the gradients to f32 before the
+clip, checks them for finite values, and on inf/nan skips the whole
+update (parameters, moments and Adam's count) and backs the scale off;
+bf16 parameters get f32 master weights in Adam.  The metrics gain
+``loss_scale`` and ``grads_finite``.  Adam's count is a host value, so
+the skip is decided on the host: the step's one device read, which also
+brings the metrics, comes before Adam.
+
+Every Trainer feature of a later ROADMAP item raises
+``NotImplementedError`` naming it: divergence rollback and cost-model
 refits (item 10), checkpoints, async writes and the shutdown hand-off
 (item 12), and the mesh (item 13).
 """
@@ -32,25 +43,23 @@ from repro_torch.core.chgnet import (
 from repro_torch.core.graph import CrystalGraphBatch
 from repro_torch.core.losses import LossWeights, chgnet_loss
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
-from repro_torch.optim.grad import clip_by_global_norm, global_norm
+from repro_torch.optim.grad import (
+    clip_by_global_norm,
+    global_norm,
+    tree_all_finite,
+    unscale_grads,
+)
 from repro_torch.optim.schedule import cosine_annealing, scaled_init_lr
 from repro_torch.optim.tree import leaves
+from repro_torch.precision import (
+    LossScaleConfig,
+    loss_scale_init,
+    loss_scale_update,
+    resolve_policy,
+    scale_loss,
+)
 
 _TODO = "is not ported yet: ROADMAP 'Modules to port' item"
-
-
-@dataclasses.dataclass(frozen=True)
-class LossScaleConfig:
-    """The loss-scaler recipe of ``repro.precision`` (DESIGN.md §4).  Only
-    ``kind="auto"`` at f32 and ``"none"`` run: both mean no scaling."""
-
-    kind: str = "auto"
-    init_scale: float = 2.0 ** 12
-    growth_factor: float = 2.0
-    backoff_factor: float = 0.5
-    growth_interval: int = 200
-    min_scale: float = 1.0
-    max_scale: float = 2.0 ** 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,15 +110,50 @@ def grads_of(loss, params) -> list:
             for p, g in zip(flat, grads)]
 
 
-def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig):
-    """The f32 tail of every train step: clip -> Adam, in place.  Returns
-    ``(params, opt_state, extra_metrics)``; the extra metric is the
-    gradient's global norm before the clip."""
-    norm = global_norm(grads)
-    grads = clip_by_global_norm(grads, train_cfg.grad_clip)
-    params, opt_state = adam_update(grads, opt_state, params, lr,
-                                    train_cfg.adam)
-    return params, opt_state, {"grad_norm": norm}
+def _read(values: dict) -> dict:
+    """One device read for every scalar in ``values``: 0-d f32 CPU
+    tensors back."""
+    host = torch.stack([v.detach().float().reshape(())
+                        for v in values.values()]).tolist()
+    return {k: torch.tensor(x) for k, x in zip(values, host)}
+
+
+def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
+                scale_kind: str = "none", metrics: dict | None = None):
+    """The shared tail of every train step, in place.  Returns ``(params,
+    opt_state, extra_metrics)``; the extra metrics are the gradient's
+    global norm before the clip and, with a loss scaler, the scale and
+    ``grads_finite``.
+
+    Without a scaler in ``opt_state``: clip -> Adam.  With one (DESIGN.md
+    §4): unscale to f32 -> finite check -> clip -> Adam, and on inf/nan
+    gradients no update at all (parameters, moments, count), then the
+    scaler's update.  The finite flag has to reach the host before Adam
+    (its count and bias corrections are host values): that read also
+    takes the step's ``metrics``, returned as host values among the extra
+    metrics, so the step still reads the device once."""
+    scaler = opt_state.get("loss_scale")
+    if scaler is None:
+        norm = global_norm(grads)
+        grads = clip_by_global_norm(grads, train_cfg.grad_clip)
+        params, opt_state = adam_update(grads, opt_state, params, lr,
+                                        train_cfg.adam)
+        return params, opt_state, {"grad_norm": norm}
+    adam_state = {k: v for k, v in opt_state.items() if k != "loss_scale"}
+    # unscale to f32 before the clip, so that the clip threshold and the
+    # finite check see the true gradients
+    grads = unscale_grads(grads, scaler["scale"])
+    host = _read(dict(metrics or {}, grad_norm=global_norm(grads),
+                      grads_finite=tree_all_finite(grads)))
+    finite = bool(host["grads_finite"])
+    if finite:
+        grads = clip_by_global_norm(grads, train_cfg.grad_clip)
+        params, adam_state = adam_update(grads, adam_state, params, lr,
+                                         train_cfg.adam)
+    scaler = loss_scale_update(scaler, finite, train_cfg.loss_scale,
+                               scale_kind)
+    return params, dict(adam_state, loss_scale=scaler), dict(
+        host, loss_scale=scaler["scale"])
 
 
 def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
@@ -129,12 +173,18 @@ def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
                                 train_cfg.init_lr,
                                 warmup_steps=train_cfg.warmup_steps)
 
+    scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
+
     def train_step(params, opt_state, batch, step):
         loss, metrics = chgnet_loss_fn(params, model_cfg, batch,
                                        train_cfg.loss)
-        grads = grads_of(loss, params)
+        scaler = opt_state.get("loss_scale")
+        # the metrics carry the unscaled loss
+        grads = grads_of(loss if scaler is None else scale_loss(loss, scaler),
+                         params)
         params, opt_state, extra = apply_grads(
-            grads, opt_state, params, lr_at(step), train_cfg)
+            grads, opt_state, params, lr_at(step), train_cfg, scale_kind,
+            metrics)
         return params, opt_state, dict(metrics, **extra)
 
     @torch.no_grad()
@@ -182,14 +232,20 @@ class Trainer:
             raise NotImplementedError(f"rollback_on_divergence {_TODO} 10")
         if train_cfg.cost_refit_every:
             raise NotImplementedError(f"cost_refit_every {_TODO} 10")
-        if train_cfg.loss_scale.kind not in ("auto", "none"):
-            raise NotImplementedError(
-                f"loss_scale.kind={train_cfg.loss_scale.kind!r} {_TODO} 8")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.params = params_on(chgnet_init(seed, model_cfg), self.device)
-        self.opt_state = adam_init(self.params)
+        # mixed precision (DESIGN.md §4): bf16 parameter storage gets f32
+        # master weights in Adam; a compute dtype below f32 a loss scaler,
+        # whose state rides in opt_state
+        policy = resolve_policy(model_cfg.precision)
+        self.opt_state = adam_init(
+            self.params, master_dtype=torch.float32
+            if policy.needs_master_weights else None)
+        if train_cfg.loss_scale.resolved_kind(policy) != "none":
+            self.opt_state["loss_scale"] = loss_scale_init(
+                train_cfg.loss_scale)
         self.step = 0
         self._train_step, self._eval_step, self._serve_step = \
             make_chgnet_step_fns(model_cfg, train_cfg)
@@ -219,10 +275,15 @@ class Trainer:
             self.params, self.opt_state, metrics = self._train_step(
                 self.params, self.opt_state, batch.to(self.device),
                 self.step)
-            # one device read per step for all the metrics
+            # one device read per step for all the metrics (with a loss
+            # scaler the step has made it, and these are host values)
             values = dict(zip(metrics, torch.stack(
                 [v.detach().float() for v in metrics.values()]).tolist()))
-            if not torch.isfinite(torch.tensor(values["loss"])):
+            # a step the scaler skipped (grads_finite 0) left the state
+            # untouched: not a fault
+            skipped = not values.get("grads_finite", 1.0)
+            if not torch.isfinite(torch.tensor(values["loss"])) \
+                    and not skipped:
                 raise FloatingPointError(
                     f"non-finite loss at step {self.step}")
             self.step += 1

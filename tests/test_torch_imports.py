@@ -51,7 +51,8 @@ def test_every_library_has_its_source():
 def test_digest_follows_included_headers(tmp_path, monkeypatch):
     """A library's build key hashes the .cuh headers its source includes:
     editing csrc/hopper.cuh rebuilds swiglu, flash_attention, gated_mlp and
-    message_passing, and no other library."""
+    both message-passing libraries, and no other library; editing
+    csrc/message_passing.cuh rebuilds those two alone."""
     import shutil
 
     from repro_torch.kernels import build
@@ -67,7 +68,16 @@ def test_digest_follows_included_headers(tmp_path, monkeypatch):
     after = {name: build._out_path(name) for name in build.SIGNATURES}
     changed = {n for n in build.SIGNATURES if before[n] != after[n]}
     assert changed == {"swiglu", "flash_attention", "gated_mlp",
-                       "message_passing"}
+                       "message_passing", "message_passing_bf16"}
+    # the message-passing templates rebuild both of their libraries
+    assert [h.name for h in build._headers(csrc / "message_passing.cu")] \
+        == ["message_passing.cuh", "hopper.cuh"]
+    before = after
+    templates = csrc / "message_passing.cuh"
+    templates.write_text(templates.read_text() + "\n// edited\n")
+    after = {name: build._out_path(name) for name in build.SIGNATURES}
+    assert {n for n in build.SIGNATURES if before[n] != after[n]} == \
+        {"message_passing", "message_passing_bf16"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

@@ -19,7 +19,11 @@ which is why the kernels split.  The convs and the force readouts are
 emulated as their kernels run them, down to the ordered row sums over the
 launch's partition (and the readout's per-crystal sum, whatever the order
 of the crystal slots), and held to the float64 plain versions, the convs
-for each mirror operand.  The card holds the kernels themselves to their
+for each mirror operand.  The bf16 paths of kernels 2, 3 and 4a
+(precision "mixed") are emulated too: one m16n8k16 bf16 product per 16
+columns into an f32 accumulator that rounds toward zero, the f32
+epilogue and row sums, the output rounded to bf16 once; held to float64
+within one bf16 rounding.  The card holds the kernels themselves to their
 plain versions (``chip_smoke.py``).
 """
 from __future__ import annotations
@@ -246,6 +250,37 @@ def mma_rz_emulated(a, b, stage_k: int):
     return out
 
 
+def round_bf16(x):
+    """f32 -> the nearest bf16 value (ties to even), as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def mma_bf16_emulated(a, b):
+    """a (M, K) @ b (K, N) of bf16 values as the bf16 paths of kernels 2,
+    3 and 4a run it: one mma.sync m16n8k16 a 16-wide step of K, its 16
+    products (exact) summed into the f32 accumulator, which the tensor
+    cores round toward zero; one accumulator over all of K (the convs'
+    d_in = 3D or 4D, the force readout's D)."""
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 16):
+        ks = slice(k, k + 16)
+        out = _round_toward_zero(out.double()
+                                 + a[:, ks].double() @ b[ks].double())
+    return out
+
+
+@pytest.mark.parametrize("k", [192, 256])
+def test_bf16_product_accumulates_in_f32(k):
+    """The bf16 product at the convs' K (3D and 4D at D = 64: 12 and 16
+    steps into one accumulator): within 1e-5 of the float64 product of the
+    same bf16 operands, far from the drift of K = 14336 below; the one
+    rounding left is the output's to bf16."""
+    rng = np.random.default_rng(k)
+    a = round_bf16(_normal(rng, 300, k))
+    b = round_bf16(_normal(rng, k, 128, scale=k ** -0.5))
+    assert _err(mma_bf16_emulated(a, b), a.double() @ b.double()) <= TOL
+
+
 @pytest.mark.parametrize("stage_k,meets", [(32, True), (64, True),
                                            (14336, False)])
 def test_swiglu_down_product_sums_a_stage_at_a_time(stage_k, meets):
@@ -348,11 +383,12 @@ def _conv_inputs(mode: str, variant: str, seed: int = 0):
     return args, extra, parts, env, offsets, mlp
 
 
-def _conv_emulated(mode, parts, env, mlp, offsets):
+def _conv_emulated(mode, parts, env, mlp, offsets, bf16: bool = False):
     """A conv as its kernel runs it: each real edge's input row gathered
-    from its parts, the split GEMM, bias, LayerNorms and gate, the
-    envelope factors, then each row's edges summed in f32 in CSR order,
-    row by row of each block of the launch's partition."""
+    from its parts, the split GEMM (``bf16``: the bf16 path's product of
+    bf16 operands), bias, LayerNorms and gate, the envelope factors, then
+    each row's edges summed in f32 in CSR order, row by row of each block
+    of the launch's partition."""
     offs = offsets.long()
     n_real = int(offs[-1])
 
@@ -360,7 +396,12 @@ def _conv_emulated(mode, parts, env, mlp, offsets):
         return t[:n_real] if i is None else t[i[:n_real].long()]
 
     x = torch.cat([rows(t, i) for t, i in parts], dim=1)
-    msg = _mlp_emulated(x, *mlp, split=True)
+    if bf16:
+        w, b, lns, lnb = mlp
+        msg = ref.gated_mlp_packed_ref(
+            mma_bf16_emulated(x, w), torch.eye(w.shape[1]), b, lns, lnb)
+    else:
+        msg = _mlp_emulated(x, *mlp, split=True)
     for t, i in env:
         msg = msg * rows(t, i)
     out = torch.zeros(offs.shape[0] - 1, msg.shape[1])
@@ -389,6 +430,77 @@ def test_split_conv_matches_float64(mode, variant):
     assert _err(got, want) <= TOL
     # the plain f32 version meets the same bound
     assert _err(plain(*args, *extra), want) <= TOL
+
+
+# one bf16 rounding of an output, relative to max(1, max|ref|)
+BF16_TOL = 2.0 ** -7
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("mode,variant", [
+    ("atom", "directed"), ("atom", "pair"), ("atom", "pair+und"),
+    ("bond", "directed"), ("bond", "pair")])
+def test_bf16_conv_rounds_once(mode, variant):
+    """Kernels 2 and 3's bf16 path emulated (bf16 operands, the bf16
+    product into f32 accumulators, the f32 epilogue and ordered row sums,
+    the output rounded to bf16 once) against the float64 plain version of
+    the same bf16 operands, within one bf16 rounding; the plain version on
+    bf16 tensors (f32 inside, rounded once) too."""
+    args, extra, parts, env, offsets, mlp = _conv_inputs(mode, variant)
+    args = tuple(round_bf16(t) if t.is_floating_point() else t
+                 for t in args)
+    parts = [(round_bf16(t), i) for t, i in parts]
+    env = [(round_bf16(t), i) for t, i in env]
+    mlp = tuple(round_bf16(t) for t in mlp)
+    plain = ref.fused_atom_conv_ref if mode == "atom" \
+        else ref.fused_bond_conv_ref
+    want = plain(*(t.double() if t.is_floating_point() else t
+                   for t in args), *extra)
+    got = _conv_emulated(mode, parts, env, mlp, offsets, bf16=True)
+    assert _err(_bf16(got), want) <= BF16_TOL
+    bf = plain(*(_bf16(t) for t in args), *extra)
+    assert bf.dtype == torch.bfloat16 and _err(bf, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_bf16_force_readout_rounds_once(d):
+    """Kernel 4a's bf16 path emulated (W1 and e in bf16, x_hat widened to
+    f32 by the wrapper, the bf16 product, silu, n . w2 and the row sums in
+    f32, the forces rounded to bf16 once) against the float64 plain
+    version of the same bf16 operands, within one bf16 rounding."""
+    (e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms,
+     n_crys) = _readout_inputs(d)
+    e, x_hat, w1, b1, w2, b2 = (round_bf16(t)
+                                for t in (e, x_hat, w1, b1, w2, b2))
+    want = ref.fused_force_readout_ref(
+        *(t.double() for t in (e, x_hat, w1, b1, w2, b2)), seg, offs,
+        n_atoms)
+    forces, _ = _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offs,
+                                  cry, n_crys, mma=mma_bf16_emulated)
+    assert _err(_bf16(forces), want) <= BF16_TOL
+    bf = ref.fused_force_readout_ref(
+        *(_bf16(t) for t in (e, x_hat, w1, b1, w2, b2)), seg, offs, n_atoms)
+    assert bf.dtype == torch.bfloat16 and _err(bf, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("mode", ["atom", "bond", "force"])
+@pytest.mark.parametrize("dim", ops.CONV_WIDTHS)
+def test_bf16_plans_fit_the_card(mode, dim):
+    """The bf16 plans (kernels 2, 3 and 4a): a block's shared memory and
+    the blocks a SM fit, the tiles are the f32 plan's, and the stages take
+    fewer bytes; kernel 5 has no bf16 path."""
+    f32 = ops.conv_plan(mode, dim, 394_496, 132)
+    bf = ops.conv_plan(mode, dim, 394_496, 132, itemsize=2)
+    assert bf.smem < f32.smem and bf.smem <= 232_448
+    assert bf.blocks_per_sm * (bf.smem + 1024) <= 233_472
+    assert bf.blocks_per_sm >= f32.blocks_per_sm
+    assert (bf.tm, bf.t, bf.k_chunks) == (f32.tm, f32.t, f32.k_chunks)
+    assert bf.grid == bf.blocks_per_sm * 132
+    with pytest.raises(ValueError, match="no 'sym' kernel"):
+        ops.conv_plan("sym", dim, 100, 132, itemsize=2)
 
 
 @pytest.mark.parametrize("mode", ["atom", "bond"])
@@ -605,7 +717,7 @@ def _butterfly(x):
 
 
 def _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offsets, cry,
-                      n_crys):
+                      n_crys, mma=mma_emulated):
     """Kernel 4 as it runs: h = silu of the split GEMM e W1 + b1, n = h .
     w2 + b2, the contributions n x_hat and n d x_hat ⊗ x_hat, each row's
     bonds summed in f32 in CSR order, row by row of each block of the
@@ -615,7 +727,7 @@ def _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offsets, cry,
     in order."""
     offs = offsets.long()
     n_real = int(offs[-1])
-    h = torch.nn.functional.silu(mma_emulated(e[:n_real], w1) + b1)
+    h = torch.nn.functional.silu(mma(e[:n_real], w1) + b1)
     n = (h * w2[:, 0]).sum(dim=1) + b2
     xh = x_hat[:n_real]
     outer = (xh[:, :, None] * xh[:, None, :]).reshape(-1, 9)

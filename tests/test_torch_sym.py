@@ -477,8 +477,11 @@ def test_serve_predict_and_md_match_jax(params):
 
 
 def test_sym_configs_run_and_only_precision_raises():
-    """FAST_FUSED_HALF and FAST_FUSED_SYM build; precision stays item 8."""
-    for cfg in (TC.FAST_FUSED_HALF, TC.FAST_FUSED_SYM, TC.FAST_SYM):
+    """FAST_FUSED_HALF, FAST_FUSED_SYM and FAST_FUSED_HALF_MIXED build; the
+    fused symmetric trunk at a bf16 compute dtype raises (kernels 5 and 6
+    have no bf16 path yet)."""
+    for cfg in (TC.FAST_FUSED_HALF, TC.FAST_FUSED_SYM, TC.FAST_SYM,
+                TC.FAST_FUSED_HALF_MIXED):
         CHGNet(cfg.with_(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CHGNet(TC.FAST_FUSED_HALF_MIXED, device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        CHGNet(TC.FAST_FUSED_SYM.with_(precision="mixed"), device="cpu")

@@ -211,8 +211,27 @@ def test_adam_on_fixed_grads_matches_jax(weight_decay):
             np.testing.assert_allclose(_np(got), np.asarray(want),
                                        rtol=1e-5, atol=1e-8)
         assert int(ts["count"]) == int(js["count"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tadam.adam_init(tp, master_dtype=torch.float32)
+    # bf16 parameters with f32 master weights (DESIGN.md §4): the master
+    # copy and the moments track JAX's, the live parameters are its cast
+    jb = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp)
+    tb = jax.tree.map(lambda x: x.to(torch.bfloat16), tp)
+    js = jadam.adam_init(jb, master_dtype=jnp.float32)
+    ts = tadam.adam_init(tb, master_dtype=torch.float32)
+    for lr in (1e-2, 3e-3):
+        g = _tree(rng, 0.1)
+        jb, js = jadam.adam_update(jax.tree.map(jnp.asarray, g), js, jb, lr,
+                                   cfg_j)
+        tb, ts = tadam.adam_update(_to_torch(g), ts, tb, lr, cfg_t)
+        for got, want in zip(
+                leaves(ts["master"]) + leaves(ts["mu"]) + leaves(ts["nu"]),
+                jax.tree.leaves(js["master"]) + jax.tree.leaves(js["mu"])
+                + jax.tree.leaves(js["nu"])):
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(_np(got), np.asarray(want),
+                                       rtol=1e-5, atol=1e-8)
+        for live, master in zip(leaves(tb), leaves(ts["master"])):
+            assert live.dtype == torch.bfloat16
+            assert torch.equal(live, master.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 100.0])
@@ -292,7 +311,6 @@ CFG = TC.FAST_FUSED.with_(**SMALL)
     (dict(shutdown=object()), {}, "item 12"),
     ({}, dict(rollback_on_divergence=True), "item 10"),
     ({}, dict(cost_refit_every=4), "item 10"),
-    ({}, dict(loss_scale=ttrain.LossScaleConfig(kind="dynamic")), "item 8"),
 ])
 def test_unported_trainer_options_raise(kwargs, train_cfg, item):
     with pytest.raises(NotImplementedError, match=item):
