@@ -90,10 +90,32 @@ PyTorch version:
   8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
-  9. learns: 60 steps at batch 8 at ``FAST_FUSED``, and again at
+  9. balanced: ``BalancedBatchIterator`` (2 cost-sorted microbatches a
+     step, each in its own bucket of ``ladder_for``) through the
+     ``Prefetcher`` into ``Trainer._step_plan`` at ``FAST_FUSED`` with live
+     cost-model refits every 2 steps (1 + 5 steps), then
+     ``FAST_FUSED_MIXED`` (1 + 2, loss scale and ``grads_finite`` each
+     step); kernels 2, 3 and 4a launched exactly twice ``PER_FORWARD`` a
+     step; on the first plan the summed microbatch gradients within
+     ``1e-4 * max(1, max|p|)`` of one batch of the same indices at
+     ``capacity_for`` and of the plain path; the refit model must reach
+     the iterator; ms per optimizer step and crystals/s beside
+     ``FAST_FUSED prefetch``, each microbatch's bucket and real/capacity
+     atoms, bonds and angles, the refit coefficients;
+ 10. runtime: a real SIGTERM at step 3 (async checkpoints every 2 steps)
+     must preempt with a resume marker and a valid checkpoint, and the
+     restored run must end at step 6 equal bit for bit to an
+     uninterrupted one; ``nan@3,nan@4`` with rollback on divergence must
+     roll back once, quarantine, train on finitely and leave only files
+     that verify; a bit flip in the newest file must make the restore take
+     the one before; ``python -m repro_torch.launch.train --balance cost
+     --accum 2 --async-ckpt`` must train 8 steps and resume from its own
+     checkpoint to 12; checkpoint bytes, sync save, async save (loop
+     thread, flush) and restore times are reported;
+ 11. learns: 60 steps at batch 8 at ``FAST_FUSED``, and again at
      ``FAST_FUSED_MIXED``, must bring a held-out batch's loss below 0.6x
      its value before;
- 10. lm: llama3-8b at full width and depth with bf16 weights from the
+ 12. lm: llama3-8b at full width and depth with bf16 weights from the
      seed (the CHGNet phases' memory returned first): 4 prompts of 512
      tokens prefilled into a 640-position KV cache, then 16 greedy decode
      steps, on the kernels' path (every layer's MLP through the fused
@@ -130,10 +152,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,9 +183,11 @@ from repro_torch.core import basis, chgnet, heads  # noqa: E402
 from repro_torch.core.neighbors import Crystal, build_graph  # noqa: E402
 from repro_torch.core.graph import FIELDS  # noqa: E402
 from repro_torch.data import (  # noqa: E402
+    BalancedBatchIterator,
     BatchIterator,
     Prefetcher,
     SyntheticConfig,
+    build_device_batch,
     generate_crystal,
     make_dataset,
 )
@@ -168,6 +195,19 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.precision import resolve_policy, scale_loss  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    AsyncCheckpointWriter,
+    ChaosMonkey,
+    ChaosSchedule,
+    GracefulShutdown,
+    PreemptionError,
+    corrupt_newest_checkpoint,
+    latest_valid_step,
+    list_checkpoints,
+    read_resume_marker,
+    save_checkpoint,
+    verify_checkpoint,
+)
 from repro_torch.serve import BatchedMD, ServeEngine  # noqa: E402
 from repro_torch.serve import lm  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
@@ -176,6 +216,7 @@ from repro_torch.train.trainer import (  # noqa: E402
     apply_grads,
     chgnet_loss_fn,
     grads_of,
+    make_chgnet_accum_step_fns,
     params_on,
 )
 
@@ -2371,6 +2412,361 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
     return row, primary
 
 
+def _plans(it):
+    """Endless StepPlans of ``it``, one epoch after another (each epoch
+    packs with the iterator's current cost model)."""
+    while True:
+        yield from it
+
+
+def _logged(plans, log: list):
+    """The plans as the Trainer takes them, each plan's microbatches (bucket
+    caps, real atoms, bonds, angles: host values) appended to ``log``."""
+    for plan in plans:
+        log.append([{"caps": (m.atom_cap, m.bond_cap, m.angle_cap),
+                     "real": [int(x) for x in sizes]}
+                    for m, sizes in zip(plan.micro, plan.micro_sizes)])
+        yield plan
+
+
+def accum_grad_check(params, cfg, tcfg, ds, plan, idx, caps) -> dict:
+    """The summed gradients of a plan's microbatches (the accumulation
+    step, each microbatch in its bucket) against the gradients of one batch
+    of the same indices packed at ``caps`` (``capacity_for``) and against
+    the plain path's summed gradients, every leaf within ``1e-4 * max(1,
+    max|p|)``; under deterministic algorithms."""
+    def summed(step_cfg):
+        grad_step, _ = make_chgnet_accum_step_fns(step_cfg, tcfg)
+        total = None
+        for m in plan.micro:
+            g, _ = grad_step(params, m.to("cuda"), plan.denoms)
+            total = g if total is None else [a + b for a, b in zip(total, g)]
+        return total
+
+    with _deterministic():
+        g_accum = summed(cfg)
+        g_plain = summed(plain_config(cfg))
+        big = build_device_batch(ds, idx, caps,
+                                 num_crystal_slots=len(idx)).to("cuda")
+        loss, _ = chgnet_loss_fn(params, cfg, big, tcfg.loss)
+        g_big = grads_of(loss, params)
+    row = {}
+    for name, want in (("big_batch", g_big), ("plain_path", g_plain)):
+        errs = [_check_close(f"summed micro grads vs {name} leaf {i}", a, b)
+                for i, (a, b) in enumerate(zip(g_accum, want, strict=True))]
+        row[f"{name}_max_abs_err"] = max(e for e, _ in errs)
+        row[f"{name}_worst_err_over_tolerance"] = max(e / t for e, t in errs)
+    row["grad_leaves"] = len(g_accum)
+    return row
+
+
+def balanced_phase(ds, caps, fixed_caps, seed: int, card: str,
+                   prefetch_row: dict) -> dict:
+    """Load-balanced training (DESIGN.md §6) at ``FAST_FUSED``: a
+    ``BalancedBatchIterator`` (2 cost-sorted microbatches a step, each in
+    its own bucket of ``caps``) through ``Prefetcher(device="cuda")`` into
+    ``Trainer._step_plan`` with live cost-model refits every 2 steps, 1 +
+    5 steps, kernels 2, 3 and 4a launched exactly twice ``PER_FORWARD`` a
+    step; on the first plan the summed microbatch gradients against one
+    batch of the same indices at ``fixed_caps`` and against the plain
+    path (``accum_grad_check``); the refit model must reach the iterator
+    through ``on_cost_model``.  Then 1 + 2 steps at ``FAST_FUSED_MIXED``
+    through the same iterator, the loss scale and ``grads_finite`` of each
+    step reported."""
+    cfg = chgnet_mptrj.FAST_FUSED
+    tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
+                       loss=chgnet_mptrj.LOSS, cost_refit_every=2)
+    it = BalancedBatchIterator(ds, TRAIN_BATCH, 1, caps, num_micro=2,
+                               seed=seed)
+    tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
+    tr.on_cost_model = it.update_cost_model
+    idx = np.random.default_rng(seed + 1).permutation(len(ds))[:TRAIN_BATCH]
+    grads = accum_grad_check(tr.params, cfg, tcfg, ds, it.plan_step(idx),
+                             idx, fixed_caps)
+    mixed = Trainer(chgnet_mptrj.FAST_FUSED_MIXED,
+                    dataclasses.replace(tcfg, cost_refit_every=0), seed=seed,
+                    device="cuda")
+    ladder = [(b.atoms, b.bonds, b.angles) for b in caps.buckets]
+    rows = {}
+    log: list = []
+    pf = Prefetcher(_plans(it), depth=2, device="cuda")
+    try:
+        batches = _logged(iter(pf), log)
+        for name, trainer, steps in (("FAST_FUSED balanced", tr, 5),
+                                     ("FAST_FUSED_MIXED balanced", mixed,
+                                      2)):
+            trainer.train(itertools.islice(batches, 1))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = len(log)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = trainer.train(itertools.islice(batches, steps))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved()
+            micro = log[c0:]
+            if [len(p) for p in micro] != [2] * steps:
+                raise RuntimeError(f"{name}: microbatches per step "
+                                   f"{[len(p) for p in micro]}")
+            check_launches(name, counts, PER_FORWARD, 2 * steps)
+            for h in hist:
+                if not (math.isfinite(h["loss"])
+                        and math.isfinite(h["grad_norm"])):
+                    raise RuntimeError(f"{name}: non-finite loss or grad "
+                                       f"norm {h}")
+            rows[name] = {
+                "steps": steps, "micro_per_step": 2,
+                "ms_per_step": elapsed / steps * 1e3,
+                "crystals_per_s": TRAIN_BATCH * steps / elapsed,
+                "peak_mem_bytes": peak, "peak_reserved_bytes": peak_reserved,
+                "launches": counts,
+                "micro": [[dict(m, bucket=ladder.index(m["caps"]))
+                           for m in plan] for plan in micro],
+                "losses": [h["loss"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "loss_scales": [h.get("loss_scale") for h in hist],
+                "grads_finite": [h.get("grads_finite") for h in hist],
+            }
+            # one traced step: device time and events against FAST_FUSED
+            # prefetch's traced step
+            prof = rows[name]["profile"] = profile_step(
+                lambda: trainer.train(itertools.islice(batches, 1)), None,
+                (), ("embedding_dense_backward",))
+            prof["busy_share"] = prof["device_ms"] / rows[name][
+                "ms_per_step"]
+    finally:
+        pf.close()
+    if tr.cost_model is None or it.cost_model is not tr.cost_model:
+        raise RuntimeError("the refit cost model did not reach the "
+                           "iterator through on_cost_model")
+    ref = prefetch_row.get("profile", {})
+    row = rows["FAST_FUSED balanced"]
+    row.update(grad_check=grads, cost_model=dataclasses.asdict(tr.cost_model),
+               cost_samples=len(tr._cost_samples),
+               prefetch_ms_per_step=prefetch_row["ms_per_step"],
+               prefetch_crystals_per_s=prefetch_row["crystals_per_s"],
+               prefetch_device_ms=ref.get("device_ms"),
+               prefetch_device_events=ref.get("device_events"))
+    for name, r in rows.items():
+        prof = r["profile"]
+        print(f"train {name} ({card}): {r['ms_per_step']:.2f} ms per "
+              f"optimizer step, {r['crystals_per_s']:.1f} crystals/s, "
+              f"traced step {prof['device_ms']:.2f} device ms in "
+              f"{prof['device_events']} events (busy share "
+              f"{prof['busy_share']:.2f}, embedding_dense_backward "
+              f"{prof['kernels']['embedding_dense_backward']['device_ms']:.2f}"
+              f" ms), peak {r['peak_mem_bytes'] / 2**20:.1f} MiB (reserved "
+              f"{r['peak_reserved_bytes'] / 2**20:.1f}); FAST_FUSED "
+              f"prefetch in this run: "
+              f"{prefetch_row['ms_per_step']:.2f} ms, "
+              f"{prefetch_row['crystals_per_s']:.1f} crystals/s, "
+              f"{ref.get('device_ms')} device ms in "
+              f"{ref.get('device_events')} events; launches "
+              f"{r['launches']}; losses {r['losses']}, loss scales "
+              f"{r['loss_scales']}, grads finite {r['grads_finite']}",
+              flush=True)
+        for s, plan in enumerate(r["micro"]):
+            print(f"train {name} ({card}) step {s}: " + "; ".join(
+                f"micro {i} bucket {m['bucket']}: atoms {m['real'][0]}/"
+                f"{m['caps'][0]}, bonds {m['real'][1]}/{m['caps'][1]}, "
+                f"angles {m['real'][2]}/{m['caps'][2]}"
+                for i, m in enumerate(plan)), flush=True)
+    print(f"train FAST_FUSED balanced ({card}): refit cost model "
+          f"{row['cost_model']} from {row['cost_samples']} microbatch "
+          f"times; summed microbatch gradients vs one batch at "
+          f"capacity_for {grads['big_batch_max_abs_err']:.3g}, vs the plain "
+          f"path {grads['plain_path_max_abs_err']:.3g} (worst err / "
+          f"tolerance {grads['big_batch_worst_err_over_tolerance']:.3g}, "
+          f"{grads['plain_path_worst_err_over_tolerance']:.3g})", flush=True)
+    del tr, mixed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tagged_steps(ds, caps, n: int) -> list:
+    """The batch of step s, a function of s alone (``BatchIterator`` seeded
+    s), tagged with its indices: a resumed run sees the data an
+    uninterrupted one saw."""
+    return [next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps, seed=s,
+                                    tag_indices=True))) for s in range(n)]
+
+
+def _same_state(name: str, a, b) -> None:
+    differ = [i for i, (x, y) in enumerate(zip(leaves(a.state()),
+                                               leaves(b.state()),
+                                               strict=True))
+              if not torch.equal(x, y)]
+    if differ:
+        raise RuntimeError(f"{name}: {len(differ)} state leaves differ, "
+                           f"first {differ[0]}")
+
+
+def runtime_phase(ds, caps, seed: int, card: str, root: Path) -> dict:
+    """The runtime (DESIGN.md §8) at ``FAST_FUSED``, batch 128, under
+    deterministic algorithms: run A, 6 uninterrupted steps; run B with
+    async checkpoints every 2 steps and a real SIGTERM at step 3 (the chaos
+    monkey) must stop with ``PreemptionError``, a resume marker and a
+    valid checkpoint, and a fresh Trainer restored from it must end at step
+    6 with run A's state bit for bit; a run with rollback on divergence
+    and ``nan@3,nan@4`` must roll back exactly once, quarantine the
+    streak's indices, train on with finite losses and leave only files
+    that verify; a bit flip in the newest file must make the restore fall
+    back to the one before; the launcher (``python -m
+    repro_torch.launch.train``) trains 8 steps with ``--balance cost
+    --accum 2 --async-ckpt`` and resumes from its checkpoint to 12.  The
+    sync save, the async save's loop-thread and flush times, the restore
+    time and the checkpoint's bytes are reported."""
+    cfg = chgnet_mptrj.FAST_FUSED
+
+    def tcfg(**kw):
+        return TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
+                           loss=chgnet_mptrj.LOSS, **kw)
+
+    tagged = _tagged_steps(ds, caps, 8)
+    plain = [t.batch for t in tagged]
+    row: dict = {}
+    clock = time.perf_counter
+    with _deterministic():
+        ref = Trainer(cfg, tcfg(), seed=seed, device="cuda")
+        ref.train(plain[:6])
+        d = root / "sigterm"
+        monkey = ChaosMonkey(ChaosSchedule.parse("sigterm@3"))
+        with GracefulShutdown() as shutdown:
+            run = Trainer(cfg, tcfg(), seed=seed, device="cuda",
+                          ckpt_dir=str(d), ckpt_every=2, async_ckpt=True,
+                          shutdown=shutdown)
+            try:
+                run.train(plain[:6], fault_injector=monkey)
+                raise RuntimeError("SIGTERM at step 3 did not preempt")
+            except PreemptionError as exc:
+                preempted = exc.step
+            run.close()
+            marker = read_resume_marker(str(d))
+            if not (preempted == 4 and marker and marker["step"] == 4
+                    and latest_valid_step(str(d)) == 4):
+                raise RuntimeError(f"preemption: step {preempted}, marker "
+                                   f"{marker}, newest valid "
+                                   f"{latest_valid_step(str(d))}")
+            shutdown.requested = False
+            res = Trainer(cfg, tcfg(), seed=seed + 1, device="cuda",
+                          ckpt_dir=str(d), shutdown=shutdown)
+            t0 = clock()
+            if not res.maybe_restore() or res.step != 4:
+                raise RuntimeError(f"restore gave step {res.step}")
+            torch.cuda.synchronize()
+            row["restore_ms"] = (clock() - t0) * 1e3
+            res.train(plain[4:6])
+        _same_state("SIGTERM resume against the uninterrupted run", ref, res)
+        row["sigterm"] = {"preempted_at": preempted, "marker": marker,
+                          "resumed_to": res.step, "bitwise_equal": True}
+        path = Path(d) / f"ckpt_{4:010d}.msgpack"
+        row["ckpt_bytes"] = path.stat().st_size
+        # the save paths, timed on run A's final state
+        torch.cuda.synchronize()
+        t0 = clock()
+        save_checkpoint(str(root / "sync"), 6, ref.state())
+        row["sync_save_ms"] = (clock() - t0) * 1e3
+        writer = AsyncCheckpointWriter(str(root / "async"))
+        t0 = clock()
+        writer.save(6, ref.state())
+        t1 = clock()
+        writer.flush()
+        t2 = clock()
+        writer.close()
+        row["async_save_loop_ms"] = (t1 - t0) * 1e3
+        row["async_flush_ms"] = (t2 - t1) * 1e3
+        del ref, res, run
+
+        # rollback on a NaN streak, launcher-style attempts
+        d = root / "rollback"
+        monkey = ChaosMonkey(ChaosSchedule.parse("nan@3,nan@4"),
+                             ckpt_dir=str(d))
+        history, rollbacks, quarantined, attempts = [], 0, set(), 0
+        while True:
+            attempts += 1
+            if attempts > 4:
+                raise RuntimeError("rollback run did not reach step 8")
+            tr = Trainer(cfg, tcfg(rollback_on_divergence=True), seed=seed,
+                         device="cuda", ckpt_dir=str(d), ckpt_every=2)
+            tr.maybe_restore()
+            history.extend(tr.train(monkey.wrap_batches(
+                iter(tagged[tr.step:8]), start_step=tr.step)))
+            rollbacks += tr.rollbacks
+            quarantined |= tr.quarantined
+            if tr.step >= 8:
+                break
+        nan_steps = [i for i, h in enumerate(history)
+                     if not math.isfinite(h["loss"])]
+        files = list_checkpoints(str(d))
+        if not (rollbacks == 1 and quarantined and nan_steps == [3]
+                and all(verify_checkpoint(str(d / f"ckpt_{s:010d}.msgpack"))
+                        for s in files)):
+            raise RuntimeError(f"rollback: {rollbacks} rollbacks, "
+                               f"{len(quarantined)} quarantined, non-finite "
+                               f"steps {nan_steps}, files {files}")
+        row["rollback"] = {"rollbacks": rollbacks, "attempts": attempts,
+                           "quarantined": len(quarantined),
+                           "losses": [h["loss"] for h in history],
+                           "lr_scale": float(tr.opt_state["lr_scale"]),
+                           "checkpoints": files}
+        # a bit flip in the newest file: the restore takes the one before
+        newest = corrupt_newest_checkpoint(str(d), mode="bitflip", seed=seed)
+        back = Trainer(cfg, tcfg(rollback_on_divergence=True), seed=seed,
+                       device="cuda", ckpt_dir=str(d))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            restored = back.maybe_restore()
+        if verify_checkpoint(newest) or not restored \
+                or back.step != files[-2]:
+            raise RuntimeError(f"bit flip in {newest}: restored step "
+                               f"{back.step}, expected {files[-2]}")
+        row["bitflip"] = {"corrupted": files[-1], "restored": back.step}
+        del tr, back
+    torch.cuda.empty_cache()
+
+    # the launcher, resuming from its own checkpoint
+    d = root / "launcher"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    runs = []
+    for steps in (8, 12):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+               str(steps), "--batch", str(TRAIN_BATCH), "--balance", "cost",
+               "--accum", "2", "--conv-impl", "fused", "--ckpt", str(d),
+               "--async-ckpt"]
+        t0 = clock()
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=300)
+        runs.append({"steps": steps, "s": clock() - t0,
+                     "stdout": out.stdout.strip().splitlines()})
+        if out.returncode or latest_valid_step(str(d)) != steps:
+            raise RuntimeError(f"launcher to {steps} steps: rc "
+                               f"{out.returncode}, newest valid checkpoint "
+                               f"{latest_valid_step(str(d))}\n"
+                               f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    if f"restored step 8 from {d}" not in runs[1]["stdout"]:
+        raise RuntimeError(f"the launcher did not resume from step 8: "
+                           f"{runs[1]['stdout']}")
+    row["launcher"] = runs
+    print(f"runtime ({card}): SIGTERM at step 3 -> preempted at "
+          f"{preempted}, resumed to 6 bit for bit equal to the "
+          f"uninterrupted run; checkpoint {row['ckpt_bytes']} bytes, sync "
+          f"save {row['sync_save_ms']:.2f} ms, async save "
+          f"{row['async_save_loop_ms']:.2f} ms on the loop thread + flush "
+          f"{row['async_flush_ms']:.2f} ms, restore "
+          f"{row['restore_ms']:.2f} ms", flush=True)
+    print(f"runtime ({card}): nan@3,nan@4 -> {rollbacks} rollback, "
+          f"{len(quarantined)} indices quarantined, losses "
+          f"{row['rollback']['losses']}; bit flip in step {files[-1]}'s "
+          f"file -> restored step {row['bitflip']['restored']}; launcher "
+          f"{[(r['steps'], round(r['s'], 1)) for r in runs]} s: "
+          f"{runs[1]['stdout'][-2:]}", flush=True)
+    return row
+
+
 def _stamp(t_start: float, phase: str) -> None:
     print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f}"
           " s", flush=True)
@@ -2617,7 +3013,21 @@ def main() -> None:
         (bf16_on_path if path else bf16_extra).append(row)
 
     _stamp(t_start, "train")
-    # 9. learns, in f32 and at the mixed tier
+    # 9. load-balanced training through StepPlans (DESIGN.md §6), beside
+    # FAST_FUSED prefetch; 10. the runtime (DESIGN.md §8), its checkpoints
+    # under build/ (git-ignored), removed after
+    card = smi.splitlines()[0]
+    balanced = balanced_phase(ds, train_ladder, train_caps, args.seed, card,
+                              train_rows["FAST_FUSED prefetch"])
+    _stamp(t_start, "balanced")
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_runtime"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        runtime = runtime_phase(ds, train_ladder, args.seed, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _stamp(t_start, "runtime")
+    # 11. learns, in f32 and at the mixed tier
     learns = learns_phase(args.seed)
     learns_mixed = learns_phase(args.seed, mixed)
     primary = [r for r, c in zip(tier_rows, tier_cases) if c["primary"]]
@@ -2625,12 +3035,13 @@ def main() -> None:
     print(json.dumps({"train": dict(
         train_rows, FUSED_MLP_PALLAS=fused_mlp,
         FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
+        balanced=balanced, runtime=runtime,
         learns=learns, learns_mixed=learns_mixed,
         kernel_extra_shapes=extra + bf16_extra,
         dataset={"crystals": len(ds), "caps": vars(train_caps),
                  "ladder": [vars(b) for b in train_ladder.buckets]})}))
     _stamp(t_start, "learns")
-    # 10. the LM: every CHGNet phase's state is gone; return its cache
+    # 12. the LM: every CHGNet phase's state is gone; return its cache
     torch.cuda.empty_cache()
     lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)
     print(json.dumps({"lm": lm_row}))

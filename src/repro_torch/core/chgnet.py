@@ -90,7 +90,7 @@ class CHGNetConfig:
 
 
 _BF16_NEXT = ("is not ported yet: its CUDA kernel has no bf16 operand "
-              "path (ROADMAP section 2, the next slice)")
+              "path (queued in ROADMAP section 2 for a next slice)")
 
 
 def check_supported(cfg: CHGNetConfig) -> None:

@@ -96,6 +96,54 @@ def gated_mlp_init(gen: torch.Generator, d_in: int, d_out: int) -> dict:
     }
 
 
+_LEGACY_GATED_KEYS = frozenset(
+    ("wc", "bc", "wg", "bg",
+     "ln_c_scale", "ln_c_bias", "ln_g_scale", "ln_g_bias"))
+
+
+def pack_gated_mlp_params(tree):
+    """Convert legacy separate-weight GatedMLP dicts into the packed layout.
+
+    Walks a tree (params, Adam moments, a whole Trainer state) and packs
+    every dict whose keys are exactly the legacy GatedMLP set: the
+    checkpoint-load half of the "pack once" policy.
+    """
+    if isinstance(tree, dict):
+        if set(tree.keys()) == _LEGACY_GATED_KEYS:
+            return {
+                "w": torch.cat([tree["wc"], tree["wg"]], dim=1),
+                "b": torch.cat([tree["bc"], tree["bg"]], dim=0),
+                "ln_scale": torch.cat(
+                    [tree["ln_c_scale"], tree["ln_g_scale"]], dim=0),
+                "ln_bias": torch.cat(
+                    [tree["ln_c_bias"], tree["ln_g_bias"]], dim=0),
+            }
+        return {k: pack_gated_mlp_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [pack_gated_mlp_params(v) for v in tree]
+    return tree
+
+
+def gated_mlp_legacy_template(tree):
+    """Packed tree -> legacy-layout template (for restoring old
+    checkpoints: restore into this, then ``pack_gated_mlp_params``)."""
+    if isinstance(tree, dict):
+        if set(tree.keys()) == {"w", "b", "ln_scale", "ln_bias"}:
+            d = tree["w"].shape[1] // 2
+            return {
+                "wc": tree["w"][:, :d], "wg": tree["w"][:, d:],
+                "bc": tree["b"][:d], "bg": tree["b"][d:],
+                "ln_c_scale": tree["ln_scale"][:d],
+                "ln_g_scale": tree["ln_scale"][d:],
+                "ln_c_bias": tree["ln_bias"][:d],
+                "ln_g_bias": tree["ln_bias"][d:],
+            }
+        return {k: gated_mlp_legacy_template(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [gated_mlp_legacy_template(v) for v in tree]
+    return tree
+
+
 def gated_mlp_apply(p, x, impl: str = "packed"):
     d = p["w"].shape[1] // 2
     # cast-to-compute view (DESIGN.md §4)

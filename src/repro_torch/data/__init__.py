@@ -5,8 +5,20 @@ policy, ``repro_torch.batching``) are re-exported here, as in
 from repro_torch.batching import capacity_for, ladder_for
 from repro_torch.runtime.fault import TransientSampleError
 
-from .pipeline import BatchIterator, Prefetcher, build_device_batch
-from .sampler import DefaultSampler, LoadBalanceSampler
+from .pipeline import (
+    BalancedBatchIterator,
+    BatchIterator,
+    Prefetcher,
+    TaggedBatch,
+    build_device_batch,
+)
+from .sampler import (
+    CostBalanceSampler,
+    DefaultSampler,
+    LoadBalanceSampler,
+    cov_of_device_loads,
+    device_loads,
+)
 from .synthetic import (
     SyntheticConfig,
     SyntheticDataset,
@@ -16,9 +28,10 @@ from .synthetic import (
 )
 
 __all__ = [
-    "BatchIterator", "Prefetcher", "TransientSampleError",
-    "build_device_batch", "capacity_for", "ladder_for",
-    "DefaultSampler", "LoadBalanceSampler",
+    "BalancedBatchIterator", "BatchIterator", "Prefetcher", "TaggedBatch",
+    "TransientSampleError", "build_device_batch", "capacity_for",
+    "ladder_for", "CostBalanceSampler", "DefaultSampler",
+    "LoadBalanceSampler", "cov_of_device_loads", "device_loads",
     "SyntheticConfig", "SyntheticDataset", "generate_crystal",
     "label_crystal", "make_dataset",
 ]

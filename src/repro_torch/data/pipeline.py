@@ -1,20 +1,26 @@
 """Training-side batch iteration and prefetch, PyTorch port of the
 single-device part of ``repro.data.pipeline``.
 
-``BatchIterator`` draws global batches from a sampler (paper C6) and
-packs each into one padded CPU ``CrystalGraphBatch`` with
+``BatchIterator`` draws global batches from a sampler (paper C6; with
+``load_balance="cost"`` the LPT ``CostBalanceSampler`` of DESIGN.md §6)
+and packs each into one padded CPU ``CrystalGraphBatch`` with
 ``batching.batch_crystals``: into a fixed ``BatchCapacities``, or into the
 smallest bucket of a ``CapacityLadder`` that fits (``batching.ladder_for``
-sizes one from the dataset).  Quarantined dataset indices are dropped
-from every later batch.  ``Prefetcher`` packs the next batches on a
-background thread and, given a CUDA device, copies each from pinned host
-memory on a stream of its own (paper C8's separate copy stream), while
-the caller's step runs.  Multi-device sharding, the cost balancer and
-``BalancedBatchIterator`` come with ROADMAP 'Modules to port' item 9 and
-raise here.
+sizes one from the dataset).  ``BalancedBatchIterator`` yields
+``StepPlan``s instead: one optimizer step as several cost-sorted
+microbatches, each packed into its own smallest bucket, with the step's
+global loss denominators, for the Trainer's accumulation path.
+Quarantined dataset indices are dropped from every later batch, and
+``tag_indices`` wraps each batch in a ``TaggedBatch`` so that a rollback
+can trace a divergence back to its samples.  ``Prefetcher`` packs the
+next items on a background thread and, given a CUDA device, copies each
+from pinned host memory on a stream of its own (paper C8's separate copy
+stream), while the caller's step runs.  Sharding over several devices
+waits for ROADMAP 'Modules to port' item 13 and raises here.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import queue
@@ -26,13 +32,43 @@ import numpy as np
 import torch
 
 from repro_torch.batching import BatchCapacities, CapacityLadder, batch_crystals
+from repro_torch.batching.balance import (
+    StepPlan,
+    crystal_slots_for,
+    plan_microbatches,
+    shard_cost_totals,
+)
+from repro_torch.batching.cost import DEFAULT_COST_MODEL, CostModel
 from repro_torch.core.graph import CrystalGraphBatch
+from repro_torch.core.losses import global_denominators
 from repro_torch.runtime.fault import TransientSampleError
-from .sampler import DefaultSampler, LoadBalanceSampler
+from .sampler import (
+    CostBalanceSampler,
+    DefaultSampler,
+    LoadBalanceSampler,
+    _epoch_slices,
+)
 from .synthetic import SyntheticDataset
 
-_TODO = "is not ported yet: ROADMAP 'Modules to port' item 9"
+_TODO = "is not ported yet: ROADMAP 'Modules to port' item 13"
 log = logging.getLogger("repro_torch.data")
+
+
+class TaggedBatch(NamedTuple):
+    """A packed batch (or ``StepPlan``) plus the dataset indices it was
+    built from.  The Trainer unwraps it before the step and keeps the
+    indices in a ring buffer, so that a divergence rollback can quarantine
+    the streak's source samples (DESIGN.md §8)."""
+
+    indices: np.ndarray
+    batch: Any
+
+
+def _single_device(num_devices: int) -> None:
+    if num_devices != 1:
+        raise NotImplementedError(
+            f"num_devices={num_devices} (stacked shards for the mesh) "
+            f"{_TODO}")
 
 
 def build_device_batch(
@@ -66,11 +102,10 @@ class BatchIterator:
         seed: int = 0,
         drop_last: bool = True,
         validate_layout: bool = True,
+        cost_model: CostModel | None = None,
+        tag_indices: bool = False,
     ):
-        if num_devices != 1:
-            raise NotImplementedError(f"num_devices={num_devices} {_TODO}")
-        if load_balance == "cost":
-            raise NotImplementedError(f'load_balance="cost" {_TODO}')
+        _single_device(num_devices)
         if global_batch < num_devices:
             raise ValueError(
                 f"global_batch {global_batch} < num_devices {num_devices}")
@@ -80,13 +115,25 @@ class BatchIterator:
         self.caps = caps
         self.drop_last = drop_last
         # quarantine (DESIGN.md §8): indices here are dropped from every
-        # later batch (the crystal-slot pad absorbs the shorter shard)
+        # later batch (the crystal-slot pad absorbs the shorter shard);
+        # tag_indices wraps each yield in a TaggedBatch
+        self.tag_indices = tag_indices
         self.quarantine: set[int] = set()
         self.validate_layout = validate_layout
-        self.crystal_slots = math.ceil(global_batch / num_devices)
-        counts = ds.feature_counts()
-        self.sampler = (LoadBalanceSampler(counts, seed) if load_balance
-                        else DefaultSampler(counts, seed))
+        if load_balance == "cost":
+            # LPT over a cost model (DESIGN.md §6): shards may hold unequal
+            # sample counts, so the crystal-slot pad takes LPT's headroom
+            model = cost_model if cost_model is not None \
+                else DEFAULT_COST_MODEL
+            self.crystal_slots = crystal_slots_for(global_batch, num_devices)
+            self.sampler = CostBalanceSampler(
+                model.predict_dataset(ds), seed,
+                max_items=self.crystal_slots)
+        else:
+            self.crystal_slots = math.ceil(global_batch / num_devices)
+            counts = ds.feature_counts()
+            self.sampler = (LoadBalanceSampler(counts, seed) if load_balance
+                            else DefaultSampler(counts, seed))
 
     def _caps_for(self, shards: list[np.ndarray]) -> BatchCapacities:
         if isinstance(self.caps, BatchCapacities):
@@ -99,9 +146,8 @@ class BatchIterator:
         return self.caps.bucket_for(na, nb, ng)
 
     def add_quarantine(self, indices) -> None:
-        """Exclude dataset indices from all future batches (the hook a
-        quarantine feeds; the Trainer's ``on_quarantine``, which points
-        here in the JAX package, comes with ROADMAP item 12)."""
+        """Exclude dataset indices from all future batches (the Trainer's
+        ``on_quarantine`` hook points here)."""
         self.quarantine.update(int(i) for i in np.asarray(indices).ravel())
 
     def _filter_quarantined(self, shards: list[np.ndarray]):
@@ -123,17 +169,126 @@ class BatchIterator:
             if shards is None:
                 continue
             (shard,) = shards
-            yield build_device_batch(
+            batch = build_device_batch(
                 self.ds, shard, self._caps_for(shards),
                 num_crystal_slots=self.crystal_slots,
                 validate=self.validate_layout)
+            yield TaggedBatch(shard, batch) if self.tag_indices else batch
 
 
 class BalancedBatchIterator:
-    """The cost-balanced microbatch iterator (DESIGN.md §6)."""
+    """Epoch iterator producing :class:`StepPlan` s (DESIGN.md §6).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"BalancedBatchIterator {_TODO}")
+    One yielded plan = one optimizer step = ``num_micro`` microbatches,
+    each packed into its OWN smallest-fitting capacity bucket.  The
+    Trainer's accumulation path (``train.trainer.make_chgnet_accum_step_
+    fns``) sums the per-microbatch gradients, whose global-denominator
+    losses make the summed update equal a single big-batch step: the
+    big-crystal microbatch pays the big bucket, the rest do not.
+    """
+
+    def __init__(
+        self,
+        ds: SyntheticDataset,
+        global_batch: int,
+        num_devices: int,
+        caps: BatchCapacities | CapacityLadder,
+        *,
+        num_micro: int = 1,
+        cost_model: CostModel | None = None,
+        seed: int = 0,
+        drop_last: bool = True,
+        validate_layout: bool = True,
+    ):
+        _single_device(num_devices)
+        if global_batch < num_devices:
+            raise ValueError(
+                f"global_batch {global_batch} < num_devices {num_devices}")
+        self.ds = ds
+        self.global_batch = global_batch
+        self.num_devices = num_devices
+        self.caps = caps
+        self.num_micro = max(1, num_micro)
+        self.cost_model = cost_model if cost_model is not None \
+            else DEFAULT_COST_MODEL
+        self.costs = self.cost_model.predict_dataset(ds)
+        self.atoms = np.array([c.num_atoms for c in ds.crystals])
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+        self.validate_layout = validate_layout
+        # static crystal-slot pad, fixed per (global_batch, num_micro,
+        # num_devices): one crystal-axis shape per bucket
+        self.crystal_slots = crystal_slots_for(
+            global_batch, num_devices, self.num_micro)
+        self.quarantine: set[int] = set()
+
+    add_quarantine = BatchIterator.add_quarantine
+    _caps_for = BatchIterator._caps_for
+
+    def update_cost_model(self, model: CostModel) -> None:
+        """Swap in a refit cost model (live refits, DESIGN.md §6): the
+        Trainer calls it through ``on_cost_model``, and every later
+        ``plan_step`` packs with the new coefficients."""
+        self.cost_model = model
+        self.costs = model.predict_dataset(self.ds)
+
+    def plan_step(self, idx: np.ndarray) -> StepPlan:
+        """Pack one global batch's indices into a balanced StepPlan."""
+        idx = np.asarray(idx)
+        plan = plan_microbatches(
+            self.costs[idx], self.num_devices, self.num_micro,
+            max_items=self.crystal_slots)
+        micro_batches = []
+        shard_costs = np.zeros((len(plan), self.num_devices), np.float64)
+        micro_sizes = np.zeros((len(plan), 3), np.float64)
+        for m, shards_pos in enumerate(plan):
+            shards = [idx[pos] for pos in shards_pos]
+            (shard,) = shards
+            micro_batches.append(build_device_batch(
+                self.ds, shard, self._caps_for(shards),
+                num_crystal_slots=self.crystal_slots,
+                validate=self.validate_layout))
+            shard_costs[m] = shard_cost_totals(self.costs, shards)
+            # real feature totals: the live cost-model refit pairs them
+            # with the measured microbatch times
+            micro_sizes[m] = (
+                sum(self.ds.crystals[i].num_atoms for i in shard),
+                sum(self.ds.graphs[i].num_bonds for i in shard),
+                sum(self.ds.graphs[i].num_angles for i in shard),
+            )
+        denoms = global_denominators(len(idx), int(self.atoms[idx].sum()))
+        return StepPlan(micro=micro_batches, denoms=denoms,
+                        shard_costs=shard_costs, num_real=len(idx),
+                        micro_sizes=micro_sizes)
+
+    def __iter__(self):
+        n = len(self.ds)
+        perm = self.rng.permutation(n)
+        for s, e in _epoch_slices(n, self.global_batch, self.num_devices,
+                                  self.drop_last):
+            idx = perm[s:e]
+            if self.quarantine:
+                q = np.fromiter(self.quarantine, dtype=np.int64)
+                idx = idx[~np.isin(idx, q)]
+                if len(idx) < self.num_devices:
+                    continue  # too few survivors to fill every shard
+            yield self.plan_step(idx)
+
+
+def _map_batches(item, fn):
+    """``fn`` applied to every batch or tensor of a prefetched item: the
+    item itself, a ``TaggedBatch``'s batch, each of a ``StepPlan``'s
+    microbatches."""
+    if isinstance(item, TaggedBatch):
+        return TaggedBatch(item.indices, _map_batches(item.batch, fn))
+    if isinstance(item, StepPlan):
+        return dataclasses.replace(
+            item, micro=[_map_batches(m, fn) for m in item.micro])
+    if torch.is_tensor(item) or isinstance(item, CrystalGraphBatch):
+        return fn(item)
+    raise TypeError("Prefetcher moves CrystalGraphBatch, tensor, "
+                    f"TaggedBatch or StepPlan items, got "
+                    f"{type(item).__name__}")
 
 
 class _OnDevice(NamedTuple):
@@ -160,15 +315,18 @@ class Prefetcher:
         ``close()``) unblocks a worker stuck on the full queue and joins
         it with a timeout.
 
-    ``device=None`` yields the items as the source gives them.  A CUDA
-    ``device`` needs CUDA (it raises without it, as the entry points do):
-    the worker pins each item (a ``CrystalGraphBatch`` or a tensor) and
-    copies it with ``non_blocking=True`` on a stream of its own, records
-    an event after the copies and waits for it on its own thread, so the
-    pinned source outlives its copies; the consumer's current stream
-    waits on that event, and the item's memory is recorded on that stream
-    so that the caching allocator does not reuse it while the consumer's
-    work on it is queued.  Another device gets ``item.to(device)``.
+    ``device=None`` yields the items as the source gives them.  An item
+    is a ``CrystalGraphBatch``, a tensor, a ``TaggedBatch`` of one or a
+    ``StepPlan`` (every microbatch moves; a ``TaggedBatch``'s indices stay
+    on the host).  A CUDA ``device`` needs CUDA (it raises without it, as
+    the entry points do): the worker pins each batch and copies it with
+    ``non_blocking=True`` on a stream of its own, records one event after
+    the item's last copy and waits for it on its own thread, so the
+    pinned sources outlive their copies; the consumer's current stream
+    waits on that event, and every copied batch's memory is recorded on
+    that stream so that the caching allocator does not reuse it while the
+    consumer's work on it is queued.  Another device gets
+    ``batch.to(device)``.
 
     ``stats`` counts, in seconds: ``source_s``, the worker's time in the
     source (packing, for a ``BatchIterator``); ``copy_s``, its time
@@ -217,18 +375,19 @@ class Prefetcher:
 
     def _to_device(self, item):
         if self._stream is None:
-            return item.to(self.device)
-        if not (torch.is_tensor(item) or isinstance(item, CrystalGraphBatch)):
-            raise TypeError(f"Prefetcher copies CrystalGraphBatch or tensor "
-                            f"items to {self.device}, got "
-                            f"{type(item).__name__}")
-        pinned = item.pin_memory()
+            return _map_batches(item, lambda b: b.to(self.device))
+        pinned = []
+
+        def copy(b):
+            pinned.append(b.pin_memory())
+            return pinned[-1].to(self.device, non_blocking=True)
+
         with torch.cuda.stream(self._stream):
-            moved = pinned.to(self.device, non_blocking=True)
+            moved = _map_batches(item, copy)
             ready = torch.cuda.Event()
             ready.record(self._stream)
-        # the pinned source must stay alive until its copies are done: wait
-        # here, on the worker's thread, while the consumer's step runs
+        # the pinned sources must stay alive until their copies are done:
+        # wait here, on the worker's thread, while the consumer's step runs
         ready.synchronize()
         return _OnDevice(moved, ready)
 
@@ -299,7 +458,8 @@ class Prefetcher:
                 if isinstance(item, _OnDevice):
                     stream = torch.cuda.current_stream(self.device)
                     stream.wait_event(item.ready)
-                    item.value.record_stream(stream)
+                    _map_batches(item.value,
+                                 lambda b: b.record_stream(stream))
                     item = item.value
                 self.stats["items"] += 1
                 yield item

@@ -5,12 +5,18 @@ gives the JAX package's batches).
 The load metric of a sample is its feature count = atoms + bonds + angles
 (paper Fig. 9).  ``LoadBalanceSampler`` sorts a global batch by feature
 count, pairs the smallest remaining sample with the largest and deals
-the pairs to devices round-robin.  The cost-model sampler of DESIGN.md §6
-comes with multi-GPU training (ROADMAP 'Modules to port' item 13).
+the pairs to devices round-robin.  Imbalance across the per-device shards
+is measured by the coefficient of variation (CoV) of their totals
+(``cov_of_device_loads``).  ``CostBalanceSampler`` (DESIGN.md §6) packs
+shards by LPT over a per-crystal cost model (``batching.cost``) instead
+of equal counts: shards may hold different numbers of samples, but their
+predicted step costs are tight.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.batching.balance import lpt_pack
 
 
 def _validate_batch(batch_size: int, num_devices: int) -> None:
@@ -32,6 +38,14 @@ def _epoch_slices(n: int, batch_size: int, num_devices: int,
         yield s, s + batch_size
     if not drop_last and n - full_end >= num_devices:
         yield full_end, n
+
+
+def cov_of_device_loads(loads: np.ndarray) -> float:
+    """Coefficient of variation of per-device load totals."""
+    mu = float(np.mean(loads))
+    if mu == 0.0:
+        return 0.0
+    return float(np.std(loads) / mu)
 
 
 class DefaultSampler:
@@ -90,3 +104,37 @@ class LoadBalanceSampler:
         for s, e in _epoch_slices(n, batch_size, num_devices, drop_last):
             idx = perm[s:e]
             yield idx, self.assign(idx, num_devices)
+
+
+class CostBalanceSampler:
+    """LPT bin packing over predicted per-crystal costs (DESIGN.md §6).
+
+    Shards may hold *different sample counts*; ``max_items`` caps the
+    per-shard count so that packing can pad every shard to a static
+    number of crystal slots (``batching.balance.crystal_slots_for``).
+    """
+
+    def __init__(self, costs: np.ndarray, seed: int = 0,
+                 max_items: int | None = None):
+        self.counts = np.asarray(costs, np.float64)  # sampler-API name
+        self.rng = np.random.default_rng(seed)
+        self.max_items = max_items
+
+    def assign(self, idx: np.ndarray, num_devices: int) -> list[np.ndarray]:
+        shards = lpt_pack(self.counts[idx], num_devices,
+                          max_items=self.max_items)
+        return [np.asarray(idx)[s] for s in shards]
+
+    def epoch(self, batch_size: int, num_devices: int, *,
+              drop_last: bool = True):
+        """Same contract as the other samplers: (global_idx, shards)."""
+        _validate_batch(batch_size, num_devices)
+        n = self.counts.shape[0]
+        perm = self.rng.permutation(n)
+        for s, e in _epoch_slices(n, batch_size, num_devices, drop_last):
+            idx = perm[s:e]
+            yield idx, self.assign(idx, num_devices)
+
+
+def device_loads(counts: np.ndarray, shards: list[np.ndarray]) -> np.ndarray:
+    return np.array([counts[s].sum() for s in shards], dtype=np.float64)

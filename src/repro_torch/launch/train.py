@@ -1,0 +1,215 @@
+"""Training launcher of the PyTorch port, the counterpart of
+``repro.launch.train``'s ``--arch chgnet`` mode: FastCHGNet on the
+synthetic dataset with the full host side (load-balance or cost-model
+sampler, accumulation over capacity buckets, prefetch on a copy stream,
+verified checkpoints, rollback, preemption and restarts).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 50 \\
+        [--balance cost --accum 2] [--ckpt DIR --async-ckpt] [--device cpu]
+
+One device only: more (``--devices``) waits for multi-GPU training, and
+the LM architectures for the LM substrate (ROADMAP 'Modules to port'
+items 13 and 14); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+
+_TODO = "is not ported yet: ROADMAP 'Modules to port' item"
+
+
+def train_chgnet(args) -> int:
+    """Train until ``--steps``; returns the step reached (the preempted
+    step after a SIGTERM)."""
+    from repro_torch.batching import capacity_for, ladder_for
+    from repro_torch.configs import chgnet_mptrj as C
+    from repro_torch.data import (
+        BalancedBatchIterator, BatchIterator, Prefetcher, SyntheticConfig,
+        make_dataset,
+    )
+    from repro_torch.runtime import (
+        ChaosMonkey, ChaosSchedule, GracefulShutdown, PreemptionError,
+        clear_resume_marker, latest_valid_step, read_resume_marker,
+        run_with_restarts,
+    )
+    from repro_torch.train import TrainConfig, Trainer
+
+    if args.devices != 1:
+        raise NotImplementedError(
+            f"--devices {args.devices} (data parallelism) {_TODO} 13")
+    ds = make_dataset(SyntheticConfig(num_crystals=args.crystals, seed=0))
+    # one worst-case capacity or a bucket ladder
+    caps = (capacity_for(ds, args.batch) if args.buckets <= 1
+            else ladder_for(ds, args.batch, num_buckets=args.buckets))
+    model_cfg = C.FAST_FS_HEAD if args.readout == "direct" else C.FAST_WO_HEAD
+    model_cfg = model_cfg.with_(conv_impl=args.conv_impl,
+                                precision=args.precision,
+                                bond_store=args.bond_store,
+                                bond_features=args.bond_features,
+                                stress_mode=args.stress_mode,
+                                table_residency=args.table_residency)
+    train_cfg = TrainConfig(global_batch=args.batch, total_steps=args.steps,
+                            loss=C.LOSS, grad_reduce=args.grad_reduce,
+                            cost_refit_every=args.cost_refit_every,
+                            rollback_on_divergence=args.rollback_on_divergence)
+    print(f"device={args.device} init_lr={train_cfg.init_lr:.2e} "
+          f"readout={args.readout} conv_impl={args.conv_impl} "
+          f"precision={args.precision} bond_store={args.bond_store} "
+          f"bond_features={args.bond_features} "
+          f"stress_mode={args.stress_mode} async_ckpt={args.async_ckpt}",
+          flush=True)
+    if args.ckpt:
+        marker = read_resume_marker(args.ckpt)
+        if marker:
+            print(f"resuming after preemption at step {marker['step']} "
+                  f"({marker.get('reason', '?')})", flush=True)
+            clear_resume_marker(args.ckpt)
+    # one monkey for the whole run: each scheduled fault fires once
+    monkey = None
+    if args.chaos:
+        monkey = ChaosMonkey(
+            ChaosSchedule.parse(args.chaos, seed=args.chaos_seed),
+            ckpt_dir=args.ckpt)
+    shutdown = GracefulShutdown().install()
+    # pinned copies on a stream of their own to the card; CPU batches as
+    # they are packed
+    copy_to = args.device if args.device.startswith("cuda") else None
+
+    def one_pass(tr):
+        if args.balance == "cost" or args.accum > 1:
+            # cost-model bin packing + accumulation (DESIGN.md §6); the
+            # Trainer's refit cost models and quarantines reach the
+            # iterator through its hooks
+            it = BalancedBatchIterator(ds, args.batch, 1, caps,
+                                       num_micro=max(args.accum, 1))
+            tr.on_cost_model = it.update_cost_model
+        else:
+            it = BatchIterator(ds, args.batch, 1, caps, load_balance=True,
+                               tag_indices=args.rollback_on_divergence)
+        tr.on_quarantine = it.add_quarantine
+        stream = itertools.islice(itertools.cycle(iter(it)),
+                                  max(args.steps - tr.step, 0))
+        if monkey is not None:
+            # inside the Prefetcher, so that transient faults take the
+            # worker's retry and quarantine path (DESIGN.md §8)
+            stream = monkey.wrap_batches(stream, start_step=tr.step)
+        return tr.train(Prefetcher(stream, device=copy_to),
+                        fault_injector=monkey)
+
+    def loop(start):
+        tr = Trainer(model_cfg, train_cfg, device=args.device,
+                     ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
+                     async_ckpt=args.async_ckpt, shutdown=shutdown)
+        try:
+            if tr.maybe_restore():
+                print(f"restored step {tr.step} from {args.ckpt}",
+                      flush=True)
+            hist = []
+            while True:
+                before = tr.step
+                hist = one_pass(tr)
+                # a rollback consumes batches while moving the step back,
+                # so an exhausted stream can leave the run short of
+                # --steps: go on while each pass makes progress
+                if tr.step >= args.steps or tr.step <= before:
+                    break
+            tr.save(wait=True)
+        finally:
+            tr.close()
+        if hist:
+            print(f"steps {tr.step - len(hist)}..{tr.step}: "
+                  f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+                  f"stragglers={tr.straggler.flags} "
+                  f"rollbacks={tr.rollbacks}", flush=True)
+        return tr.step
+
+    try:
+        # resume from the newest VALID checkpoint: a corrupt newest file is
+        # skipped by the restore, so the resume step skips it too
+        return run_with_restarts(
+            loop, resume_step_fn=lambda: (latest_valid_step(args.ckpt) or 0)
+            if args.ckpt else 0,
+            max_restarts=3)
+    except PreemptionError as exc:
+        print(f"preempted at step {exc.step}; checkpoint + resume marker "
+              f"written to {args.ckpt}", flush=True)
+        return exc.step
+    finally:
+        shutdown.uninstall()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="chgnet")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--crystals", type=int, default=128)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card, the default) or cpu")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="devices to train on (only 1 so far)")
+    ap.add_argument("--readout", default="direct",
+                    choices=["direct", "autodiff"])
+    ap.add_argument("--conv-impl", default="unfused",
+                    choices=["unfused", "fused"],
+                    help="fused = the message-passing CUDA kernels "
+                         "(DESIGN.md §3)")
+    ap.add_argument("--precision", default="f32",
+                    choices=["f32", "bf16", "mixed"],
+                    help="end-to-end precision policy (DESIGN.md §4)")
+    ap.add_argument("--bond-store", default="directed",
+                    choices=["directed", "undirected"],
+                    help="undirected = half-graph bond store (DESIGN.md §5)")
+    ap.add_argument("--bond-features", default="directed",
+                    choices=["directed", "undirected"],
+                    help="undirected = symmetric half-graph trunk "
+                         "(DESIGN.md §10; requires --bond-store undirected)")
+    ap.add_argument("--stress-mode", default="mlp",
+                    choices=["mlp", "bond_virial"],
+                    help="direct-readout stress tier (DESIGN.md §7)")
+    ap.add_argument("--table-residency", default="auto",
+                    choices=["auto", "vmem", "hbm"],
+                    help="accepted so that configs carry over; the card "
+                         "keeps every table in device memory")
+    ap.add_argument("--grad-reduce", default="bucketed",
+                    choices=["plain", "bucketed", "compressed"])
+    ap.add_argument("--cost-refit-every", type=int, default=0,
+                    help="refit the LPT cost model from measured "
+                         "microbatch times every K steps (0 = off; with "
+                         "--balance cost / --accum)")
+    ap.add_argument("--balance", default="pair", choices=["pair", "cost"],
+                    help="pair = paper Fig. 4 smallest+largest pairing; "
+                         "cost = LPT bin packing over the cost model "
+                         "(DESIGN.md §6)")
+    ap.add_argument("--accum", type=int, default=1,
+                    help="microbatches per optimizer step, each in its "
+                         "own capacity bucket (DESIGN.md §6); >1 implies "
+                         "the balanced StepPlan path")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--async-ckpt", action="store_true",
+                    help="write checkpoints from a background thread "
+                         "(DESIGN.md §8)")
+    ap.add_argument("--rollback-on-divergence", action="store_true",
+                    help="NaN/loss-spike streaks restore the newest valid "
+                         "checkpoint, halve the LR and quarantine the "
+                         "streak's batches (DESIGN.md §8)")
+    ap.add_argument("--chaos", default=None,
+                    help="fault-injection schedule, e.g. "
+                         "'nan@5,sigterm@12,ckpt_bitflip@20' (runtime."
+                         "chaos; kinds: crash drop sigterm straggler "
+                         "ckpt_truncate ckpt_bitflip nan transient "
+                         "prefetch_crash)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--buckets", type=int, default=2,
+                    help="capacity buckets (1 = single worst-case pad)")
+    args = ap.parse_args(argv)
+    if args.arch != "chgnet":
+        raise NotImplementedError(
+            f"--arch {args.arch} (LM training) {_TODO} 14")
+    return train_chgnet(args)
+
+
+if __name__ == "__main__":
+    main()

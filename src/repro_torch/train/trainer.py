@@ -22,17 +22,34 @@ bf16 parameters get f32 master weights in Adam.  The metrics gain
 the skip is decided on the host: the step's one device read, which also
 brings the metrics, comes before Adam.
 
-Every Trainer feature of a later ROADMAP item raises
-``NotImplementedError`` naming it: divergence rollback and cost-model
-refits (item 10), checkpoints, async writes and the shutdown hand-off
-(item 12), and the mesh (item 13).
+Accumulation over uneven capacity buckets (DESIGN.md §6):
+``make_chgnet_accum_step_fns`` gives each microbatch's gradients of its
+global-denominator partial loss and one apply step; ``Trainer`` takes a
+``StepPlan`` (``data.BalancedBatchIterator``) as one optimizer step, sums
+its microbatches' gradients in order, and can refit the bin packer's cost
+model from measured microbatch times (``cost_refit_every``).
+
+Runtime (DESIGN.md §8): periodic verified checkpoints (sync, or async on
+a writer thread), ``maybe_restore`` with the legacy-f32 and packed-GatedMLP
+migrations, divergence rollback with quarantine
+(``rollback_on_divergence``), and the SIGTERM hand-off (``shutdown``: a
+final checkpoint, a resume marker, ``PreemptionError``).  The mesh (data
+parallelism) raises ``NotImplementedError`` naming ROADMAP 'Modules to
+port' item 13.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from collections import deque
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from repro_torch.batching.balance import StepPlan
+from repro_torch.batching.cost import fit_cost_model
 from repro_torch.core.chgnet import (
     CHGNetConfig,
     chgnet_apply,
@@ -41,7 +58,17 @@ from repro_torch.core.chgnet import (
     resolve_device,
 )
 from repro_torch.core.graph import CrystalGraphBatch
-from repro_torch.core.losses import LossWeights, chgnet_loss
+from repro_torch.core.interaction import (
+    gated_mlp_legacy_template,
+    pack_gated_mlp_params,
+)
+from repro_torch.core.losses import (
+    LossWeights,
+    chgnet_loss,
+    chgnet_loss_sums,
+    metrics_from_sums,
+)
+from repro_torch.data.pipeline import TaggedBatch
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.optim.grad import (
     clip_by_global_norm,
@@ -53,20 +80,42 @@ from repro_torch.optim.schedule import cosine_annealing, scaled_init_lr
 from repro_torch.optim.tree import leaves
 from repro_torch.precision import (
     LossScaleConfig,
+    cast_float_tree,
     loss_scale_init,
     loss_scale_update,
     resolve_policy,
     scale_loss,
 )
-
-_TODO = "is not ported yet: ROADMAP 'Modules to port' item"
+from repro_torch.runtime.async_ckpt import AsyncCheckpointWriter
+from repro_torch.runtime.checkpoint import (
+    MissingLeafError,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.runtime.fault import (
+    DivergenceSentinel,
+    PreemptionError,
+    StragglerWatch,
+    write_resume_marker,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Mirrors ``repro.train.trainer.TrainConfig`` field for field; the
-    fields of unported features must keep their defaults (``Trainer``
-    raises otherwise)."""
+    """Mirrors ``repro.train.trainer.TrainConfig`` field for field.
+
+    ``cost_refit_every`` (DESIGN.md §6): every K optimizer steps the
+    Trainer refits ``batching.cost.fit_cost_model`` from the measured
+    microbatch times of ``StepPlan`` steps (a device synchronise per
+    microbatch, paid only when on) and hands it to ``on_cost_model``;
+    the first ``cost_refit_warmup`` plans are not sampled, and at most
+    ``cost_refit_window`` samples are kept.  ``rollback_on_divergence``
+    (DESIGN.md §8): a streak of non-finite losses or of loss spikes
+    (``divergence_*``) restores the newest valid checkpoint, multiplies
+    the LR by ``rollback_lr_factor`` (``opt_state["lr_scale"]``, so it is
+    checkpointed) and quarantines the streak's indices through
+    ``on_quarantine``; scaler-skipped steps never count."""
 
     global_batch: int = 128
     total_steps: int = 1000
@@ -118,6 +167,17 @@ def _read(values: dict) -> dict:
     return {k: torch.tensor(x) for k, x in zip(values, host)}
 
 
+def _host_values(metrics: dict) -> dict:
+    """Every metric as a float, the device ones in one read (with a loss
+    scaler the step has made it already, and they are host values)."""
+    on_device = [k for k, v in metrics.items() if v.device.type != "cpu"]
+    read = dict(zip(on_device, torch.stack(
+        [metrics[k].detach().float() for k in on_device]).tolist())) \
+        if on_device else {}
+    return {k: read[k] if k in read else float(metrics[k].detach())
+            for k in metrics}
+
+
 def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
                 scale_kind: str = "none", metrics: dict | None = None):
     """The shared tail of every train step, in place.  Returns ``(params,
@@ -131,14 +191,22 @@ def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
     scaler's update.  The finite flag has to reach the host before Adam
     (its count and bias corrections are host values): that read also
     takes the step's ``metrics``, returned as host values among the extra
-    metrics, so the step still reads the device once."""
+    metrics, so the step still reads the device once.
+
+    An ``opt_state["lr_scale"]`` (divergence rollback, DESIGN.md §8)
+    multiplies the schedule's LR, passes through Adam like any extra
+    state key, and is reported among the extra metrics."""
+    lr_scale = opt_state.get("lr_scale")
+    if lr_scale is not None:
+        lr = lr * lr_scale
+    extra = {} if lr_scale is None else {"lr_scale": lr_scale}
     scaler = opt_state.get("loss_scale")
     if scaler is None:
         norm = global_norm(grads)
         grads = clip_by_global_norm(grads, train_cfg.grad_clip)
         params, opt_state = adam_update(grads, opt_state, params, lr,
                                         train_cfg.adam)
-        return params, opt_state, {"grad_norm": norm}
+        return params, opt_state, dict(extra, grad_norm=norm)
     adam_state = {k: v for k, v in opt_state.items() if k != "loss_scale"}
     # unscale to f32 before the clip, so that the clip threshold and the
     # finite check see the true gradients
@@ -153,7 +221,7 @@ def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
     scaler = loss_scale_update(scaler, finite, train_cfg.loss_scale,
                                scale_kind)
     return params, dict(adam_state, loss_scale=scaler), dict(
-        host, loss_scale=scaler["scale"])
+        host, loss_scale=scaler["scale"], **extra)
 
 
 def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
@@ -198,6 +266,63 @@ def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
     return train_step, eval_step, serve_step
 
 
+def make_chgnet_accum_step_fns(model_cfg: CHGNetConfig,
+                               train_cfg: TrainConfig):
+    """Returns ``(grad_step, apply_step)`` for accumulation over uneven
+    capacity buckets (DESIGN.md §6), the single-device half of the JAX
+    package's function of that name.
+
+      - ``grad_step(params, batch, denoms, scaler) -> (grads, sums)``: the
+        gradients (a list in ``optim.tree.leaves`` order) of this
+        microbatch's *partial* loss, masked Huber sums over the step's
+        global ``denoms`` (``losses.global_denominators``), times the loss
+        scale when ``scaler`` (``opt_state["loss_scale"]``) is given, and
+        the detached sums.  Because the denominators are global, the
+        microbatches' losses and gradients add up to the single big
+        batch's (up to f32 reassociation).
+      - ``apply_step(params, opt_state, grads, sums, denoms, step)``: the
+        shared tail (``apply_grads``: unscale, finite check, clip, Adam,
+        skip on inf/nan, scaler update) on the summed gradients, and the
+        step's metrics from the summed sums.  An inf/nan in any
+        microbatch poisons the sum, so the one finite check skips the
+        whole step, as for a single batch.
+    """
+
+    def lr_at(step):
+        return cosine_annealing(step, train_cfg.total_steps,
+                                train_cfg.init_lr,
+                                warmup_steps=train_cfg.warmup_steps)
+
+    scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
+
+    def grad_step(params, batch, denoms, scaler=None):
+        pred = chgnet_apply(params, model_cfg, batch)
+        loss, sums = chgnet_loss_sums(pred, batch, train_cfg.loss, denoms)
+        grads = grads_of(loss if scaler is None else scale_loss(loss, scaler),
+                         params)
+        return grads, {k: v.detach() for k, v in sums.items()}
+
+    def apply_step(params, opt_state, grads, sums, denoms, step):
+        metrics = metrics_from_sums(sums, denoms)
+        params, opt_state, extra = apply_grads(
+            grads, opt_state, params, lr_at(step), train_cfg, scale_kind,
+            metrics)
+        return params, opt_state, dict(metrics, **extra)
+
+    return grad_step, apply_step
+
+
+def _strip_precision_state(state: dict) -> dict:
+    """Trainer-state template minus the policy-dependent leaves
+    (``opt_state["loss_scale"]`` / ``["master"]`` of DESIGN.md §4,
+    ``["lr_scale"]`` of the §8 rollback): the shape a checkpoint written
+    under other flags has.  The restore re-grows what this trainer
+    wants."""
+    opt = {k: v for k, v in state["opt_state"].items()
+           if k not in ("loss_scale", "master", "lr_scale")}
+    return dict(state, opt_state=opt)
+
+
 def params_on(tree, device):
     """A copy of a parameter tree on ``device`` whose leaves record
     gradients (the training state ``Trainer`` keeps)."""
@@ -209,29 +334,34 @@ def params_on(tree, device):
 
 
 class Trainer:
-    """Single-device training loop.
+    """Single-device training loop with periodic verified checkpoints.
 
     The parameters are initialized from ``seed``; ``device=None`` means
     the card and raises without CUDA.  ``params``, ``opt_state`` and
-    ``step`` are the training state; ``train(batches)`` takes CPU
-    ``CrystalGraphBatch``es (``data.BatchIterator``), moves each to the
-    device and returns the per-step metrics.
+    ``step`` are the training state.  ``train(batches)`` takes CPU or
+    device ``CrystalGraphBatch``es (``data.BatchIterator``), ``StepPlan``s
+    (``data.BalancedBatchIterator``: one optimizer step over several
+    microbatches) or either wrapped in a ``TaggedBatch``, moves each to
+    the device and returns the per-step metrics.
+
+    ``ckpt_dir`` turns on a checkpoint every ``ckpt_every`` steps (only of
+    states the divergence sentinel finds healthy), keeping ``keep`` valid
+    files; ``async_ckpt`` writes them on a writer thread; ``shutdown`` (a
+    ``runtime.GracefulShutdown``) is polled before every step.  The hooks
+    ``on_cost_model`` and ``on_quarantine`` receive refit cost models and
+    quarantined dataset indices (the launcher wires them to the
+    iterator's ``update_cost_model`` and ``add_quarantine``).
     """
 
     def __init__(self, model_cfg: CHGNetConfig, train_cfg: TrainConfig, *,
                  seed: int = 0, device=None, mesh=None,
-                 ckpt_dir: str | None = None, async_ckpt: bool = False,
-                 shutdown=None):
+                 ckpt_dir: str | None = None, ckpt_every: int = 100,
+                 keep: int = 3, async_ckpt: bool = False, shutdown=None):
         check_supported(model_cfg)
         if mesh is not None:
-            raise NotImplementedError(f"mesh= (data parallelism) {_TODO} 13")
-        if ckpt_dir is not None or async_ckpt or shutdown is not None:
             raise NotImplementedError(
-                f"checkpoints, async writes and shutdown {_TODO} 12")
-        if train_cfg.rollback_on_divergence:
-            raise NotImplementedError(f"rollback_on_divergence {_TODO} 10")
-        if train_cfg.cost_refit_every:
-            raise NotImplementedError(f"cost_refit_every {_TODO} 10")
+                "mesh= (data parallelism) is not ported yet: ROADMAP "
+                "'Modules to port' item 13")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
@@ -243,13 +373,138 @@ class Trainer:
         self.opt_state = adam_init(
             self.params, master_dtype=torch.float32
             if policy.needs_master_weights else None)
-        if train_cfg.loss_scale.resolved_kind(policy) != "none":
+        self._scale_kind = train_cfg.loss_scale.resolved_kind(policy)
+        if self._scale_kind != "none":
             self.opt_state["loss_scale"] = loss_scale_init(
                 train_cfg.loss_scale)
         self.step = 0
         self._train_step, self._eval_step, self._serve_step = \
             make_chgnet_step_fns(model_cfg, train_cfg)
+        self._grad_step, self._apply_step = make_chgnet_accum_step_fns(
+            model_cfg, train_cfg)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.keep = keep
+        # async checkpoints (DESIGN.md §8): snapshot on the loop thread,
+        # serialize, fsync and prune on a writer thread
+        self._ckpt_writer = AsyncCheckpointWriter(ckpt_dir, keep=keep) \
+            if async_ckpt and ckpt_dir is not None else None
+        self.shutdown = shutdown
+        self.straggler = StragglerWatch()
+        # divergence rollback (DESIGN.md §8): lr_scale rides in opt_state
+        # so that a backed-off LR survives checkpoints
+        if train_cfg.rollback_on_divergence:
+            self.sentinel = DivergenceSentinel(
+                window=train_cfg.divergence_window,
+                nan_streak=train_cfg.divergence_nan_streak,
+                spike_factor=train_cfg.divergence_spike_factor,
+                spike_streak=train_cfg.divergence_spike_streak)
+            self.opt_state["lr_scale"] = torch.tensor(1.0)
+        else:
+            self.sentinel = None
+        self._lr_scale = 1.0
+        self.rollbacks = 0
+        self.quarantined: set[int] = set()
+        self.on_quarantine: Callable[[list[int]], None] | None = None
+        self._recent_indices: deque = deque(maxlen=max(2 * ckpt_every, 64))
+        # live cost-model refits (TrainConfig.cost_refit_every):
+        # (micro_sizes, seconds) samples, the latest fit, its consumer
+        self._cost_samples: list[tuple[Any, float]] = []
+        self._profiled_plans = 0
+        self.cost_model = None
+        self.on_cost_model: Callable[[Any], None] | None = None
 
+    # -- checkpoints ----------------------------------------------------------
+    def state(self) -> dict:
+        return {"params": self.params, "opt_state": self.opt_state}
+
+    def save(self, *, wait: bool = False):
+        """Checkpoint the current state (async when built with
+        ``async_ckpt=True``; ``wait`` makes it durable before returning,
+        as final and preemption saves need)."""
+        if self.ckpt_dir is None:
+            return
+        meta = {"model_cfg": dataclasses.asdict(self.model_cfg)}
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.save(self.step, self.state(), extra_meta=meta)
+            if wait:
+                self._ckpt_writer.flush()
+            return
+        save_checkpoint(self.ckpt_dir, self.step, self.state(),
+                        keep=self.keep, extra_meta=meta)
+
+    def flush_checkpoints(self):
+        """Block until every queued async checkpoint is durably written."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.flush()
+
+    def close(self):
+        """Flush and stop the async checkpoint writer (idempotent)."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.close()
+
+    def maybe_restore(self) -> bool:
+        """Restore the newest valid checkpoint of ``ckpt_dir`` (False if
+        there is none).  Two layout migrations, each applied at most once:
+        a legacy f32 checkpoint (no ``loss_scale`` / ``master`` /
+        ``lr_scale`` leaves) restores into a stripped template and the
+        missing state is re-grown; a legacy separate-weight GatedMLP
+        restores into the legacy template and is packed once.  Any other
+        missing leaf, or a failed migration, raises the first error."""
+        if self.ckpt_dir is None:
+            return False
+        # land any in-flight async write first, so that it counts
+        self.flush_checkpoints()
+        if latest_step(self.ckpt_dir) is None:
+            return False
+        packed_keys = ("['w']", "['b']", "['ln_scale']", "['ln_bias']")
+        precision_keys = ("['loss_scale']", "['master']", "['lr_scale']")
+        wants_master = "master" in self.opt_state
+        template = self.state()
+        stripped = packed = False
+        first_err = None
+        while True:
+            try:
+                state, step, _ = restore_checkpoint(self.ckpt_dir, template)
+                break
+            except MissingLeafError as missing:
+                first_err = first_err or missing
+                if not stripped and any(k in missing.leaf_path
+                                        for k in precision_keys):
+                    template = _strip_precision_state(template)
+                    stripped = True
+                    continue
+                if not packed and missing.leaf_path.endswith(packed_keys):
+                    template = gated_mlp_legacy_template(template)
+                    packed = True
+                    continue
+                raise missing
+            except (KeyError, ValueError):
+                if first_err is not None:
+                    raise first_err
+                raise
+        if packed:
+            state = pack_gated_mlp_params(state)
+            # the packed parameters are new leaves that record gradients
+            state["params"] = params_on(state["params"], self.device)
+        self.params, self.opt_state = state["params"], state["opt_state"]
+        if stripped:
+            # legacy f32 -> this trainer's policy: master weights re-grown
+            # from the restored params, the scaler at its initial scale
+            if wants_master:
+                self.opt_state["master"] = cast_float_tree(
+                    self.params, torch.float32)
+            if self._scale_kind != "none":
+                self.opt_state["loss_scale"] = loss_scale_init(
+                    self.train_cfg.loss_scale)
+            if self.train_cfg.rollback_on_divergence:
+                # at the CURRENT cumulative rollback factor, so that a
+                # restore after a rollback keeps the backed-off LR
+                self.opt_state["lr_scale"] = torch.tensor(self._lr_scale)
+        self.step = step
+        return True
+
+    # -- eval / serve ---------------------------------------------------------
     def evaluate(self, batch: CrystalGraphBatch) -> dict:
         """Loss metrics on one batch."""
         metrics = self._eval_step(self.params, batch.to(self.device))
@@ -260,32 +515,155 @@ class Trainer:
         """One inference step (energy, forces, stress, magmom)."""
         return self._serve_step(self.params, batch.to(self.device))
 
+    # -- gradient accumulation (DESIGN.md §6) ---------------------------------
+    def _step_plan(self, plan: StepPlan):
+        """One optimizer step over a balanced multi-bucket StepPlan: the
+        microbatches' gradients (global-denominator partial losses) are
+        summed in microbatch order, then applied once: the update a
+        single big-batch step would take."""
+        scaler = self.opt_state.get("loss_scale")
+        # per-microbatch times for the live cost-model refit: only when
+        # enabled (the synchronise stops the host running ahead), only past
+        # the warm-up, and only for plans that carry their real sizes
+        profile = (self.train_cfg.cost_refit_every > 0
+                   and plan.micro_sizes is not None)
+        sync = profile and self.device.type == "cuda"
+        gsum = ssum = None
+        for i, micro in enumerate(plan.micro):
+            t0 = time.perf_counter() if profile else 0.0
+            grads, sums = self._grad_step(
+                self.params, micro.to(self.device), plan.denoms, scaler)
+            if sync:
+                torch.cuda.synchronize(self.device)
+            if profile and \
+                    self._profiled_plans >= self.train_cfg.cost_refit_warmup:
+                self._cost_samples.append(
+                    (plan.micro_sizes[i], time.perf_counter() - t0))
+            if gsum is None:
+                gsum, ssum = grads, sums
+            else:
+                torch._foreach_add_(gsum, grads)
+                ssum = {k: ssum[k] + sums[k] for k in ssum}
+        if profile:
+            self._profiled_plans += 1
+            del self._cost_samples[:-self.train_cfg.cost_refit_window]
+        return self._apply_step(self.params, self.opt_state, gsum, ssum,
+                                plan.denoms, self.step)
+
+    def _maybe_refit_cost_model(self):
+        """Refit the LPT cost model from the recorded (sizes, seconds)
+        samples every ``cost_refit_every`` steps and push it to
+        ``on_cost_model`` (DESIGN.md §6); needs at least 4 samples (the
+        affine fit has 4 coefficients)."""
+        every = self.train_cfg.cost_refit_every
+        if every <= 0 or self.step % every or len(self._cost_samples) < 4:
+            return
+        sizes = np.asarray([s for s, _ in self._cost_samples], np.float64)
+        times = np.asarray([t for _, t in self._cost_samples], np.float64)
+        self.cost_model = fit_cost_model(sizes, times)
+        if self.on_cost_model is not None:
+            self.on_cost_model(self.cost_model)
+
+    # -- divergence rollback / preemption (DESIGN.md §8) ----------------------
+    def _rollback(self):
+        """The sentinel tripped: quarantine the streak's batches, restore
+        the newest valid checkpoint and back the LR off."""
+        self.rollbacks += 1
+        if self.rollbacks > self.train_cfg.max_rollbacks:
+            raise FloatingPointError(
+                f"divergence persists after {self.train_cfg.max_rollbacks} "
+                f"rollbacks (step {self.step})")
+        # the streak's batches are the prime suspects
+        trip_len = self.sentinel.last_trip_len if self.sentinel else 0
+        fresh: set[int] = set()
+        for _, idx in list(self._recent_indices)[-max(trip_len, 1):]:
+            fresh.update(int(i) for i in idx)
+        fresh -= self.quarantined
+        if fresh:
+            self.quarantined |= fresh
+            if self.on_quarantine is not None:
+                self.on_quarantine(sorted(fresh))
+        if not self.maybe_restore():
+            raise FloatingPointError(
+                f"divergence at step {self.step} with no checkpoint to "
+                "roll back to (ckpt_dir unset or empty)")
+        factor = self.train_cfg.rollback_lr_factor
+        if factor < 1.0:
+            self._lr_scale *= factor
+            self.opt_state["lr_scale"] = torch.tensor(self._lr_scale)
+
+    def _preempt(self):
+        """SIGTERM (or any GracefulShutdown signal): checkpoint durably,
+        drop a resume marker and raise PreemptionError, which
+        ``run_with_restarts`` never retries."""
+        if self.ckpt_dir is not None:
+            self.save(wait=True)
+            signum = self.shutdown.signum if self.shutdown else None
+            write_resume_marker(self.ckpt_dir, self.step,
+                                reason=f"signal {signum}")
+        raise PreemptionError(self.step)
+
+    # -- loop -----------------------------------------------------------------
     def train(self, batches, max_steps: int | None = None,
               fault_injector=None) -> list[dict]:
-        if fault_injector is not None:
-            raise NotImplementedError(f"fault_injector= {_TODO} 12")
+        """Steps over ``batches`` until they end or ``step`` reaches
+        ``max_steps``; ``fault_injector.maybe_fail(step)`` runs before
+        each step.  On a raise the steps done so far ride on the
+        exception as ``partial_history``."""
         history = []
+        try:
+            return self._train_loop(batches, history, max_steps,
+                                    fault_injector)
+        except Exception as exc:
+            exc.partial_history = history
+            raise
+
+    def _train_loop(self, batches, history, max_steps, fault_injector):
         for batch in batches:
             if max_steps is not None and self.step >= max_steps:
                 break
-            if not isinstance(batch, CrystalGraphBatch):
-                raise NotImplementedError(
-                    f"{type(batch).__name__} batches (accumulation plans, "
-                    f"tagged batches) {_TODO} 10")
-            self.params, self.opt_state, metrics = self._train_step(
-                self.params, self.opt_state, batch.to(self.device),
-                self.step)
-            # one device read per step for all the metrics (with a loss
-            # scaler the step has made it, and these are host values)
-            values = dict(zip(metrics, torch.stack(
-                [v.detach().float() for v in metrics.values()]).tolist()))
+            if self.shutdown is not None and self.shutdown.requested:
+                self._preempt()
+            t0 = time.perf_counter()
+            if fault_injector is not None:
+                fault_injector.maybe_fail(self.step)
+            indices = None
+            if isinstance(batch, TaggedBatch):
+                indices, batch = batch.indices, batch.batch
+            if isinstance(batch, StepPlan):
+                self.params, self.opt_state, metrics = self._step_plan(batch)
+            elif isinstance(batch, CrystalGraphBatch):
+                self.params, self.opt_state, metrics = self._train_step(
+                    self.params, self.opt_state, batch.to(self.device),
+                    self.step)
+            else:
+                raise TypeError(f"Trainer.train takes CrystalGraphBatch, "
+                                f"StepPlan or TaggedBatch items, got "
+                                f"{type(batch).__name__}")
+            if indices is not None:
+                self._recent_indices.append((self.step, np.asarray(indices)))
+            values = _host_values(metrics)
+            loss = values["loss"]
             # a step the scaler skipped (grads_finite 0) left the state
-            # untouched: not a fault
+            # untouched: not a fault (DESIGN.md §4)
             skipped = not values.get("grads_finite", 1.0)
-            if not torch.isfinite(torch.tensor(values["loss"])) \
-                    and not skipped:
+            if self.sentinel is not None:
+                if self.sentinel.record(loss, scaler_skipped=skipped):
+                    self._rollback()
+                    continue
+            elif not math.isfinite(loss) and not skipped:
+                # no sentinel: restore rather than go on poisoned
+                if self.maybe_restore():
+                    continue
                 raise FloatingPointError(
                     f"non-finite loss at step {self.step}")
             self.step += 1
+            self.straggler.record(time.perf_counter() - t0)
+            self._maybe_refit_cost_model()
             history.append(values)
+            if self.ckpt_dir is not None and self.step % self.ckpt_every == 0:
+                # only states the sentinel finds healthy, so that every
+                # file is a known-good rollback target
+                if self.sentinel is None or not self.sentinel.suspicious:
+                    self.save()
         return history

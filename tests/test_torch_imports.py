@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: nothing under src/repro_torch, and
 nothing in chip_smoke.py, imports JAX or the JAX package ``repro``, and
-the port's serving and training paths import in an interpreter where JAX
-cannot be imported at all."""
+the port's serving and training paths, its runtime and its launcher
+import in an interpreter where JAX cannot be imported at all; its
+checkpoints need neither ``msgpack`` nor ``ml_dtypes``."""
 import ast
 import os
 import subprocess
@@ -31,7 +32,15 @@ def test_port_files_exist():
     assert {"src/repro_torch/serve/engine.py", "src/repro_torch/convert.py",
             "src/repro_torch/kernels/ops.py", "chip_smoke.py",
             "src/repro_torch/models/transformer.py",
-            "src/repro_torch/serve/lm.py"} <= names
+            "src/repro_torch/serve/lm.py",
+            "src/repro_torch/batching/cost.py",
+            "src/repro_torch/batching/balance.py",
+            "src/repro_torch/runtime/_msgpack.py",
+            "src/repro_torch/runtime/checkpoint.py",
+            "src/repro_torch/runtime/async_ckpt.py",
+            "src/repro_torch/runtime/fault.py",
+            "src/repro_torch/runtime/chaos.py",
+            "src/repro_torch/launch/train.py"} <= names
 
 
 def test_every_library_has_its_source():
@@ -99,8 +108,34 @@ def test_port_imports_without_jax():
         "import repro_torch.models, repro_torch.serve.lm\n"
         "import repro_torch.configs.llama3_8b\n"
         "import repro_torch.kernels.build\n"
+        "import repro_torch.batching.balance, repro_torch.batching.cost\n"
+        "import repro_torch.runtime, repro_torch.launch.train\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_checkpoints_need_neither_msgpack_nor_ml_dtypes(tmp_path):
+    """The port's checkpoint round trip (a bf16 leaf included) in an
+    interpreter where neither package can be imported, as on the card's
+    machine."""
+    code = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import torch\n"
+        "from repro_torch.runtime import restore_checkpoint, "
+        "save_checkpoint\n"
+        "tree = {'w': torch.arange(5, dtype=torch.bfloat16), "
+        "'n': [torch.tensor(3)]}\n"
+        f"save_checkpoint({str(tmp_path)!r}, 1, tree)\n"
+        f"got, step, _ = restore_checkpoint({str(tmp_path)!r}, tree)\n"
+        "assert step == 1 and torch.equal(got['w'], tree['w'])\n"
+        "assert torch.equal(got['n'][0], tree['n'][0])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,

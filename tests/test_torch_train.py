@@ -2,8 +2,8 @@
 synthetic labels and the BatchIterator's batches (bitwise), the losses,
 the loss and every parameter gradient at FAST_FUSED and
 FAST_FUSED_VIRIAL, Adam on fixed gradients, the clip, the schedule, and
-a two-step Trainer run; every Trainer option of a later ROADMAP item
-raises.  The port runs its kernels' path (the recompute backwards over
+a two-step Trainer run; the mesh and more than one device raise (ROADMAP
+item 13).  The port runs its kernels' path (the recompute backwards over
 the plain versions); the JAX side runs the unfused twins FAST_FS_HEAD /
 FAST_VIRIAL, which tests/test_fused_message_passing.py and
 tests/test_virial.py hold equal to the fused tiers."""
@@ -306,11 +306,6 @@ CFG = TC.FAST_FUSED.with_(**SMALL)
 
 @pytest.mark.parametrize("kwargs,train_cfg,item", [
     (dict(mesh=object()), {}, "item 13"),
-    (dict(ckpt_dir="ckpt"), {}, "item 12"),
-    (dict(async_ckpt=True), {}, "item 12"),
-    (dict(shutdown=object()), {}, "item 12"),
-    ({}, dict(rollback_on_divergence=True), "item 10"),
-    ({}, dict(cost_refit_every=4), "item 10"),
 ])
 def test_unported_trainer_options_raise(kwargs, train_cfg, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -319,19 +314,13 @@ def test_unported_trainer_options_raise(kwargs, train_cfg, item):
 
 
 def test_unported_training_paths_raise(datasets):
+    """Sharding over more than one device waits for multi-GPU training."""
     _, tds = datasets
     caps = t_caps(tds, 4)
-    tr = ttrain.Trainer(CFG, ttrain.TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tr.train([], fault_injector=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tr.train([("indices", "plan")])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         BatchIterator(tds, 4, 2, caps)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BatchIterator(tds, 4, 1, caps, load_balance="cost")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipeline.BalancedBatchIterator(tds, 4, 1, caps)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        pipeline.BalancedBatchIterator(tds, 4, 2, caps)
 
 
 def test_trainer_defaults_to_the_card():
