@@ -112,10 +112,33 @@ PyTorch version:
      --accum 2 --async-ckpt`` must train 8 steps and resume from its own
      checkpoint to 12; checkpoint bytes, sync save, async save (loop
      thread, flush) and restore times are reported;
- 11. learns: 60 steps at batch 8 at ``FAST_FUSED``, and again at
+ 11. dp (data parallelism over ``torch.distributed``, ``FAST_FUSED``):
+     A. a one-rank NCCL mesh in this process, ``Trainer(mesh=)`` for
+     ``grad_reduce`` plain, bucketed and compressed (1 + 3 steps each) in
+     turns with the single-device Trainer from the same parameters on the
+     same ladder batches, under deterministic algorithms: plain and
+     bucketed equal every step's metrics and every state leaf bit for bit,
+     compressed reduces the first gradient to its bf16 rounding bit for
+     bit and stays within DESIGN.md §4's bounds; the balanced path (2
+     plans of 2 microbatches) bit for bit; ms a step of both, and the
+     all-reduce's collectives, bytes and device time a step; B. two
+     spawned processes sharing the card over gloo (NCCL refuses two ranks
+     on one device), a rank's 64 crystals on ``ladder_for(ds, 64)``: run
+     1, ``BatchIterator`` shards, bucketed, 1 + 3 steps (the first step
+     within ``1e-4 * max(1, |p|)`` of the two shards run one after the
+     other in this process); run 2, ``BalancedBatchIterator`` plans of 2
+     microbatches (the first plan's summed gradient within 1e-4 relative
+     of one batch at ``capacity_for``), 1 + 3 steps; run 3,
+     ``elastic_train`` to 5 steps with position 1 dropped at step 2; the
+     replicas equal bit for bit after every step, kernels 2, 3 and 4a
+     launched exactly ``PER_FORWARD`` a forward on each rank, ms a step,
+     the gloo all-reduce's host ms and the peak MiB a rank (two processes
+     sharing one card: no scaling); any child's exception, exit or
+     timeout raises;
+ 12. learns: 60 steps at batch 8 at ``FAST_FUSED``, and again at
      ``FAST_FUSED_MIXED``, must bring a held-out batch's loss below 0.6x
      its value before;
- 12. lm: llama3-8b at full width and depth with bf16 weights from the
+ 13. lm: llama3-8b at full width and depth with bf16 weights from the
      seed (the CHGNet phases' memory returned first): 4 prompts of 512
      tokens prefilled into a 640-position KV cache, then 16 greedy decode
      steps, on the kernels' path (every layer's MLP through the fused
@@ -142,8 +165,8 @@ this script for tiers that are no named config of the package.  bf16
 products outside the kernels (cuBLAS) sum in f32
 (``allow_bf16_reduced_precision_reduction`` off), as TF32 is off for f32
 ones.  Prints
-``{"serve": ...}``, ``{"train": ...}``, ``{"lm": ...}`` and ``{"kernels":
-[...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
+``{"serve": ...}``, ``{"train": ...}``, ``{"dp": ...}``, ``{"lm": ...}``
+and ``{"kernels": [...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero; without CUDA it exits nonzero before printing a result.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
@@ -153,6 +176,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import itertools
 import json
 import math
@@ -163,11 +187,14 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as lm_configs  # noqa: E402
@@ -191,17 +218,26 @@ from repro_torch.data import (  # noqa: E402
     generate_crystal,
     make_dataset,
 )
+from repro_torch.distributed import (  # noqa: E402
+    GRAD_REDUCE,
+    all_reduce_grads,
+    bucket_plan,
+    init_data_mesh,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.optim.grad import global_norm  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.precision import resolve_policy, scale_loss  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     AsyncCheckpointWriter,
     ChaosMonkey,
     ChaosSchedule,
+    DeviceDropInjector,
     GracefulShutdown,
     PreemptionError,
     corrupt_newest_checkpoint,
+    elastic_train,
     latest_valid_step,
     list_checkpoints,
     read_resume_marker,
@@ -2767,6 +2803,396 @@ def runtime_phase(ds, caps, seed: int, card: str, root: Path) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# 11. data parallelism (DESIGN.md §6): a mesh of one rank over NCCL in this
+# process, then two ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3  # counted steps after one warm-up step
+DP_RANKS = 2
+
+
+def _dp_tcfg(**kw) -> TrainConfig:
+    return TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
+                       loss=chgnet_mptrj.LOSS, **kw)
+
+
+def _dp_batches(ds, caps, num_devices: int, shard, seed: int,
+                balanced: bool = False):
+    """Endless batches (``BatchIterator``) or plans
+    (``BalancedBatchIterator``, 2 microbatches) of one rank, epoch after
+    epoch."""
+    while True:
+        if balanced:
+            yield from BalancedBatchIterator(ds, TRAIN_BATCH, num_devices,
+                                             caps, num_micro=2, seed=seed,
+                                             shard=shard)
+        else:
+            yield from BatchIterator(ds, TRAIN_BATCH, num_devices, caps,
+                                     seed=seed, shard=shard)
+
+
+def _state_digest(tr) -> str:
+    """sha256 of the trainer's parameters and optimizer state, bit for
+    bit (one copy to the host per device)."""
+    flat = leaves(tr.state())
+    h = hashlib.sha256()
+    for dev in sorted({str(x.device) for x in flat}):
+        h.update(torch.cat([x.detach().reshape(-1).view(torch.uint8)
+                            for x in flat if str(x.device) == dev])
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _precision_flags() -> None:
+    """f32 products in full f32 (no TF32), bf16 cuBLAS sums in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the mixed tiers' plain bf16 products (torch.matmul, cuBLAS) sum in
+    # f32, as the JAX package's do (DESIGN.md §4)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+
+
+def _reduce_row(mesh, grads, how: str, timer) -> dict:
+    """The gradient all-reduce of ``how`` on gradients of the model's
+    shapes: collectives, bytes on the wire and the time ``timer`` gives."""
+    n = sum(g.numel() for g in grads)
+    calls = {"plain": len(grads), "bucketed": len(bucket_plan(grads)),
+             "compressed": 1}[how]
+    copies = [g.clone() for g in grads]
+    return {"collectives": calls,
+            "bytes": n * (2 if how == "compressed" else 4),
+            "ms": timer(lambda: all_reduce_grads(copies, mesh, how))}
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host time of ``fn`` between two synchronises (a gloo
+    collective on CUDA tensors runs through host memory)."""
+    samples = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples[1:])
+
+
+def dp_world1(ds, caps, seed: int, root: Path) -> dict:
+    """Phase A: ``Trainer(mesh=)`` on a one-rank NCCL mesh against the
+    single-device ``Trainer`` from the same parameters on the same batches,
+    1 + ``DP_STEPS`` steps a ``grad_reduce``, under deterministic
+    algorithms, the two trainers' steps in turns: plain and bucketed equal
+    every step's metrics and every state leaf bit for bit (an all-reduce
+    of one rank is a copy, /1 exact); compressed reduces the first step's
+    gradient to its bf16 rounding bit for bit and keeps the metrics within
+    DESIGN.md §4's bounds of the f32 run; the balanced path (2 plans of 2
+    microbatches) bit for bit.  Reports ms a step of both, and the
+    all-reduce's collectives, bytes and device time (CUDA events) a
+    step."""
+    cfg = chgnet_mptrj.FAST_FUSED
+    mesh = init_data_mesh("cuda:0", rank=0, world_size=1,
+                          init_method=f"file://{root}/nccl")
+    if mesh.backend != "nccl":
+        raise RuntimeError(f"world-1 mesh on {mesh.backend}, not nccl")
+    rows = {}
+    try:
+        batches = list(itertools.islice(
+            _dp_batches(ds, caps, 1, None, seed), 1 + DP_STEPS))
+        with _deterministic():
+            for how in GRAD_REDUCE:
+                ref = Trainer(cfg, _dp_tcfg(grad_reduce=how), seed=seed,
+                              device="cuda")
+                dp = Trainer(cfg, _dp_tcfg(grad_reduce=how), seed=seed,
+                             mesh=mesh)
+                b0 = batches[0].to("cuda")
+                loss, _ = chgnet_loss_fn(ref.params, cfg, b0,
+                                         chgnet_mptrj.LOSS)
+                grads = grads_of(loss, ref.params)
+                row = _reduce_row(mesh, grads, how, _time_device)
+                if how == "compressed":
+                    red = all_reduce_grads([g.clone() for g in grads], mesh,
+                                           how)
+                    if not all(torch.equal(r, g.to(torch.bfloat16).float())
+                               for r, g in zip(red, grads)):
+                        raise RuntimeError("compressed: the reduced "
+                                           "gradient is not the bf16 "
+                                           "rounding of the f32 one")
+                del b0, loss, grads
+                h_ref, h_dp, t_ref, t_dp = [], [], 0.0, 0.0
+                counts: dict = {}
+                for i, b in enumerate(batches):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    h_ref += ref.train([b])
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    ops.reset_launch_counts()
+                    h_dp += dp.train([b])
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    for k, v in ops.launch_counts().items():
+                        counts[k] = counts.get(k, 0) + v
+                    if i:
+                        t_ref += t1 - t0
+                        t_dp += t2 - t1
+                    if how != "compressed":
+                        if h_ref[-1] != h_dp[-1]:
+                            raise RuntimeError(f"world 1 {how} step {i}: "
+                                               f"{h_dp[-1]} != {h_ref[-1]}")
+                        _same_state(f"world 1 {how} step {i}", ref, dp)
+                check_launches(f"world 1 {how}", counts, PER_FORWARD,
+                               1 + DP_STEPS)
+                if how == "compressed":
+                    for a, b in zip(h_dp, h_ref):
+                        if not (abs(a["loss"] - b["loss"])
+                                <= 3e-2 * max(1.0, abs(b["loss"]))
+                                and abs(a["grad_norm"] - b["grad_norm"])
+                                <= 0.05 * b["grad_norm"]):
+                            raise RuntimeError(f"compressed {a} against "
+                                               f"f32 {b}")
+                rows[how] = dict(
+                    row, ms_per_step=t_dp / DP_STEPS * 1e3,
+                    single_device_ms_per_step=t_ref / DP_STEPS * 1e3,
+                    losses=[h["loss"] for h in h_dp],
+                    f32_losses=[h["loss"] for h in h_ref],
+                    grad_norms=[h["grad_norm"] for h in h_dp],
+                    bitwise_equal=how != "compressed", launches=counts)
+                del ref, dp
+            ref = Trainer(cfg, _dp_tcfg(), seed=seed, device="cuda")
+            dp = Trainer(cfg, _dp_tcfg(), seed=seed, mesh=mesh)
+            losses = []
+            for i, plan in enumerate(itertools.islice(
+                    _dp_batches(ds, caps, 1, None, seed, True), 2)):
+                a, b = ref.train([plan]), dp.train([plan])
+                if a != b:
+                    raise RuntimeError(f"world 1 balanced plan {i}: {b} != "
+                                       f"{a}")
+                _same_state(f"world 1 balanced plan {i}", ref, dp)
+                losses.append(b[0]["loss"])
+            rows["balanced"] = {"plans": 2, "bitwise_equal": True,
+                                "losses": losses}
+            del ref, dp
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dp_run(tr, batches, mesh, name: str, forwards: int) -> dict:
+    """1 + ``DP_STEPS`` steps of one rank, the state's digest after each;
+    the counted steps timed (host clock, synchronised) and their launches
+    checked (``forwards`` forwards a step)."""
+    digests, hist, elapsed = [], [], 0.0
+    hist += tr.train(itertools.islice(batches, 1))
+    digests.append(_state_digest(tr))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist += tr.train(itertools.islice(batches, 1))
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        digests.append(_state_digest(tr))
+    counts = ops.launch_counts()
+    check_launches(f"{name} rank {mesh.rank}", counts, PER_FORWARD,
+                   forwards * DP_STEPS)
+    return {"digests": digests, "history": hist, "launches": counts,
+            "ms_per_step": elapsed / DP_STEPS * 1e3,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def _dp_rank_runs(mesh, seed: int) -> dict:
+    """Phase B on one rank (``DP_RANKS`` ranks sharing the card over
+    gloo), FAST_FUSED at a global batch of ``TRAIN_BATCH``: run 1,
+    ``BatchIterator`` shards, bucketed, 1 + ``DP_STEPS`` steps; run 2,
+    ``BalancedBatchIterator`` plans (2 microbatches), its first plan's
+    summed gradient against one batch of the same indices at
+    ``capacity_for``, then 1 + ``DP_STEPS`` steps; run 3, ``elastic_train``
+    to 5 steps with position 1 dropped at step 2."""
+    cfg = chgnet_mptrj.FAST_FUSED
+    ds = make_dataset(SyntheticConfig())
+    # capacities a device: ceil(batch / devices) crystals, as the launcher
+    caps = ladder_for(ds, -(-TRAIN_BATCH // DP_RANKS))
+    res = {}
+    tr = Trainer(cfg, _dp_tcfg(), seed=seed, mesh=mesh)
+    res["run1"] = _dp_run(tr, _dp_batches(ds, caps, DP_RANKS, mesh.rank,
+                                          seed), mesh, "dp run 1", 1)
+    g = grads_of(chgnet_loss_fn(tr.params, cfg, next(iter(BatchIterator(
+        ds, TRAIN_BATCH, DP_RANKS, caps, seed=seed, shard=mesh.rank)))
+        .to(mesh.device), chgnet_mptrj.LOSS)[0], tr.params)
+    res["run1"]["all_reduce"] = _reduce_row(mesh, g, "bucketed", _host_ms)
+    del tr, g
+
+    tr = Trainer(cfg, _dp_tcfg(), seed=seed, mesh=mesh)
+    idx = np.random.default_rng(seed + 1).permutation(len(ds))[:TRAIN_BATCH]
+    plan = BalancedBatchIterator(ds, TRAIN_BATCH, DP_RANKS, caps,
+                                 num_micro=2, shard=mesh.rank).plan_step(idx)
+    grad_step, _ = make_chgnet_accum_step_fns(cfg, _dp_tcfg(), mesh=mesh)
+    total = None
+    for m in plan.micro:
+        gm, _ = grad_step(tr.params, m.to(mesh.device), plan.denoms)
+        total = gm if total is None else [a + b for a, b in zip(total, gm)]
+    big = build_device_batch(ds, idx, capacity_for(ds, TRAIN_BATCH),
+                             num_crystal_slots=TRAIN_BATCH).to(mesh.device)
+    g_big = grads_of(chgnet_loss_fn(tr.params, cfg, big,
+                                    chgnet_mptrj.LOSS)[0], tr.params)
+    rel = float(global_norm([a - b for a, b in zip(total, g_big)])
+                / global_norm(g_big))
+    if not rel <= 1e-4:
+        raise RuntimeError(f"rank {mesh.rank}: summed micro gradients "
+                           f"{rel} relative from one batch at capacity_for")
+    del total, big, g_big
+    res["run2"] = _dp_run(tr, _dp_batches(ds, caps, DP_RANKS, mesh.rank,
+                                          seed, True), mesh, "dp run 2", 2)
+    res["run2"]["grad_rel_err"] = rel
+    del tr
+
+    tr = Trainer(cfg, _dp_tcfg(), seed=seed, mesh=mesh)
+
+    def batches_fn(num_devices):
+        return itertools.islice(_dp_batches(ds, caps, num_devices,
+                                            tr.mesh.rank, seed, True), 5)
+
+    hist = elastic_train(tr, batches_fn, max_steps=5,
+                         fault_injector=DeviceDropInjector(2, 1))
+    res["run3"] = {"steps": tr.step, "history": len(hist),
+                   "losses": [h["loss"] for h in hist],
+                   "devices": tr.num_devices}
+    return res
+
+
+def _dp_rank(rank: int, init_method: str, seed: int, results) -> None:
+    """A spawned rank of phase B: cuda:0 over gloo (NCCL refuses two ranks
+    on one device), its results or its traceback to ``results``."""
+    try:
+        _precision_flags()
+        build.load_libraries()
+        mesh = init_data_mesh("cuda:0", rank=rank, world_size=DP_RANKS,
+                              init_method=init_method, backend="gloo")
+        try:
+            res = _dp_rank_runs(mesh, seed)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, res))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def _dp_two_shard_reference(ds, caps, seed: int) -> dict:
+    """Run 1's first step without a mesh: the two shards one after the
+    other on the card, their gradients and losses averaged."""
+    cfg = chgnet_mptrj.FAST_FUSED
+    params = params_on(chgnet.chgnet_init(seed, cfg), "cuda")
+    shards = next(iter(BatchIterator(ds, TRAIN_BATCH, DP_RANKS, caps,
+                                     seed=seed)))
+    losses, grads = [], []
+    for b in shards:
+        loss, _ = chgnet_loss_fn(params, cfg, b.to("cuda"),
+                                 chgnet_mptrj.LOSS)
+        losses.append(loss.detach())
+        grads.append(grads_of(loss, params))
+    mean = [sum(gs) / DP_RANKS for gs in zip(*grads)]
+    return {"loss": float(sum(losses) / DP_RANKS),
+            "grad_norm": float(global_norm(mean))}
+
+
+def dp_two_ranks(ds, seed: int, root: Path) -> dict:
+    """Phase B: ``DP_RANKS`` spawned processes share the card over gloo
+    (``_dp_rank_runs``); the replicas must be equal bit for bit after
+    every step of runs 1 and 2, run 1's first step must agree with the
+    two shards run here one after the other within ``1e-4 * max(1, |p|)``,
+    and run 3 must finish its 5 steps on one rank, the dropped rank
+    exiting 0.  Any child's exception, non-zero exit or timeout raises."""
+    caps = ladder_for(ds, -(-TRAIN_BATCH // DP_RANKS))
+    want = _dp_two_shard_reference(ds, caps, seed)
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dp_rank, args=(
+        r, f"file://{root}/gloo", seed, results)) for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out: dict = {}
+    try:
+        while len(out) < DP_RANKS:
+            rank, res = results.get(timeout=300)
+            out[rank] = res
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall = time.perf_counter() - t0
+    for rank, res in out.items():
+        if isinstance(res, str):
+            raise RuntimeError(f"dp rank {rank} failed:\n{res}")
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DP_RANKS:
+        raise RuntimeError(f"dp ranks exited {codes}")
+    r0, r1 = out[0], out[1]
+    for run in ("run1", "run2"):
+        if r0[run]["digests"] != r1[run]["digests"]:
+            raise RuntimeError(f"dp {run}: the replicas differ")
+        if r0[run]["history"] != r1[run]["history"]:
+            raise RuntimeError(f"dp {run}: the ranks' metrics differ")
+    first = r0["run1"]["history"][0]
+    for k in ("loss", "grad_norm"):
+        if not abs(first[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])):
+            raise RuntimeError(f"dp run 1 step 1 {k}: {first[k]} against "
+                               f"two shards in one process {want[k]}")
+    e0, e1 = r0["run3"], r1["run3"]
+    if not (e0["steps"] == 5 and e0["history"] == 5 and e0["devices"] == 1
+            and all(math.isfinite(x) for x in e0["losses"])
+            and e1["steps"] == 2):
+        raise RuntimeError(f"dp elastic: rank 0 {e0}, rank 1 {e1}")
+    return {"wall_s": wall, "two_shard_reference": want,
+            "ranks": {r: {run: {k: v for k, v in out[r][run].items()
+                                if k != "digests"}
+                          for run in ("run1", "run2", "run3")}
+                      for r in out}}
+
+
+def dp_phase(ds, ladder, seed: int, card: str, root: Path) -> dict:
+    """Phase A (``dp_world1``) then phase B (``dp_two_ranks``); prints
+    their numbers, labelled with the card."""
+    t0 = time.perf_counter()
+    world1 = dp_world1(ds, ladder, seed, root)
+    t1 = time.perf_counter()
+    two = dp_two_ranks(ds, seed, root)
+    row = {"card": card, "world1": world1, "two_ranks": two,
+           "world1_s": t1 - t0, "two_ranks_s": time.perf_counter() - t1}
+    for how in GRAD_REDUCE:
+        r = world1[how]
+        print(f"dp world 1 nccl {how} ({card}): {r['ms_per_step']:.2f} ms "
+              f"a step against the single-device Trainer's "
+              f"{r['single_device_ms_per_step']:.2f}; all-reduce "
+              f"{r['collectives']} collectives, {r['bytes']} bytes, "
+              f"{r['ms']:.4f} device ms a step; bit for bit "
+              f"{r['bitwise_equal']}", flush=True)
+    for r, runs in two["ranks"].items():
+        for run in ("run1", "run2"):
+            x = runs[run]
+            ar = x.get("all_reduce")
+            print(f"dp two processes sharing one H100, gloo, rank {r} "
+                  f"{run} ({card}): {x['ms_per_step']:.2f} ms a step, peak "
+                  f"{x['peak_mib']:.1f} MiB, launches {x['launches']}"
+                  + (f"; bucketed all-reduce {ar['collectives']} "
+                     f"collectives, {ar['bytes']} bytes, {ar['ms']:.2f} "
+                     "host ms" if ar else ""), flush=True)
+    print(f"dp elastic ({card}): rank 0 {two['ranks'][0]['run3']}, rank 1 "
+          f"{two['ranks'][1]['run3']}; phase A {row['world1_s']:.1f} s, "
+          f"phase B {row['two_ranks_s']:.1f} s", flush=True)
+    return row
+
+
 def _stamp(t_start: float, phase: str) -> None:
     print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f}"
           " s", flush=True)
@@ -2784,12 +3210,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this run needs a GPU")
     t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the mixed tiers' plain bf16 products (torch.matmul, cuBLAS) sum in
-    # f32, as the JAX package's do (DESIGN.md §4)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-        False
+    _precision_flags()
 
     # 1. environment
     smi = subprocess.run(
@@ -3027,7 +3448,18 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _stamp(t_start, "runtime")
-    # 11. learns, in f32 and at the mixed tier
+    # 11. data parallelism: one rank over NCCL, then two processes sharing
+    # the card over gloo (their rendezvous files under build/, removed)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        dp = dp_phase(ds, train_ladder, args.seed, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"dp": dp}))
+    _stamp(t_start, "dp")
+    # 12. learns, in f32 and at the mixed tier
     learns = learns_phase(args.seed)
     learns_mixed = learns_phase(args.seed, mixed)
     primary = [r for r, c in zip(tier_rows, tier_cases) if c["primary"]]
@@ -3041,7 +3473,7 @@ def main() -> None:
         dataset={"crystals": len(ds), "caps": vars(train_caps),
                  "ladder": [vars(b) for b in train_ladder.buckets]})}))
     _stamp(t_start, "learns")
-    # 12. the LM: every CHGNet phase's state is gone; return its cache
+    # 13. the LM: every CHGNet phase's state is gone; return its cache
     torch.cuda.empty_cache()
     lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)
     print(json.dumps({"lm": lm_row}))

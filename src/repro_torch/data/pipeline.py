@@ -1,22 +1,33 @@
-"""Training-side batch iteration and prefetch, PyTorch port of the
-single-device part of ``repro.data.pipeline``.
+"""Training-side batch iteration and prefetch, PyTorch port of
+``repro.data.pipeline``.
 
 ``BatchIterator`` draws global batches from a sampler (paper C6; with
 ``load_balance="cost"`` the LPT ``CostBalanceSampler`` of DESIGN.md §6)
-and packs each into one padded CPU ``CrystalGraphBatch`` with
+and packs each into padded CPU ``CrystalGraphBatch``es with
 ``batching.batch_crystals``: into a fixed ``BatchCapacities``, or into the
 smallest bucket of a ``CapacityLadder`` that fits (``batching.ladder_for``
 sizes one from the dataset).  ``BalancedBatchIterator`` yields
 ``StepPlan``s instead: one optimizer step as several cost-sorted
 microbatches, each packed into its own smallest bucket, with the step's
 global loss denominators, for the Trainer's accumulation path.
+
+Over ``num_devices > 1`` (data parallelism) every rank runs the same
+sampler from the same seed over the whole global batch, picks the bucket
+from all shards of the step (one shape on every rank, as the JAX
+package's stacked leaves need) and packs only its own: ``shard=r`` yields
+rank r's batch, equal bit for bit to the JAX package's stacked leaves
+``[r]``; ``shard=None`` yields the list of every shard's batch (tests,
+one-process emulation).  A plan's microbatch that leaves a device idle
+gives it an all-padding shard.
+
 Quarantined dataset indices are dropped from every later batch, and
-``tag_indices`` wraps each batch in a ``TaggedBatch`` so that a rollback
-can trace a divergence back to its samples.  ``Prefetcher`` packs the
-next items on a background thread and, given a CUDA device, copies each
-from pinned host memory on a stream of its own (paper C8's separate copy
-stream), while the caller's step runs.  Sharding over several devices
-waits for ROADMAP 'Modules to port' item 13 and raises here.
+``tag_indices`` wraps each batch in a ``TaggedBatch`` of the step's
+global indices, so that a rollback can trace a divergence back to its
+samples and quarantines the same set on every rank.  ``Prefetcher``
+packs the next items on a background thread and, given a CUDA device,
+copies each from pinned host memory on a stream of its own (paper C8's
+separate copy stream), while the caller's step runs: a rank's shard to
+that rank's device.
 """
 from __future__ import annotations
 
@@ -50,7 +61,6 @@ from .sampler import (
 )
 from .synthetic import SyntheticDataset
 
-_TODO = "is not ported yet: ROADMAP 'Modules to port' item 13"
 log = logging.getLogger("repro_torch.data")
 
 
@@ -64,11 +74,16 @@ class TaggedBatch(NamedTuple):
     batch: Any
 
 
-def _single_device(num_devices: int) -> None:
-    if num_devices != 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices} (stacked shards for the mesh) "
-            f"{_TODO}")
+def _check_devices(global_batch: int, num_devices: int,
+                   shard: int | None) -> None:
+    if num_devices < 1:
+        raise ValueError(f"num_devices must be >= 1, got {num_devices}")
+    if global_batch < num_devices:
+        raise ValueError(
+            f"global_batch {global_batch} < num_devices {num_devices}")
+    if shard is not None and not 0 <= shard < num_devices:
+        raise ValueError(f"shard {shard} out of range for {num_devices} "
+                         "devices")
 
 
 def build_device_batch(
@@ -89,7 +104,9 @@ def build_device_batch(
 
 
 class BatchIterator:
-    """Epoch iterator producing padded single-device CPU batches."""
+    """Epoch iterator producing padded CPU batches: one a step on one
+    device, rank ``shard``'s over several, or (``shard=None``) the list
+    of every device's."""
 
     def __init__(
         self,
@@ -104,14 +121,13 @@ class BatchIterator:
         validate_layout: bool = True,
         cost_model: CostModel | None = None,
         tag_indices: bool = False,
+        shard: int | None = None,
     ):
-        _single_device(num_devices)
-        if global_batch < num_devices:
-            raise ValueError(
-                f"global_batch {global_batch} < num_devices {num_devices}")
+        _check_devices(global_batch, num_devices, shard)
         self.ds = ds
         self.global_batch = global_batch
         self.num_devices = num_devices
+        self.shard = shard
         self.caps = caps
         self.drop_last = drop_last
         # quarantine (DESIGN.md §8): indices here are dropped from every
@@ -136,6 +152,8 @@ class BatchIterator:
                             else DefaultSampler(counts, seed))
 
     def _caps_for(self, shards: list[np.ndarray]) -> BatchCapacities:
+        """One capacity for all shards of this step: the smallest bucket
+        that fits the largest (every rank computes the same)."""
         if isinstance(self.caps, BatchCapacities):
             return self.caps
         na = nb = ng = 0
@@ -144,6 +162,22 @@ class BatchIterator:
             nb = max(nb, sum(self.ds.graphs[i].num_bonds for i in s))
             ng = max(ng, sum(self.ds.graphs[i].num_angles for i in s))
         return self.caps.bucket_for(na, nb, ng)
+
+    def _pack(self, shards: list[np.ndarray]):
+        """The step's batch at the bucket of all its shards: this rank's
+        (``shard``), the only one, or the list of every shard's."""
+        caps = self._caps_for(shards)
+
+        def build(s):
+            return build_device_batch(
+                self.ds, s, caps, num_crystal_slots=self.crystal_slots,
+                validate=self.validate_layout)
+
+        if self.shard is not None:
+            return build(shards[self.shard])
+        if len(shards) == 1:
+            return build(shards[0])
+        return [build(s) for s in shards]
 
     def add_quarantine(self, indices) -> None:
         """Exclude dataset indices from all future batches (the Trainer's
@@ -168,12 +202,9 @@ class BatchIterator:
             shards = self._filter_quarantined(shards)
             if shards is None:
                 continue
-            (shard,) = shards
-            batch = build_device_batch(
-                self.ds, shard, self._caps_for(shards),
-                num_crystal_slots=self.crystal_slots,
-                validate=self.validate_layout)
-            yield TaggedBatch(shard, batch) if self.tag_indices else batch
+            batch = self._pack(shards)
+            yield TaggedBatch(np.concatenate(shards), batch) \
+                if self.tag_indices else batch
 
 
 class BalancedBatchIterator:
@@ -184,7 +215,11 @@ class BalancedBatchIterator:
     Trainer's accumulation path (``train.trainer.make_chgnet_accum_step_
     fns``) sums the per-microbatch gradients, whose global-denominator
     losses make the summed update equal a single big-batch step: the
-    big-crystal microbatch pays the big bucket, the rest do not.
+    big-crystal microbatch pays the big bucket, the rest do not.  Over
+    several devices a plan is ``num_micro`` x ``num_devices`` shards: rank
+    ``shard`` takes its column (``micro[m]`` its shard of microbatch m),
+    with the step's global denominators; ``shard=None`` gives each
+    microbatch as the list of its shards.
     """
 
     def __init__(
@@ -199,14 +234,13 @@ class BalancedBatchIterator:
         seed: int = 0,
         drop_last: bool = True,
         validate_layout: bool = True,
+        shard: int | None = None,
     ):
-        _single_device(num_devices)
-        if global_batch < num_devices:
-            raise ValueError(
-                f"global_batch {global_batch} < num_devices {num_devices}")
+        _check_devices(global_batch, num_devices, shard)
         self.ds = ds
         self.global_batch = global_batch
         self.num_devices = num_devices
+        self.shard = shard
         self.caps = caps
         self.num_micro = max(1, num_micro)
         self.cost_model = cost_model if cost_model is not None \
@@ -224,6 +258,7 @@ class BalancedBatchIterator:
 
     add_quarantine = BatchIterator.add_quarantine
     _caps_for = BatchIterator._caps_for
+    _pack = BatchIterator._pack
 
     def update_cost_model(self, model: CostModel) -> None:
         """Swap in a refit cost model (live refits, DESIGN.md §6): the
@@ -243,18 +278,16 @@ class BalancedBatchIterator:
         micro_sizes = np.zeros((len(plan), 3), np.float64)
         for m, shards_pos in enumerate(plan):
             shards = [idx[pos] for pos in shards_pos]
-            (shard,) = shards
-            micro_batches.append(build_device_batch(
-                self.ds, shard, self._caps_for(shards),
-                num_crystal_slots=self.crystal_slots,
-                validate=self.validate_layout))
+            micro_batches.append(self._pack(shards))
             shard_costs[m] = shard_cost_totals(self.costs, shards)
-            # real feature totals: the live cost-model refit pairs them
-            # with the measured microbatch times
+            # the microbatch's real feature totals over all its shards:
+            # the live cost-model refit pairs them with the measured
+            # microbatch times (the slowest rank's, on a mesh)
+            flat = np.concatenate(shards)
             micro_sizes[m] = (
-                sum(self.ds.crystals[i].num_atoms for i in shard),
-                sum(self.ds.graphs[i].num_bonds for i in shard),
-                sum(self.ds.graphs[i].num_angles for i in shard),
+                sum(self.ds.crystals[i].num_atoms for i in flat),
+                sum(self.ds.graphs[i].num_bonds for i in flat),
+                sum(self.ds.graphs[i].num_angles for i in flat),
             )
         denoms = global_denominators(len(idx), int(self.atoms[idx].sum()))
         return StepPlan(micro=micro_batches, denoms=denoms,
@@ -278,16 +311,18 @@ class BalancedBatchIterator:
 def _map_batches(item, fn):
     """``fn`` applied to every batch or tensor of a prefetched item: the
     item itself, a ``TaggedBatch``'s batch, each of a ``StepPlan``'s
-    microbatches."""
+    microbatches, each shard of a list."""
     if isinstance(item, TaggedBatch):
         return TaggedBatch(item.indices, _map_batches(item.batch, fn))
+    if isinstance(item, list):
+        return [_map_batches(x, fn) for x in item]
     if isinstance(item, StepPlan):
         return dataclasses.replace(
             item, micro=[_map_batches(m, fn) for m in item.micro])
     if torch.is_tensor(item) or isinstance(item, CrystalGraphBatch):
         return fn(item)
     raise TypeError("Prefetcher moves CrystalGraphBatch, tensor, "
-                    f"TaggedBatch or StepPlan items, got "
+                    f"TaggedBatch, StepPlan or list items, got "
                     f"{type(item).__name__}")
 
 

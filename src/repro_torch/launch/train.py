@@ -6,22 +6,29 @@ verified checkpoints, rollback, preemption and restarts).
 
     PYTHONPATH=src python -m repro_torch.launch.train --steps 50 \\
         [--balance cost --accum 2] [--ckpt DIR --async-ckpt] [--device cpu]
+        [--devices N]
 
-One device only: more (``--devices``) waits for multi-GPU training, and
-the LM architectures for the LM substrate (ROADMAP 'Modules to port'
-items 13 and 14); both raise ``NotImplementedError``.
+``--devices N`` trains data-parallel over N ranks, one process each
+(``torch.multiprocessing``, rendezvous through a file in a temporary
+directory): rank r on ``cuda:r`` over NCCL, or with ``--device cpu`` on
+the CPU over gloo.  Capacities are sized per device (``ceil(batch /
+N)``), the balanced path goes through ``runtime.elastic_train`` (a
+device drop re-bin-packs over the survivors and the dropped rank
+leaves), rank 0 of the job prints and position 0 of the mesh writes the
+checkpoints.  More ranks than visible GPUs raise.  The LM
+architectures wait for the LM substrate (ROADMAP 'Modules to port' item
+14) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
+import tempfile
 
-_TODO = "is not ported yet: ROADMAP 'Modules to port' item"
 
-
-def train_chgnet(args) -> int:
-    """Train until ``--steps``; returns the step reached (the preempted
-    step after a SIGTERM)."""
+def train_chgnet(args, mesh=None) -> int:
+    """Train until ``--steps``, on one device or as one rank of ``mesh``;
+    returns the step reached (the preempted step after a SIGTERM)."""
     from repro_torch.batching import capacity_for, ladder_for
     from repro_torch.configs import chgnet_mptrj as C
     from repro_torch.data import (
@@ -30,18 +37,20 @@ def train_chgnet(args) -> int:
     )
     from repro_torch.runtime import (
         ChaosMonkey, ChaosSchedule, GracefulShutdown, PreemptionError,
-        clear_resume_marker, latest_valid_step, read_resume_marker,
-        run_with_restarts,
+        clear_resume_marker, elastic_train, latest_valid_step,
+        read_resume_marker, run_with_restarts,
     )
     from repro_torch.train import TrainConfig, Trainer
 
-    if args.devices != 1:
-        raise NotImplementedError(
-            f"--devices {args.devices} (data parallelism) {_TODO} 13")
+    n_dev = 1 if mesh is None else mesh.size
+    # rank 0 speaks for the mesh
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     ds = make_dataset(SyntheticConfig(num_crystals=args.crystals, seed=0))
-    # one worst-case capacity or a bucket ladder
-    caps = (capacity_for(ds, args.batch) if args.buckets <= 1
-            else ladder_for(ds, args.batch, num_buckets=args.buckets))
+    # one worst-case capacity or a bucket ladder, sized per device: a shard
+    # holds up to ceil(batch / devices) samples
+    per_dev = -(-args.batch // n_dev)
+    caps = (capacity_for(ds, per_dev) if args.buckets <= 1
+            else ladder_for(ds, per_dev, num_buckets=args.buckets))
     model_cfg = C.FAST_FS_HEAD if args.readout == "direct" else C.FAST_WO_HEAD
     model_cfg = model_cfg.with_(conv_impl=args.conv_impl,
                                 precision=args.precision,
@@ -53,17 +62,18 @@ def train_chgnet(args) -> int:
                             loss=C.LOSS, grad_reduce=args.grad_reduce,
                             cost_refit_every=args.cost_refit_every,
                             rollback_on_divergence=args.rollback_on_divergence)
-    print(f"device={args.device} init_lr={train_cfg.init_lr:.2e} "
+    device = args.device if mesh is None else str(mesh.device)
+    say(f"device={device} devices={n_dev} init_lr={train_cfg.init_lr:.2e} "
           f"readout={args.readout} conv_impl={args.conv_impl} "
           f"precision={args.precision} bond_store={args.bond_store} "
           f"bond_features={args.bond_features} "
           f"stress_mode={args.stress_mode} async_ckpt={args.async_ckpt}",
           flush=True)
-    if args.ckpt:
+    if args.ckpt and (mesh is None or mesh.rank == 0):
         marker = read_resume_marker(args.ckpt)
         if marker:
-            print(f"resuming after preemption at step {marker['step']} "
-                  f"({marker.get('reason', '?')})", flush=True)
+            say(f"resuming after preemption at step {marker['step']} "
+                f"({marker.get('reason', '?')})", flush=True)
             clear_resume_marker(args.ckpt)
     # one monkey for the whole run: each scheduled fault fires once
     monkey = None
@@ -74,19 +84,10 @@ def train_chgnet(args) -> int:
     shutdown = GracefulShutdown().install()
     # pinned copies on a stream of their own to the card; CPU batches as
     # they are packed
-    copy_to = args.device if args.device.startswith("cuda") else None
+    copy_to = device if device.startswith("cuda") else None
 
-    def one_pass(tr):
-        if args.balance == "cost" or args.accum > 1:
-            # cost-model bin packing + accumulation (DESIGN.md §6); the
-            # Trainer's refit cost models and quarantines reach the
-            # iterator through its hooks
-            it = BalancedBatchIterator(ds, args.batch, 1, caps,
-                                       num_micro=max(args.accum, 1))
-            tr.on_cost_model = it.update_cost_model
-        else:
-            it = BatchIterator(ds, args.batch, 1, caps, load_balance=True,
-                               tag_indices=args.rollback_on_divergence)
+    def batches(tr, it):
+        """The rest of the run's steps of ``it`` through the Prefetcher."""
         tr.on_quarantine = it.add_quarantine
         stream = itertools.islice(itertools.cycle(iter(it)),
                                   max(args.steps - tr.step, 0))
@@ -94,21 +95,43 @@ def train_chgnet(args) -> int:
             # inside the Prefetcher, so that transient faults take the
             # worker's retry and quarantine path (DESIGN.md §8)
             stream = monkey.wrap_batches(stream, start_step=tr.step)
-        return tr.train(Prefetcher(stream, device=copy_to),
-                        fault_injector=monkey)
+        return Prefetcher(stream, device=copy_to)
+
+    def one_pass(tr):
+        if args.balance == "cost" or args.accum > 1:
+            # cost-model bin packing + accumulation (DESIGN.md §6); the
+            # Trainer's refit cost models and quarantines reach the
+            # iterator through its hooks, and a device drop re-bin-packs
+            # the plans over the survivors
+            def batches_fn(num_devices):
+                it = BalancedBatchIterator(
+                    ds, args.batch, num_devices, caps,
+                    num_micro=max(args.accum, 1),
+                    shard=None if tr.mesh is None else tr.mesh.rank)
+                tr.on_cost_model = it.update_cost_model
+                return batches(tr, it)
+
+            return elastic_train(tr, batches_fn, max_steps=args.steps,
+                                 fault_injector=monkey)
+        it = BatchIterator(ds, args.batch, n_dev, caps, load_balance=True,
+                           tag_indices=args.rollback_on_divergence,
+                           shard=None if tr.mesh is None else tr.mesh.rank)
+        return tr.train(batches(tr, it), fault_injector=monkey)
 
     def loop(start):
-        tr = Trainer(model_cfg, train_cfg, device=args.device,
+        tr = Trainer(model_cfg, train_cfg,
+                     device=args.device if mesh is None else None, mesh=mesh,
                      ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
                      async_ckpt=args.async_ckpt, shutdown=shutdown)
         try:
             if tr.maybe_restore():
-                print(f"restored step {tr.step} from {args.ckpt}",
-                      flush=True)
+                say(f"restored step {tr.step} from {args.ckpt}", flush=True)
             hist = []
             while True:
                 before = tr.step
                 hist = one_pass(tr)
+                if mesh is not None and tr.mesh is None:
+                    return tr.step  # this rank's device was dropped
                 # a rollback consumes batches while moving the step back,
                 # so an exhausted stream can leave the run short of
                 # --steps: go on while each pass makes progress
@@ -118,10 +141,10 @@ def train_chgnet(args) -> int:
         finally:
             tr.close()
         if hist:
-            print(f"steps {tr.step - len(hist)}..{tr.step}: "
-                  f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
-                  f"stragglers={tr.straggler.flags} "
-                  f"rollbacks={tr.rollbacks}", flush=True)
+            say(f"steps {tr.step - len(hist)}..{tr.step}: "
+                f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+                f"stragglers={tr.straggler.flags} "
+                f"rollbacks={tr.rollbacks}", flush=True)
         return tr.step
 
     try:
@@ -132,11 +155,53 @@ def train_chgnet(args) -> int:
             if args.ckpt else 0,
             max_restarts=3)
     except PreemptionError as exc:
-        print(f"preempted at step {exc.step}; checkpoint + resume marker "
-              f"written to {args.ckpt}", flush=True)
+        say(f"preempted at step {exc.step}; checkpoint + resume marker "
+            f"written to {args.ckpt}", flush=True)
         return exc.step
     finally:
         shutdown.uninstall()
+
+
+def _rank_main(rank: int, args, init_method: str, results) -> None:
+    """One rank of ``--devices N``: join the mesh, train, report the step
+    it reached."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_data_mesh
+
+    device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
+    if device == "cpu":
+        # the ranks share the host's cores: oversubscribed intra-op pools
+        # spin against each other
+        torch.set_num_threads(max(1, torch.get_num_threads() // args.devices))
+    mesh = init_data_mesh(device, rank=rank, world_size=args.devices,
+                          init_method=init_method)
+    try:
+        results.put(train_chgnet(args, mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_data_parallel(args) -> int:
+    """Spawn ``args.devices`` ranks of ``train_chgnet``; returns the step
+    the run reached (the furthest rank's: a dropped rank stops early).
+    Raises before spawning when the ranks outnumber the visible GPUs."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if args.device not in ("cuda", "cpu"):
+        raise ValueError(f"--devices {args.devices} takes --device cuda "
+                         f"(rank r on cuda:r) or cpu, not {args.device!r}")
+    if args.device == "cuda" and args.devices > torch.cuda.device_count():
+        raise ValueError(f"--devices {args.devices} needs as many GPUs; "
+                         f"{torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        results = mp.get_context("spawn").SimpleQueue()
+        mp.start_processes(_rank_main, args=(args, f"file://{tmp}/store",
+                                             results),
+                           nprocs=args.devices, start_method="spawn")
+        return max(results.get() for _ in range(args.devices))
 
 
 def main(argv=None) -> int:
@@ -148,7 +213,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, the default) or cpu")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices to train on (only 1 so far)")
+                    help="data-parallel ranks, one process each (rank r "
+                         "on cuda:r, or on the CPU with --device cpu)")
     ap.add_argument("--readout", default="direct",
                     choices=["direct", "autodiff"])
     ap.add_argument("--conv-impl", default="unfused",
@@ -207,8 +273,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.arch != "chgnet":
         raise NotImplementedError(
-            f"--arch {args.arch} (LM training) {_TODO} 14")
-    return train_chgnet(args)
+            f"--arch {args.arch} (LM training) is not ported yet: ROADMAP "
+            "'Modules to port' item 14")
+    if args.devices < 1:
+        raise ValueError(f"--devices must be >= 1, got {args.devices}")
+    return train_chgnet(args) if args.devices == 1 \
+        else train_data_parallel(args)
 
 
 if __name__ == "__main__":

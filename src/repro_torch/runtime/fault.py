@@ -21,8 +21,7 @@ launch resumes from that exact step.
 ``StragglerWatch`` flags a step slower than ``threshold`` x the trailing
 median.  ``TransientSampleError`` is the exception the ``Prefetcher``
 retries and quarantines.  ``DeviceLossError`` and ``DeviceDropInjector``
-are the types of a lost device; the elastic rebalance that catches them
-waits for multi-GPU training (ROADMAP 'Modules to port' item 13).
+are the types of a lost device, which ``elastic.elastic_train`` catches.
 """
 from __future__ import annotations
 
@@ -156,7 +155,7 @@ class DeviceLossError(RuntimeError):
     """A device dropped out of the mesh mid-run (DESIGN.md §6).
 
     Carries which mesh position failed, for the elastic path that rebuilds
-    the mesh from the survivors (multi-GPU training, item 13).  On one
+    the mesh from the survivors (``elastic.elastic_train``).  On one
     device nothing catches it.
     """
 
@@ -169,7 +168,8 @@ class DeviceDropInjector:
     """Deterministic device-loss injection (duck-types FaultInjector).
 
     Raises :class:`DeviceLossError` once at ``fail_at_step``, naming
-    ``device_index`` as the lost mesh position.
+    ``device_index`` as the lost mesh position.  It fires by step, so the
+    injectors of every rank of a mesh fire at the same step.
     """
 
     def __init__(self, fail_at_step: int, device_index: int = 0):

@@ -1,4 +1,4 @@
-"""Training step and a single-device Trainer, PyTorch port of
+"""Training steps and the Trainer, PyTorch port of
 ``repro.train.trainer`` (paper §III-C).
 
 One step: ``chgnet_apply`` -> Huber loss -> backward (through the CUDA
@@ -10,7 +10,8 @@ buffer donation.
 
 Ported: ``TrainConfig`` field for field, ``chgnet_loss_fn``,
 ``_apply_grads`` (``apply_grads``) with the loss scaler, ``make_chgnet_
-step_fns`` and a ``Trainer`` with ``train``, ``evaluate`` and ``serve``.
+step_fns``, the data-parallel steps and a ``Trainer`` with ``train``,
+``evaluate`` and ``serve``.
 
 Mixed precision (DESIGN.md §4): when the policy computes below f32 the
 step scales the loss (``TrainConfig.loss_scale``, state in
@@ -29,13 +30,26 @@ global-denominator partial loss and one apply step; ``Trainer`` takes a
 its microbatches' gradients in order, and can refit the bin packer's cost
 model from measured microbatch times (``cost_refit_every``).
 
+Data parallelism (DESIGN.md §6) over a ``distributed.DataMesh``: each
+rank holds a full replica of the parameters and optimizer state, takes
+the loss and gradients of its own shard, all-reduces the *scaled*
+gradients by ``TrainConfig.grad_reduce`` (``plain`` / ``bucketed`` /
+``compressed``), divides by the mesh size and runs the replicated tail
+(``make_dp_train_step``, ``make_dp_eval_step``, ``make_dp_serve_step``,
+and the mesh half of ``make_chgnet_accum_step_fns``).  Whatever the JAX
+package decides once in one process, the ranks agree on: the inf/nan
+skip (identical reduced gradients), the divergence sentinel's loss (the
+mean), the quarantine (global indices), the cost refit (a microbatch's
+time is the slowest rank's) and a SIGTERM (a stop flag reduced with the
+step's metrics, so every rank stops at the same step and rank 0 writes
+the final checkpoint).
+
 Runtime (DESIGN.md §8): periodic verified checkpoints (sync, or async on
-a writer thread), ``maybe_restore`` with the legacy-f32 and packed-GatedMLP
-migrations, divergence rollback with quarantine
+a writer thread; on a mesh rank 0 writes and a barrier follows, and every
+rank restores the same file), ``maybe_restore`` with the legacy-f32 and
+packed-GatedMLP migrations, divergence rollback with quarantine
 (``rollback_on_divergence``), and the SIGTERM hand-off (``shutdown``: a
-final checkpoint, a resume marker, ``PreemptionError``).  The mesh (data
-parallelism) raises ``NotImplementedError`` naming ROADMAP 'Modules to
-port' item 13.
+final checkpoint, a resume marker, ``PreemptionError``).
 """
 from __future__ import annotations
 
@@ -69,6 +83,13 @@ from repro_torch.core.losses import (
     metrics_from_sums,
 )
 from repro_torch.data.pipeline import TaggedBatch
+from repro_torch.distributed import (
+    DataMesh,
+    all_reduce_grads,
+    mean_metrics,
+    stack_over_ranks,
+    sum_scalars,
+)
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.optim.grad import (
     clip_by_global_norm,
@@ -224,11 +245,24 @@ def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
         host, loss_scale=scaler["scale"], **extra)
 
 
+def _lr_schedule(train_cfg: TrainConfig):
+    """The step -> LR function of ``train_cfg`` (cosine annealing from
+    the Eq. 14 initial LR)."""
+
+    def lr_at(step):
+        return cosine_annealing(step, train_cfg.total_steps,
+                                train_cfg.init_lr,
+                                warmup_steps=train_cfg.warmup_steps)
+
+    return lr_at
+
+
 def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
     """Returns ``(train_step, eval_step, serve_step)``.
 
-    ``train_step(params, opt_state, batch, step)`` updates ``params`` and
-    ``opt_state`` in place and returns them with the step's metrics;
+    ``train_step(params, opt_state, batch, step, stop=None)`` updates
+    ``params`` and ``opt_state`` in place and returns them with the step's
+    metrics (``stop`` is the DP step's; it is not read here);
     ``eval_step(params, batch)`` gives the loss metrics and
     ``serve_step(params, batch)`` the predictions, both without autograd.
     The JAX signature's ``cache`` and ``donate`` are dropped: eager steps
@@ -236,14 +270,11 @@ def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
     parameter and optimizer buffers.
     """
 
-    def lr_at(step):
-        return cosine_annealing(step, train_cfg.total_steps,
-                                train_cfg.init_lr,
-                                warmup_steps=train_cfg.warmup_steps)
-
+    lr_at = _lr_schedule(train_cfg)
     scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
 
-    def train_step(params, opt_state, batch, step):
+    def train_step(params, opt_state, batch, step, stop=None):
+        del stop  # the DP step's SIGTERM flag: one device agrees alone
         loss, metrics = chgnet_loss_fn(params, model_cfg, batch,
                                        train_cfg.loss)
         scaler = opt_state.get("loss_scale")
@@ -266,20 +297,97 @@ def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
     return train_step, eval_step, serve_step
 
 
-def make_chgnet_accum_step_fns(model_cfg: CHGNetConfig,
-                               train_cfg: TrainConfig):
-    """Returns ``(grad_step, apply_step)`` for accumulation over uneven
-    capacity buckets (DESIGN.md §6), the single-device half of the JAX
-    package's function of that name.
+def _with_stop(values: dict, stop) -> dict:
+    """``values`` plus this rank's stop flag (SIGTERM) as a float, to ride
+    the step's metrics all-reduce; unchanged when ``stop`` is None."""
+    return values if stop is None else dict(values, stop=float(stop))
 
-      - ``grad_step(params, batch, denoms, scaler) -> (grads, sums)``: the
-        gradients (a list in ``optim.tree.leaves`` order) of this
-        microbatch's *partial* loss, masked Huber sums over the step's
-        global ``denoms`` (``losses.global_denominators``), times the loss
-        scale when ``scaler`` (``opt_state["loss_scale"]``) is given, and
-        the detached sums.  Because the denominators are global, the
-        microbatches' losses and gradients add up to the single big
-        batch's (up to f32 reassociation).
+
+def make_dp_train_step(model_cfg: CHGNetConfig, train_cfg: TrainConfig,
+                       mesh: DataMesh):
+    """Train step over this rank's shard of each global batch, the port of
+    the JAX package's ``shard_map`` step: the loss and gradients of the
+    local shard, an all-reduce of the *scaled* gradients by
+    ``train_cfg.grad_reduce``, division by the mesh size, the replicated
+    ``apply_grads`` (unscale, finite check, clip, Adam, skip), and the
+    metrics averaged over the ranks.
+
+    ``train_step(params, opt_state, batch, step, stop=None)``: ``batch`` is
+    this rank's ``CrystalGraphBatch``.  ``stop`` (this rank's SIGTERM
+    flag) rides the metrics' all-reduce and comes back as the metric
+    ``stop``, above 0 when any rank was asked to stop.
+    """
+    lr_at = _lr_schedule(train_cfg)
+    scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
+
+    def train_step(params, opt_state, batch, step, stop=None):
+        loss, metrics = chgnet_loss_fn(params, model_cfg, batch,
+                                       train_cfg.loss)
+        scaler = opt_state.get("loss_scale")
+        grads = grads_of(loss if scaler is None else scale_loss(loss, scaler),
+                         params)
+        # the all-reduce sees the scaled gradients (scaling lifts small
+        # cotangents above bf16's rounding before the compressed
+        # collective); unscale and the skip run replicated after it, so
+        # every rank takes the same decision
+        grads = torch._foreach_div(
+            all_reduce_grads(grads, mesh, train_cfg.grad_reduce),
+            float(mesh.size))
+        metrics = mean_metrics(_with_stop(metrics, stop), mesh)
+        params, opt_state, extra = apply_grads(
+            grads, opt_state, params, lr_at(step), train_cfg, scale_kind,
+            metrics)
+        return params, opt_state, dict(metrics, **extra)
+
+    return train_step
+
+
+def make_dp_eval_step(model_cfg: CHGNetConfig, train_cfg: TrainConfig,
+                      mesh: DataMesh):
+    """``eval_step(params, batch)``: the loss metrics of this rank's shard,
+    averaged over the ranks."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return mean_metrics(
+            chgnet_loss_fn(params, model_cfg, batch, train_cfg.loss)[1],
+            mesh)
+
+    return eval_step
+
+
+def make_dp_serve_step(model_cfg: CHGNetConfig, mesh: DataMesh):
+    """``serve_step(params, batch)``: the predictions of this rank's shard,
+    stacked over the ranks on a leading device axis (every rank gets all
+    of them, as ``shard_map``'s ``out_specs=P("data")``)."""
+
+    @torch.no_grad()
+    def serve_step(params, batch):
+        return stack_over_ranks(chgnet_apply(params, model_cfg, batch), mesh)
+
+    return serve_step
+
+
+def make_chgnet_accum_step_fns(model_cfg: CHGNetConfig,
+                               train_cfg: TrainConfig, *,
+                               mesh: DataMesh | None = None):
+    """Returns ``(grad_step, apply_step)`` for accumulation over uneven
+    capacity buckets (DESIGN.md §6), the port of the JAX package's
+    function of that name.
+
+      - ``grad_step(params, batch, denoms, scaler, stop=None) -> (grads,
+        sums)``: the gradients (a list in ``optim.tree.leaves`` order) of
+        this microbatch's *partial* loss, masked Huber sums over the
+        step's global ``denoms`` (``losses.global_denominators``), times
+        the loss scale when ``scaler`` (``opt_state["loss_scale"]``) is
+        given, and the detached sums.  Because the denominators are
+        global, the microbatches' losses and gradients add up to the
+        single big batch's (up to f32 reassociation).  On a ``mesh`` the
+        gradients (by ``grad_reduce``) and the sums are all-reduced with no
+        division, the device half of that same sum: the global
+        denominators already normalize, and a rank left idle by a small
+        microbatch adds the exact zeros of its all-padding shard; ``stop``
+        rides the sums' all-reduce as the sum ``stop``.
       - ``apply_step(params, opt_state, grads, sums, denoms, step)``: the
         shared tail (``apply_grads``: unscale, finite check, clip, Adam,
         skip on inf/nan, scaler update) on the summed gradients, and the
@@ -288,22 +396,24 @@ def make_chgnet_accum_step_fns(model_cfg: CHGNetConfig,
         whole step, as for a single batch.
     """
 
-    def lr_at(step):
-        return cosine_annealing(step, train_cfg.total_steps,
-                                train_cfg.init_lr,
-                                warmup_steps=train_cfg.warmup_steps)
-
+    lr_at = _lr_schedule(train_cfg)
     scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
 
-    def grad_step(params, batch, denoms, scaler=None):
+    def grad_step(params, batch, denoms, scaler=None, stop=None):
         pred = chgnet_apply(params, model_cfg, batch)
         loss, sums = chgnet_loss_sums(pred, batch, train_cfg.loss, denoms)
         grads = grads_of(loss if scaler is None else scale_loss(loss, scaler),
                          params)
-        return grads, {k: v.detach() for k, v in sums.items()}
+        sums = {k: v.detach() for k, v in sums.items()}
+        if mesh is None:
+            return grads, sums
+        return (all_reduce_grads(grads, mesh, train_cfg.grad_reduce),
+                sum_scalars(_with_stop(sums, stop), mesh))
 
     def apply_step(params, opt_state, grads, sums, denoms, step):
         metrics = metrics_from_sums(sums, denoms)
+        if "stop" in sums:
+            metrics["stop"] = sums["stop"]
         params, opt_state, extra = apply_grads(
             grads, opt_state, params, lr_at(step), train_cfg, scale_kind,
             metrics)
@@ -334,7 +444,8 @@ def params_on(tree, device):
 
 
 class Trainer:
-    """Single-device training loop with periodic verified checkpoints.
+    """Training loop with periodic verified checkpoints, on one device or
+    one rank of a data-parallel mesh.
 
     The parameters are initialized from ``seed``; ``device=None`` means
     the card and raises without CUDA.  ``params``, ``opt_state`` and
@@ -343,6 +454,14 @@ class Trainer:
     (``data.BalancedBatchIterator``: one optimizer step over several
     microbatches) or either wrapped in a ``TaggedBatch``, moves each to
     the device and returns the per-step metrics.
+
+    ``mesh`` (a ``distributed.DataMesh``) trains this rank's replica on
+    the mesh's device: every rank builds the same parameters from the
+    same seed, takes its own shard of each step (the iterators'
+    ``shard=mesh.rank``) and the DP steps keep the replicas equal;
+    ``evaluate`` averages the ranks' metrics and ``serve`` stacks their
+    outputs on a leading device axis.  ``rebuild_mesh`` re-targets the
+    trainer at a shrunken mesh (``runtime.elastic_train``).
 
     ``ckpt_dir`` turns on a checkpoint every ``ckpt_every`` steps (only of
     states the divergence sentinel finds healthy), keeping ``keep`` valid
@@ -354,14 +473,15 @@ class Trainer:
     """
 
     def __init__(self, model_cfg: CHGNetConfig, train_cfg: TrainConfig, *,
-                 seed: int = 0, device=None, mesh=None,
+                 seed: int = 0, device=None, mesh: DataMesh | None = None,
                  ckpt_dir: str | None = None, ckpt_every: int = 100,
                  keep: int = 3, async_ckpt: bool = False, shutdown=None):
         check_supported(model_cfg)
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data parallelism) is not ported yet: ROADMAP "
-                "'Modules to port' item 13")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
@@ -378,18 +498,20 @@ class Trainer:
             self.opt_state["loss_scale"] = loss_scale_init(
                 train_cfg.loss_scale)
         self.step = 0
-        self._train_step, self._eval_step, self._serve_step = \
-            make_chgnet_step_fns(model_cfg, train_cfg)
-        self._grad_step, self._apply_step = make_chgnet_accum_step_fns(
-            model_cfg, train_cfg)
+        self.mesh = mesh
+        self._build_steps()
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.keep = keep
         # async checkpoints (DESIGN.md §8): snapshot on the loop thread,
-        # serialize, fsync and prune on a writer thread
-        self._ckpt_writer = AsyncCheckpointWriter(ckpt_dir, keep=keep) \
-            if async_ckpt and ckpt_dir is not None else None
+        # serialize, fsync and prune on a writer thread, started by the
+        # first save of the rank that writes
+        self.async_ckpt = async_ckpt
+        self._ckpt_writer = None
         self.shutdown = shutdown
+        # on a mesh, a SIGTERM counts once the ranks agree on it (the stop
+        # flag reduced with the step's metrics)
+        self._agreed_stop = False
         self.straggler = StragglerWatch()
         # divergence rollback (DESIGN.md §8): lr_scale rides in opt_state
         # so that a backed-off LR survives checkpoints
@@ -414,18 +536,61 @@ class Trainer:
         self.cost_model = None
         self.on_cost_model: Callable[[Any], None] | None = None
 
+    def _build_steps(self):
+        """The step functions of the current ``mesh`` (DP steps on one)."""
+        if self.mesh is None:
+            self._train_step, self._eval_step, self._serve_step = \
+                make_chgnet_step_fns(self.model_cfg, self.train_cfg)
+        else:
+            self._train_step = make_dp_train_step(
+                self.model_cfg, self.train_cfg, self.mesh)
+            self._eval_step = make_dp_eval_step(
+                self.model_cfg, self.train_cfg, self.mesh)
+            self._serve_step = make_dp_serve_step(self.model_cfg, self.mesh)
+        self._grad_step, self._apply_step = make_chgnet_accum_step_fns(
+            self.model_cfg, self.train_cfg, mesh=self.mesh)
+
+    @property
+    def num_devices(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def rebuild_mesh(self, mesh: DataMesh | None):
+        """Re-target the trainer at a (shrunken) mesh, as the elastic path
+        does after a device drop: the replica stays on this rank's device,
+        with its optimizer state, and the step functions are rebuilt."""
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh device {mesh.device} is not the "
+                             f"trainer's {self.device}")
+        self.mesh = mesh
+        self._build_steps()
+
     # -- checkpoints ----------------------------------------------------------
+    @property
+    def _writes_checkpoints(self) -> bool:
+        """One device, or position 0 of the mesh: the rank that writes."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def state(self) -> dict:
         return {"params": self.params, "opt_state": self.opt_state}
 
     def save(self, *, wait: bool = False):
         """Checkpoint the current state (async when built with
         ``async_ckpt=True``; ``wait`` makes it durable before returning,
-        as final and preemption saves need)."""
+        as final and preemption saves need).  On a mesh rank 0 writes (the
+        replicas are equal) and a barrier follows."""
         if self.ckpt_dir is None:
             return
+        if self._writes_checkpoints:
+            self._write(wait)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _write(self, wait: bool):
         meta = {"model_cfg": dataclasses.asdict(self.model_cfg)}
-        if self._ckpt_writer is not None:
+        if self.async_ckpt:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter(self.ckpt_dir,
+                                                          keep=self.keep)
             self._ckpt_writer.save(self.step, self.state(), extra_meta=meta)
             if wait:
                 self._ckpt_writer.flush()
@@ -450,11 +615,15 @@ class Trainer:
         ``lr_scale`` leaves) restores into a stripped template and the
         missing state is re-grown; a legacy separate-weight GatedMLP
         restores into the legacy template and is packed once.  Any other
-        missing leaf, or a failed migration, raises the first error."""
+        missing leaf, or a failed migration, raises the first error.  On a
+        mesh every rank restores the same file, once rank 0's in-flight
+        write has landed."""
         if self.ckpt_dir is None:
             return False
         # land any in-flight async write first, so that it counts
         self.flush_checkpoints()
+        if self.mesh is not None:
+            self.mesh.barrier()
         if latest_step(self.ckpt_dir) is None:
             return False
         packed_keys = ("['w']", "['b']", "['ln_scale']", "['ln_bias']")
@@ -516,11 +685,12 @@ class Trainer:
         return self._serve_step(self.params, batch.to(self.device))
 
     # -- gradient accumulation (DESIGN.md §6) ---------------------------------
-    def _step_plan(self, plan: StepPlan):
+    def _step_plan(self, plan: StepPlan, stop=None):
         """One optimizer step over a balanced multi-bucket StepPlan: the
         microbatches' gradients (global-denominator partial losses) are
         summed in microbatch order, then applied once: the update a
-        single big-batch step would take."""
+        single big-batch step would take.  On a mesh each microbatch is
+        this rank's shard, its gradients and sums all-reduced."""
         scaler = self.opt_state.get("loss_scale")
         # per-microbatch times for the live cost-model refit: only when
         # enabled (the synchronise stops the host running ahead), only past
@@ -529,22 +699,30 @@ class Trainer:
                    and plan.micro_sizes is not None)
         sync = profile and self.device.type == "cuda"
         gsum = ssum = None
-        for i, micro in enumerate(plan.micro):
+        times = []
+        for micro in plan.micro:
             t0 = time.perf_counter() if profile else 0.0
             grads, sums = self._grad_step(
-                self.params, micro.to(self.device), plan.denoms, scaler)
+                self.params, micro.to(self.device), plan.denoms, scaler,
+                stop)
             if sync:
                 torch.cuda.synchronize(self.device)
-            if profile and \
-                    self._profiled_plans >= self.train_cfg.cost_refit_warmup:
-                self._cost_samples.append(
-                    (plan.micro_sizes[i], time.perf_counter() - t0))
+            if profile:
+                times.append(time.perf_counter() - t0)
             if gsum is None:
                 gsum, ssum = grads, sums
             else:
                 torch._foreach_add_(gsum, grads)
                 ssum = {k: ssum[k] + sums[k] for k in ssum}
         if profile:
+            if self.mesh is not None:
+                # a microbatch takes as long as its slowest rank, and every
+                # rank must fit the same model to pack the same plans
+                times = self.mesh.all_reduce(torch.tensor(
+                    times, dtype=torch.float64, device=self.device),
+                    "max").tolist()
+            if self._profiled_plans >= self.train_cfg.cost_refit_warmup:
+                self._cost_samples.extend(zip(plan.micro_sizes, times))
             self._profiled_plans += 1
             del self._cost_samples[:-self.train_cfg.cost_refit_window]
         return self._apply_step(self.params, self.opt_state, gsum, ssum,
@@ -595,13 +773,19 @@ class Trainer:
     def _preempt(self):
         """SIGTERM (or any GracefulShutdown signal): checkpoint durably,
         drop a resume marker and raise PreemptionError, which
-        ``run_with_restarts`` never retries."""
+        ``run_with_restarts`` never retries.  On a mesh every rank gets
+        here at the same step, and rank 0 writes both."""
         if self.ckpt_dir is not None:
             self.save(wait=True)
-            signum = self.shutdown.signum if self.shutdown else None
-            write_resume_marker(self.ckpt_dir, self.step,
-                                reason=f"signal {signum}")
+            if self._writes_checkpoints:
+                signum = self.shutdown.signum if self.shutdown else None
+                write_resume_marker(self.ckpt_dir, self.step,
+                                    reason=f"signal {signum}")
         raise PreemptionError(self.step)
+
+    def _stop_flag(self) -> bool:
+        """This process's SIGTERM flag."""
+        return self.shutdown is not None and self.shutdown.requested
 
     # -- loop -----------------------------------------------------------------
     def train(self, batches, max_steps: int | None = None,
@@ -622,7 +806,8 @@ class Trainer:
         for batch in batches:
             if max_steps is not None and self.step >= max_steps:
                 break
-            if self.shutdown is not None and self.shutdown.requested:
+            if self._agreed_stop if self.mesh is not None \
+                    else self._stop_flag():
                 self._preempt()
             t0 = time.perf_counter()
             if fault_injector is not None:
@@ -630,12 +815,15 @@ class Trainer:
             indices = None
             if isinstance(batch, TaggedBatch):
                 indices, batch = batch.indices, batch.batch
+            # on a mesh, this rank's SIGTERM flag rides the step's reduction
+            stop = None if self.mesh is None else self._stop_flag()
             if isinstance(batch, StepPlan):
-                self.params, self.opt_state, metrics = self._step_plan(batch)
+                self.params, self.opt_state, metrics = self._step_plan(
+                    batch, stop)
             elif isinstance(batch, CrystalGraphBatch):
                 self.params, self.opt_state, metrics = self._train_step(
                     self.params, self.opt_state, batch.to(self.device),
-                    self.step)
+                    self.step, stop)
             else:
                 raise TypeError(f"Trainer.train takes CrystalGraphBatch, "
                                 f"StepPlan or TaggedBatch items, got "
@@ -643,6 +831,8 @@ class Trainer:
             if indices is not None:
                 self._recent_indices.append((self.step, np.asarray(indices)))
             values = _host_values(metrics)
+            if stop is not None:
+                self._agreed_stop = values.pop("stop") > 0
             loss = values["loss"]
             # a step the scaler skipped (grads_finite 0) left the state
             # untouched: not a fault (DESIGN.md §4)

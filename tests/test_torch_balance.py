@@ -341,10 +341,23 @@ def test_balanced_iterator_plans_equal_jax(datasets, seed, micro, ladder):
 
 
 def test_more_devices_raise_naming_item_13(ds, caps):
+    """More devices, which waited for ROADMAP item 13, shard now: each
+    iterator yields one batch a device at one bucket (a plan one column a
+    device, with one set of global denominators); what JAX refuses still
+    raises."""
     for make in (lambda: BatchIterator(ds, 8, 2, caps),
-                 lambda: BatchIterator(ds, 8, 2, caps, load_balance="cost"),
-                 lambda: BalancedBatchIterator(ds, 8, 2, caps)):
-        with pytest.raises(NotImplementedError, match="item 13"):
+                 lambda: BatchIterator(ds, 8, 2, caps, load_balance="cost")):
+        shards = next(iter(make()))
+        assert len(shards) == 2
+        assert shards[0].atom_cap == shards[1].atom_cap
+        assert shards[0].num_crystals == shards[1].num_crystals
+    plan = next(iter(BalancedBatchIterator(ds, 8, 2, caps, num_micro=2)))
+    assert plan.shard_costs.shape == (len(plan.micro), 2)
+    assert all(len(m) == 2 for m in plan.micro) and plan.num_real == 8
+    for make in (lambda: BatchIterator(ds, 8, 0, caps),
+                 lambda: BatchIterator(ds, 1, 2, caps),
+                 lambda: BalancedBatchIterator(ds, 8, 2, caps, shard=2)):
+        with pytest.raises(ValueError):
             make()
 
 

@@ -40,6 +40,9 @@ def test_port_files_exist():
             "src/repro_torch/runtime/async_ckpt.py",
             "src/repro_torch/runtime/fault.py",
             "src/repro_torch/runtime/chaos.py",
+            "src/repro_torch/runtime/elastic.py",
+            "src/repro_torch/distributed/mesh.py",
+            "src/repro_torch/distributed/collectives.py",
             "src/repro_torch/launch/train.py"} <= names
 
 
@@ -110,6 +113,7 @@ def test_port_imports_without_jax():
         "import repro_torch.kernels.build\n"
         "import repro_torch.batching.balance, repro_torch.batching.cost\n"
         "import repro_torch.runtime, repro_torch.launch.train\n"
+        "import repro_torch.distributed, repro_torch.runtime.elastic\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

@@ -835,15 +835,37 @@ def test_nonfinite_loss_without_sentinel_restores_or_raises(setup, tmp_path):
     assert all(bool(torch.isfinite(p).all()) for p in leaves(tr.params))
 
 
-def test_trainer_mesh_still_raises_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Trainer(CFG, TrainConfig(), device="cpu", mesh=object())
+def test_trainer_mesh_still_raises_item_13(setup, tmp_path):
+    """``mesh=``, which waited for ROADMAP item 13, is ported: on a
+    one-rank gloo mesh the Trainer writes its checkpoints as rank 0 (then
+    a barrier) and a second one restores the same file bit for bit; a
+    device other than the mesh's still raises."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_data_mesh
+
+    ds, caps = setup
+    d = str(tmp_path / "ckpt")
+    mesh = init_data_mesh("cpu", rank=0, world_size=1,
+                          init_method=f"file://{tmp_path}/store")
+    try:
+        tr = Trainer(CFG, _tcfg(8), mesh=mesh, ckpt_dir=d, ckpt_every=2)
+        tr.train(_step_batches(ds, caps, 0, 2))
+        assert latest_valid_step(d) == 2
+        back = Trainer(CFG, _tcfg(8), seed=1, mesh=mesh, ckpt_dir=d)
+        assert back.maybe_restore() and back.step == 2
+        assert all(torch.equal(a, b) for a, b in zip(leaves(tr.state()),
+                                                     leaves(back.state())))
+        with pytest.raises(ValueError, match="mesh's device"):
+            Trainer(CFG, TrainConfig(), device="meta", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_launcher_trains_resumes_and_refuses(tmp_path):
     """The launcher on the CPU: --balance cost --accum 2 with async
-    checkpoints to step 2, then again to step 3, resuming from step 2;
-    more devices and LM architectures raise."""
+    checkpoints to step 2, then again to step 3, resuming from step 2; LM
+    architectures raise (``--devices``: tests/test_torch_dp.py)."""
     from repro_torch.launch import train as launch
 
     d = str(tmp_path / "ckpt")
@@ -855,7 +877,5 @@ def test_launcher_trains_resumes_and_refuses(tmp_path):
     assert latest_valid_step(d) == 2
     assert launch.main(["--steps", "3"] + common) == 3
     assert latest_valid_step(d) == 3
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch.main(["--devices", "2"] + common)
     with pytest.raises(NotImplementedError, match="item 14"):
         launch.main(["--arch", "llama3-8b"])

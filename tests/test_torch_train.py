@@ -2,8 +2,9 @@
 synthetic labels and the BatchIterator's batches (bitwise), the losses,
 the loss and every parameter gradient at FAST_FUSED and
 FAST_FUSED_VIRIAL, Adam on fixed gradients, the clip, the schedule, and
-a two-step Trainer run; the mesh and more than one device raise (ROADMAP
-item 13).  The port runs its kernels' path (the recompute backwards over
+a two-step Trainer run; the mesh and more than one device, which ROADMAP
+item 13 ported (tests/test_torch_dp.py holds them to JAX), build and
+shard.  The port runs its kernels' path (the recompute backwards over
 the plain versions); the JAX side runs the unfused twins FAST_FS_HEAD /
 FAST_VIRIAL, which tests/test_fused_message_passing.py and
 tests/test_virial.py hold equal to the fused tiers."""
@@ -305,22 +306,47 @@ CFG = TC.FAST_FUSED.with_(**SMALL)
 
 
 @pytest.mark.parametrize("kwargs,train_cfg,item", [
-    (dict(mesh=object()), {}, "item 13"),
+    (dict(mesh="one rank"), {}, "item 13"),
 ])
-def test_unported_trainer_options_raise(kwargs, train_cfg, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.Trainer(CFG, ttrain.TrainConfig(**train_cfg), device="cpu",
-                       **kwargs)
+def test_unported_trainer_options_raise(kwargs, train_cfg, item, tmp_path):
+    """The Trainer option that waited for ROADMAP item 13, ``mesh=``, is
+    ported: a Trainer on a one-rank gloo mesh takes the mesh's device and
+    builds the DP steps; a ``device`` other than the mesh's still raises."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_data_mesh
+
+    mesh = init_data_mesh("cpu", rank=0, world_size=1,
+                          init_method=f"file://{tmp_path}/store")
+    try:
+        tr = ttrain.Trainer(CFG, ttrain.TrainConfig(**train_cfg), mesh=mesh)
+        assert tr.device == torch.device("cpu") and tr.num_devices == 1
+        assert tr._train_step.__qualname__.startswith("make_dp_train_step")
+        with pytest.raises(ValueError, match="mesh's device"):
+            ttrain.Trainer(CFG, ttrain.TrainConfig(**train_cfg),
+                           device="meta", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_unported_training_paths_raise(datasets):
-    """Sharding over more than one device waits for multi-GPU training."""
+    """Sharding over more than one device, which waited for ROADMAP item
+    13, is ported: ``shard=None`` yields every device's batch, at one
+    bucket, ``shard=r`` rank r's; a shard out of range still raises."""
     _, tds = datasets
     caps = t_caps(tds, 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        BatchIterator(tds, 4, 2, caps)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipeline.BalancedBatchIterator(tds, 4, 2, caps)
+    every = next(iter(BatchIterator(tds, 4, 2, caps, seed=2)))
+    mine = next(iter(BatchIterator(tds, 4, 2, caps, seed=2, shard=1)))
+    assert len(every) == 2 and every[0].atom_cap == every[1].atom_cap
+    assert all(torch.equal(getattr(mine, k), getattr(every[1], k))
+               for k in FIELDS)
+    plan = next(iter(pipeline.BalancedBatchIterator(tds, 4, 2, caps)))
+    assert all(len(m) == 2 for m in plan.micro)
+    for make in (lambda: BatchIterator(tds, 4, 2, caps, shard=2),
+                 lambda: pipeline.BalancedBatchIterator(tds, 4, 2, caps,
+                                                        shard=-1)):
+        with pytest.raises(ValueError, match="out of range"):
+            make()
 
 
 def test_trainer_defaults_to_the_card():
