@@ -25,19 +25,24 @@ PyTorch version:
      f32 FMA bound, and must give equal bits on a second call with the
      same inputs; the convs also with the
      mirror operands of the undirected store (``pair``, ``pair`` + ``und``)
-     and the symmetric conv's two kernels; the bf16 paths of kernels 2, 3
-     and 4a (each conv variant) on the same batches' values rounded to
-     bf16, within one bf16 rounding (``2**-7 * max(1, max|plain|)``) of
-     their bf16 plain versions, equal bits on two calls, bound at the bf16
-     peak, their split-f32 kernels timed in turns beside them; then ragged
-     layouts and edge
+     and the symmetric conv's two kernels; the bf16 paths of kernels 1
+     (D = 64 and the force head's D = 3), 2, 3 (each conv variant), 4a,
+     4b, 5, 6 and 7 on the same batches' values as the mixed tiers hand
+     them over (bf16 features; kernel 6's messages, 4b's distances and 7's
+     LayerNorm parameters f32), within one bf16 rounding (``2**-7 *
+     max(1, max|plain|)``, also for the outputs kept in f32: 5's messages,
+     4b's virial sums) of their bf16 plain versions, equal bits on two
+     calls, bound at the bf16 peak, their f32 kernels timed in turns beside
+     them (1 also beside ``torch.segment_reduce`` in bf16, 6 beside a bf16
+     CSR ``torch.sparse.mm``); then ragged layouts and edge
      values (for the convs: a row longer than a block's chunk, rows
      straddling tiles, no edge at all, a single row, D = 128; for the force
      readouts at every width: a 700-bond row, rows straddling tiles, a
      crystal with no bonds between two that have them, every row padded,
      crystal slots permuted and crystals interleaved; for phase A at every
      width: 0, 1 and 64 +- 1, 128 +- 1 real rows with self-image pairs;
-     the convs and kernel 4a also in bf16;
+     the convs, kernels 4a, 4b, 5 and 6, the segment sum and the GatedMLP
+     also in bf16;
      for the RBF and Fourier bases at K of 7, 31 and 127: 0, 1, 3, T +- 1
      and 4 T + 3 rows with zero rows amid them; each called twice for
      equal bits, the bases also on the batches' inputs), and batches with
@@ -53,21 +58,26 @@ PyTorch version:
      energy through the wrappers' backwards; 2 steps), at
      ``FAST_FUSED_SYM`` (the symmetric half-graph trunk; 5 steps), at
      ``FAST_FUSED_HALF`` (the undirected store; 2 steps) and at the mixed
-     tiers ``FAST_FUSED_MIXED`` (5 steps) and ``FAST_FUSED_HALF_MIXED`` (2
-     steps: bf16 operands, f32 sums and outputs, on the f32 parameters);
-     the launch counters must show every kernel of the path, the outputs
-     must be finite, and one batch through the plain path must agree (the
-     mixed tiers within DESIGN.md §4's bound, 3e-2 of the largest value
-     and cosine 0.999, also against their f32 configs);
+     tiers ``FAST_FUSED_MIXED`` (5 steps), ``FAST_FUSED_HALF_MIXED``,
+     ``FAST_PALLAS_MIXED``, ``FAST_FUSED_SYM_MIXED`` and
+     ``FAST_FUSED_VIRIAL_MIXED`` (2 steps each: bf16 operands, f32 sums and
+     outputs, on the f32 parameters); the launch counters must show every
+     kernel of the path (at a mixed tier every launch through a bf16 C
+     entry, ``ops.entry_launch_counts``), the outputs must be finite, and
+     one batch through the plain path must agree (the mixed tiers within
+     DESIGN.md §4's bound, 3e-2 of the largest value and cosine 0.999,
+     also against their f32 configs);
   6. ``FAST_FUSED`` with ``mlp_impl="pallas"``: one forward and backward on
      the first training batch against the plain path, with launch counts;
   7. train: ``Trainer`` over a ``BatchIterator`` of the synthetic dataset
      at batch 128, at ``FAST_FUSED`` (1 + 5 steps), ``FAST_FUSED_VIRIAL``
      (1 + 3), ``FAST_PALLAS`` (1 + 3), ``WO_HEAD_PALLAS`` (1 + 2: a double
      backward through the wrappers), ``FAST_FUSED_SYM`` (1 + 3),
-     ``FAST_FUSED_HALF`` (1 + 2), ``FAST_FUSED_HALF_MIXED`` (1 + 2) and
-     ``REFERENCE`` (1 + 2, no kernels: the paper's baseline), all at
-     ``capacity_for``; beside them
+     ``FAST_FUSED_HALF`` (1 + 2), ``FAST_FUSED_HALF_MIXED`` (1 + 2),
+     ``FAST_PALLAS_MIXED``, ``FAST_FUSED_SYM_MIXED`` and
+     ``FAST_FUSED_VIRIAL_MIXED`` (1 + 2 each; the first batch also against
+     the f32 config at §4's bounds) and ``REFERENCE`` (1 + 2, no kernels:
+     the paper's baseline), all at ``capacity_for``; beside them
      ``FAST_FUSED`` on ``ladder_for``'s buckets fed synchronously (1 + 3)
      and, through ``Prefetcher(device="cuda")`` (pinned copies on a
      stream of its own), ``FAST_FUSED``, ``FAST_FUSED_SYM`` and
@@ -84,9 +94,11 @@ PyTorch version:
      gradients within 5% relative global norm and cosine 0.999); then the
      time of a step taken apart, the peak
      memory (allocated and reserved), and from one traced step the device
-     time of kernel 4b's two kernels (``FAST_FUSED_VIRIAL``), of the bases
-     (``FAST_PALLAS``) and of ``embedding_dense_backward`` (the fused
-     tiers, at both capacities);
+     time of kernel 4b's two kernels (``FAST_FUSED_VIRIAL`` and its mixed
+     tier), of the bases, the GatedMLP and the segment sum
+     (``FAST_PALLAS``; the last two also at ``FAST_PALLAS_MIXED``), of
+     kernels 5 and 6 at ``FAST_FUSED_SYM_MIXED`` and of
+     ``embedding_dense_backward`` (the fused tiers, at both capacities);
   8. ``FAST_FUSED_HALF`` computes ``FAST_FUSED``'s function (DESIGN.md
      §5): on the first training batch and one parameter tree every output
      and the loss must agree;
@@ -160,8 +172,10 @@ PyTorch version:
      in turns; then llama3-8b cut to 2 layers in f32, kernels' path
      against plain within 1e-4.
 
-``FAST_PALLAS``, ``WO_HEAD_PALLAS`` and ``FUSED_MLP_PALLAS`` are labels of
-this script for tiers that are no named config of the package.  bf16
+``FAST_PALLAS``, ``WO_HEAD_PALLAS``, ``FUSED_MLP_PALLAS``,
+``FAST_PALLAS_MIXED``, ``FAST_FUSED_SYM_MIXED`` and
+``FAST_FUSED_VIRIAL_MIXED`` are labels of this script for tiers that are
+no named config of the package.  bf16
 products outside the kernels (cuBLAS) sum in f32
 (``allow_bf16_reduced_precision_reduction`` off), as TF32 is off for f32
 ones.  Prints
@@ -278,10 +292,24 @@ _PALLAS = dict(mlp_impl="pallas", agg_impl="pallas")
 FAST_PALLAS = chgnet_mptrj.FAST_FS_HEAD.with_(**_PALLAS)
 WO_HEAD_PALLAS = chgnet_mptrj.FAST_WO_HEAD.with_(**_PALLAS)
 FUSED_MLP_PALLAS = chgnet_mptrj.FAST_FUSED.with_(mlp_impl="pallas")
+# the tiers whose kernels run in bf16 since kernels 1, 4b, 5, 6 and 7 have
+# bf16 paths: the unfused Pallas tier, the fused symmetric trunk and the
+# fused bond virial at "mixed"
+FAST_PALLAS_MIXED = FAST_PALLAS.with_(precision="mixed")
+FAST_FUSED_SYM_MIXED = chgnet_mptrj.FAST_FUSED_SYM.with_(precision="mixed")
+FAST_FUSED_VIRIAL_MIXED = chgnet_mptrj.FAST_FUSED_VIRIAL.with_(
+    precision="mixed")
+# the C entries of the kernels with a bf16 path: a run at a bf16 compute
+# dtype must launch none of these f32 entries (ops.entry_launch_counts)
+F32_ENTRIES_WITH_BF16 = ("atom_conv_fwd", "bond_conv_fwd", "sym_msg_fwd",
+                         "sym_accum_fwd", "force_readout_fwd",
+                         "force_virial_fwd", "segment_sum_fwd",
+                         "gated_mlp_fwd")
 
 # kernel launches per forward, by wrapper; every other counter must stay 0
 # (also FAST_FUSED_HALF and the mixed tiers FAST_FUSED_MIXED and
-# FAST_FUSED_HALF_MIXED, whose launches are the bf16 kernels')
+# FAST_FUSED_HALF_MIXED, whose launches are the bf16 kernels'; the _MIXED
+# labels below launch as their f32 tiers, through the bf16 entries)
 PER_FORWARD = {"fused_atom_conv": 4, "fused_bond_conv": 3,
                "fused_force_readout": 1}
 # FAST_FUSED_VIRIAL: the force+virial wrapper launches two kernels
@@ -318,6 +346,25 @@ def plain_config(cfg):
     return cfg.with_(conv_impl="unfused", agg_impl="scatter",
                      mlp_impl="packed" if cfg.mlp_impl == "pallas"
                      else cfg.mlp_impl)
+
+
+def check_bf16_entries(name: str, entries: dict, counts: dict) -> None:
+    """At a bf16 compute dtype, every kernel launch with a bf16 path went
+    through its bf16 C entry: no f32 entry of ``F32_ENTRIES_WITH_BF16``
+    ran, and the bf16 entries' launches add up to the wrappers' counts
+    (the bases run in f32, kernel 4b's crystal sum reads f32 partials)."""
+    f32 = {e: n for e, n in entries.items() if e in F32_ENTRIES_WITH_BF16}
+    if f32:
+        raise RuntimeError(f"{name}: f32 entries launched at a bf16 compute "
+                           f"dtype: {f32}")
+    bf16 = sum(n for e, n in entries.items() if "_bf16_" in e)
+    want = sum(n for w, n in counts.items()
+               if w not in ("fused_rbf", "fused_fourier",
+                            "fused_sym_bond_conv"))
+    want -= entries.get("virial_crystal_sum", 0)
+    if bf16 != want or not bf16:
+        raise RuntimeError(f"{name}: {bf16} bf16 entry launches, expected "
+                           f"{want} ({entries}, wrappers {counts})")
 
 
 def check_launches(name: str, counts: dict, per_forward: dict,
@@ -480,42 +527,100 @@ def _to_f32(args) -> tuple:
                  else a for a in args)
 
 
+def _check_bf16_path(name: str, got, want) -> tuple[float, float]:
+    """A bf16 path against its plain version on the same bf16 operands:
+    the bf16 outputs within one bf16 rounding (``_check_round_bf16``), the
+    outputs the path keeps in f32 (kernel 5's messages, kernel 4b's virial
+    sums) at the same tolerance, ``2**-7 * max(1, max|want|)``; a tuple is
+    checked output by output."""
+    if isinstance(got, tuple):
+        pairs = [_check_bf16_path(f"{name}[{i}]", g, w)
+                 for i, (g, w) in enumerate(zip(got, want, strict=True))]
+        return max(p[0] for p in pairs), max(p[1] for p in pairs)
+    if got.dtype == torch.bfloat16 or want.dtype == torch.bfloat16:
+        return _check_round_bf16(name, got, want)
+    if got.dtype != torch.float32 or want.dtype != torch.float32:
+        raise RuntimeError(f"{name}: dtypes {got.dtype}, {want.dtype}, "
+                           "expected float32")
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)} != "
+                           f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: non-finite values")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    tol = 2.0 ** -7 * max(1.0, want.abs().max().item() if want.numel()
+                          else 0.0)
+    if not err <= tol:
+        raise RuntimeError(f"{name}: max abs error {err} > {tol}")
+    return err, tol
+
+
+# the wrappers whose kernels have a bf16 path, by launch counter
+BF16_COUNTERS = ("fused_atom_conv", "fused_bond_conv", "fused_force_readout",
+                 "fused_force_virial_readout", "sym_msg", "sym_accum",
+                 "fused_segment_sum", "fused_gated_mlp_packed")
+
+
 def bf16_cases(cases) -> list[dict]:
-    """The bf16 paths of kernels 2, 3 and 4a (``FAST_FUSED_MIXED``,
-    ``FAST_FUSED_HALF_MIXED``) from their split-f32 cases on the same
-    batch: every float operand rounded to bf16, held to the bf16 plain
-    version within one bf16 rounding (``_check_round_bf16``) and called
-    twice for equal bits; bound by the flops at the bf16 peak and the
-    bytes with bf16 tables (int32 ids); the split-f32 kernel on the same
-    values in f32 timed in turns beside it (``f32_ms``, ``f32_device_ms``).
-    Kernel 4a's wrapper widens x_hat to f32 inside the timed call."""
+    """The bf16 paths of kernels 1, 2, 3, 4a, 4b, 5, 6 and 7 (the mixed
+    tiers) from their split-f32 (or f32) cases on the same batch: each
+    float operand as the mixed path hands it over (``c["bf16_args"]``:
+    kernel 6's messages, 4b's distances and 7's LayerNorm parameters stay
+    f32; by default every float operand rounded to bf16), held to the bf16
+    plain version (``_check_bf16_path``: within one bf16 rounding) and
+    called twice for equal bits; bound by the flops at the bf16 peak and
+    the bytes with bf16 tables (int32 ids, the f32 operands and outputs at
+    4 bytes: ``c["bf16_bytes"]``); the f32 kernel on the same values in f32
+    timed in turns beside it (``f32_ms``, ``f32_device_ms``); the launch
+    plan at 2-byte operands.  Kernels 4a and 4b's wrappers widen x_hat to
+    f32 inside the timed call.  Kernel 1 keeps its ``torch.segment_reduce``
+    yardstick in bf16 and kernel 6 its sparse product, with a bf16 CSR
+    matrix (``c["bf16_library"]``)."""
     out = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for c in cases:
-        if c.get("counter", c["wrapper"].__name__) not in (
-                "fused_atom_conv", "fused_bond_conv", "fused_force_readout"):
+        counter = c.get("counter", c["wrapper"].__name__)
+        if counter not in BF16_COUNTERS:
             continue
-        args = _to_bf16(c["args"])
+        args = c["bf16_args"] if "bf16_args" in c else _to_bf16(c["args"])
         twin_args = _to_f32(args)
         base, _, variant = c["name"].partition("[")
         name = base.replace("_fwd", "_bf16_fwd") + (f"[{variant}"
                                                     if variant else "")
         wrapper = c["wrapper"]
-        # the partition is the f32 plan's; the stages take half the bytes
-        bf = ops.conv_plan("force" if "force" in name else name[:4],
-                           c["shape"]["dim"], 1 << 30, torch.cuda
-                           .get_device_properties(0).multi_processor_count,
-                           itemsize=2)
-        out.append(dict(
-            name=name, counter=c.get("counter", wrapper.__name__),
+        dim = c["shape"]["dim"]
+        plan = None
+        if counter == "fused_gated_mlp_packed":
+            plan = ops.gated_mlp_plan(dim, c["shape"]["rows"], sms,
+                                      2)._asdict()
+        elif counter == "sym_msg":
+            plan = sym_plan_row(dim, c["shape"]["real_und_angles"],
+                                c["shape"]["und_angles"], itemsize=2)
+        elif "plan" in c:
+            # the partition is the f32 plan's; the stages take fewer bytes
+            mode = "force" if "force" in c["name"] else c["name"][:4]
+            bf = ops.conv_plan(mode, dim, 1 << 30, sms, itemsize=2)
+            plan = dict(c["plan"], smem=bf.smem,
+                        blocks_per_sm=bf.blocks_per_sm)
+        row = dict(
+            name=name, counter=counter, primary=c.get("primary", True),
             path=c.get("path", "FAST_FUSED") + "_MIXED", wrapper=wrapper,
-            plain=c["plain"], args=args, check=_check_round_bf16,
+            plain=c["plain"], args=args, check=_check_bf16_path,
             repeat=True, peak=PEAK_BF16_FLOPS,
             twin=lambda w=wrapper, a=twin_args: w(*a),
             replaces=c["replaces"], flops=c["flops"],
-            bytes=2 * c["float_elems"] + 4 * c["int_elems"],
-            plan=dict(c["plan"], smem=bf.smem,
-                      blocks_per_sm=bf.blocks_per_sm),
-            shape=c["shape"]))
+            bytes=c.get("bf16_bytes", 2 * c.get("float_elems", 0)
+                        + 4 * c.get("int_elems", 0)),
+            shape=c["shape"])
+        if plan is not None:
+            row["plan"] = plan
+        if c.get("source"):
+            row["source"] = c["source"]
+        if c.get("bf16_library"):
+            # a yardstick that rounds elsewhere: held to DESIGN.md §4's
+            # bound only
+            row.update(library=c["bf16_library"], library_check=_check_bf16)
+        out.append(row)
     return out
 
 
@@ -594,11 +699,22 @@ def sym_composition(v, e, a_u, e_b, mlp, ctr, du1, du2, n_real: int):
     return run
 
 
-def sym_plan_row(dim: int, n_real: int, n_rows: int) -> dict:
-    """The launch plan of kernel 5 on this card (``ops.conv_plan("sym")``)
-    and how its blocks stride over this batch's real rows."""
+def _bf16_sparse_mm(spmat, msg):
+    """Kernel 6's bf16 yardstick, ``torch.sparse.mm`` of the incidence
+    matrix in bf16 by phase A's messages rounded to bf16 (a different
+    rounding: the messages are rounded before the sum).  Never called on
+    a path."""
+    a, m = spmat.to(torch.bfloat16), msg.to(torch.bfloat16)
+    return lambda: torch.sparse.mm(a, m)
+
+
+def sym_plan_row(dim: int, n_real: int, n_rows: int,
+                 itemsize: int = 4) -> dict:
+    """The launch plan of kernel 5 on this card (``ops.conv_plan("sym")``,
+    at operands of ``itemsize`` bytes) and how its blocks stride over this
+    batch's real rows."""
     plan = ops.conv_plan("sym", dim, n_rows, torch.cuda.get_device_properties(
-        0).multi_processor_count)
+        0).multi_processor_count, itemsize)
     tiles = -(-n_real // plan.tm)
     return dict(plan._asdict(), tiles=tiles,
                 busy_blocks=min(plan.grid, tiles),
@@ -702,13 +818,22 @@ def kernel_cases(params, cfg, batch) -> list[dict]:
              plan=conv_plan_row("force", dim, batch.bond_offsets),
              replaces=f"{TPU_FILE}:737", flops=readout_flops,
              **readout_io, shape=bond_shape),
-        # + per bond: n*d and 9 products of 2 factors; + the crystal sum
+        # + per bond: n*d and 9 products of 2 factors; + the crystal sum.
+        # The mixed path hands kernel 4b bf16 e, x_hat and weights and the
+        # f32 distances; it writes bf16 forces and f32 sums
         dict(name="force_virial_fwd", wrapper=ops.fused_force_virial_readout,
              plain=ref.fused_force_virial_readout_ref,
+             path="FAST_FUSED_VIRIAL",
              args=(e, x_hat, dist) + fmlp + (batch.bond_center,
                                              batch.bond_crystal,
                                              batch.bond_offsets, n_atoms,
                                              n_crys),
+             bf16_args=_to_bf16((e, x_hat)) + (dist,) + _to_bf16(fmlp)
+             + (batch.bond_center, batch.bond_crystal, batch.bond_offsets,
+                n_atoms, n_crys),
+             bf16_bytes=2 * readout_io["float_elems"]
+             + 4 * readout_io["int_elems"]
+             + f * (real_bonds + n_atoms + 9 * n_crys),
              split=True, composition=readout_composition(
                  e, x_hat, fmlp, batch.bond_offsets, real_bonds, dist,
                  cry_offs.long()),
@@ -765,6 +890,8 @@ def sym_kernel_cases(params, batch) -> list[dict]:
                                              batch.sym_offsets)
     with torch.inference_mode():
         msg = ref.sym_msg_ref(*sym_args[:11])
+        # the mixed path's: phase A of the bf16 operands, f32 messages
+        msg_bf = ref.sym_msg_ref(*_to_bf16(sym_args[:11]))
     accum_args = (msg, batch.sym_rep, batch.sym_dest, batch.sym_offsets,
                   n_eu)
     # the incidences as an (Eu, Au) matrix, a self-image row's two
@@ -774,6 +901,7 @@ def sym_kernel_cases(params, batch) -> list[dict]:
         torch.ones(n_incid, device=msg.device),
         size=(n_eu, msg.shape[0]),
         check_invariants=True).coalesce().to_sparse_csr()
+    sparse_bf16 = _bf16_sparse_mm(spmat, msg_bf)
     return [
         dict(name="atom_conv_fwd[pair]", counter="fused_atom_conv",
              path="FAST_FUSED_HALF",
@@ -840,6 +968,10 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              bytes=f * (real_atoms * dim + 2 * real_eu * dim + real_au * dim
                         + 3 * dim * 2 * dim + w_bytes + 3 * real_au + 1
                         + real_au * dim),
+             # bf16 operands, the messages written in f32
+             bf16_bytes=2 * (real_atoms * dim + 2 * real_eu * dim
+                             + real_au * dim + 3 * dim * 2 * dim + w_bytes)
+             + f * (3 * real_au + 1 + real_au * dim),
              shape={"atoms": n_atoms, "und": n_eu, "und_angles":
                     a_u.shape[0], "real_und_angles": real_au, "dim": dim}),
         dict(name="sym_accum_fwd", counter="sym_accum",
@@ -849,6 +981,10 @@ def sym_kernel_cases(params, batch) -> list[dict]:
              source=f"{CSRC}/segment_sum.cu", replaces=f"{TPU_FILE}:1112",
              flops=n_incid * dim,
              bytes=f * (real_au * dim + n_incid + n_eu + 1 + n_eu * dim),
+             # the mixed path: phase A's f32 messages in, bf16 sums out
+             bf16_args=(msg_bf,) + accum_args[1:] + (torch.bfloat16,),
+             bf16_bytes=f * (real_au * dim + n_incid + n_eu + 1)
+             + 2 * n_eu * dim, bf16_library=sparse_bf16,
              shape={"und": n_eu, "real_und": real_eu,
                     "incidences": n_incid, "dim": dim}),
     ]
@@ -911,12 +1047,20 @@ def sym_edge_cases(params, f, ids, seed: int) -> int:
     per block; then phase A (kernel 5) at every width of
     ``ops.CONV_WIDTHS`` with 0, 1, 63, 65, 127 and 129 real rows (its
     64-row tiles, and 128 +- 1), self-image rows among them, each called
-    twice for equal bits.  Returns the number of cases checked."""
+    twice for equal bits.  Each also on its bf16 path: the edge batches'
+    cases through ``bf16_cases``, the layouts' whole conv and phase A at
+    every width (f32 messages), against the plain versions of the same
+    bf16 operands.  Returns the number of cases checked."""
     n = 0
     for label, batch in sym_edge_batches(seed).items():
-        for c in sym_kernel_cases(params, batch):
+        cases = sym_kernel_cases(params, batch)
+        for c in cases:
             _check_close(f"{c['name']} on {label}", c["wrapper"](*c["args"]),
                          c["plain"](*c["args"]))
+            n += 1
+        for c in bf16_cases(cases):
+            _check_bf16_path(f"{c['name']} on {label}",
+                             c["wrapper"](*c["args"]), c["plain"](*c["args"]))
             n += 1
     rng = np.random.default_rng(seed + 1)
     for a_rows, eu, au, n_real, d, per_block in (
@@ -932,7 +1076,11 @@ def sym_edge_cases(params, f, ids, seed: int) -> int:
         msg = ops.sym_msg(*args[:11], args[13], block_rows=per_block)
         _check_close(f"sym_msg case {n}", msg[:n_real],
                      ref.sym_msg_ref(*args[:11])[:n_real])
-        n += 2
+        bf_args = _to_bf16(args)
+        _check_round_bf16(f"sym_bond_conv bf16 case {n}",
+                          ops.fused_sym_bond_conv(*bf_args),
+                          ref.fused_sym_bond_conv_ref(*bf_args))
+        n += 3
     # kernel 5 at every width, real dedup counts at and around its 64-row
     # tiles, a sixth of the rows self-image pairs (du1 == du2)
     for d in ops.CONV_WIDTHS:
@@ -945,7 +1093,17 @@ def sym_edge_cases(params, f, ids, seed: int) -> int:
                                    "two calls on the same inputs differ")
             _check_close(f"sym_msg D = {d}, {n_real} real rows", got,
                          ref.sym_msg_ref(*args[:11])[:n_real])
-            n += 1
+            # the bf16 path: f32 messages of bf16 operands
+            bf_args = _to_bf16(args[:11])
+            got = ops.sym_msg(*bf_args, args[13])[:n_real]
+            if not torch.equal(got, ops.sym_msg(*bf_args,
+                                                args[13])[:n_real]):
+                raise RuntimeError(f"sym_msg bf16 D = {d}, {n_real} real "
+                                   "rows: two calls on the same inputs "
+                                   "differ")
+            _check_bf16_path(f"sym_msg bf16 D = {d}, {n_real} real rows",
+                             got, ref.sym_msg_ref(*bf_args)[:n_real])
+            n += 2
     return n
 
 
@@ -1005,19 +1163,25 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
     real_bonds = int(batch.bond_offsets[-1])
     real_angles = int(batch.angle_offsets[-1])
     f = 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def seg_case(name, values, ids, offsets, rows, real, primary):
         d = values.shape[1]
         offs64 = offsets.long()
+        vb = values.to(torch.bfloat16)
         return dict(
             name=name, primary=primary, wrapper=ops.fused_segment_sum,
-            plain=ref.sorted_segment_sum_ref,
+            plain=ref.sorted_segment_sum_ref, path="FAST_PALLAS",
             args=(values, ids, offsets, rows),
             library=lambda: torch.segment_reduce(
                 values[:real], "sum", offsets=offs64, axis=0),
+            bf16_args=(vb, ids, offsets, rows),
+            bf16_library=lambda: torch.segment_reduce(
+                vb[:real], "sum", offsets=offs64, axis=0),
             source=f"{CSRC}/segment_sum.cu",
             replaces=f"{TPU_DIR}/fused_segment_sum.py:99",
             flops=real * d, bytes=f * (real * d + rows + 1 + rows * d),
+            bf16_bytes=2 * (real * d + rows * d) + f * (rows + 1),
             shape={"edges": values.shape[0], "real_edges": real,
                    "rows": rows, "dim": d})
 
@@ -1034,17 +1198,23 @@ def tier_kernel_cases(params, cfg, batch) -> list[dict]:
 
         return dict(
             name=name, primary=primary, wrapper=ops.fused_gated_mlp_packed,
-            plain=ref.gated_mlp_packed_ref,
+            plain=ref.fused_gated_mlp_ref, path="FAST_PALLAS",
             args=(x, p["w"], p["b"], p["ln_scale"], p["ln_bias"]),
+            # the mixed path: x, w and b bf16, the LayerNorm parameters
+            # the f32 tree's
+            bf16_args=_to_bf16((x, p["w"], p["b"])) + (p["ln_scale"],
+                                                       p["ln_bias"]),
             composition=composition, split=True,
+            plan=ops.gated_mlp_plan(d2 // 2, m, sms)._asdict(),
             source=f"{CSRC}/gated_mlp.cu",
             replaces=f"{TPU_DIR}/fused_gated_mlp.py:52",
             flops=2 * m * d_in * d2 + m * d2,
             bytes=f * (m * d_in + d_in * d2 + 3 * d2 + m * d2 // 2),
+            bf16_bytes=2 * (m * d_in + d_in * d2 + d2 + m * d2 // 2)
+            + f * 2 * d2,
             shape={"rows": m, "d_in": d_in, "dim": d2 // 2})
 
     k_rbf, k_four = params["rbf_freqs"].shape[0], cfg.num_fourier
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return [
         seg_case("segment_sum_fwd", a, batch.angle_ij, batch.angle_offsets,
                  n_bonds, real_angles, True),
@@ -1088,9 +1258,9 @@ def kernel_phase(cases) -> list[dict]:
     kernels' path.  A split-f32 case (``split``: kernels 2, 3, 4, 5, 7 and
     11 in f32) is bound by three TF32 products per f32 product at the TF32
     peak, reports the f32 FMA bound beside it (``bound_fma_ms``), and must
-    give the same bits on a second call.  A bf16 case of kernels 2, 3 and
-    4a (``bf16_cases``) is bound at the bf16 peak and times the split-f32
-    kernel on the same values in turns with it (``twin``).  A conv case
+    give the same bits on a second call.  A bf16 case of kernels 1-7
+    (``bf16_cases``) is bound at the bf16 peak and times the f32 kernel
+    on the same values in turns with it (``twin``).  A conv case
     also reports its launch plan and how its partition spreads the batch
     (``plan``).  The kernel and its yardsticks, which read the same
     inputs, are timed in turns; the plain version, whose f32 copies and
@@ -1112,7 +1282,8 @@ def kernel_phase(cases) -> list[dict]:
             fns = [lambda: kernel(*args)]
             for key in ("library", "composition"):
                 if c.get(key):
-                    check(f"{c['name']} {key}", c[key](), want)
+                    c.get(f"{key}_check", check)(f"{c['name']} {key}",
+                                                 c[key](), want)
                     fns.append(c[key])
             if c.get("twin"):
                 fns.append(c["twin"])
@@ -1153,10 +1324,10 @@ def kernel_phase(cases) -> list[dict]:
                 rows[-1]["bitwise_repeatable"] = True
                 lib += ", two calls give equal bits"
             if c.get("twin"):
-                # the split-f32 kernel on the same values, in turns
+                # the f32 kernel on the same values, in turns
                 twin_dev = _time_device(c["twin"])
                 rows[-1].update(f32_ms=twin_ms, f32_device_ms=twin_dev)
-                lib += (f", split f32 {twin_ms:.4f} ms (device "
+                lib += (f", f32 kernel {twin_ms:.4f} ms (device "
                         f"{twin_dev:.4f})")
             if c.get("split"):
                 # the same work as f32 FMAs on the CUDA cores, and the
@@ -1366,10 +1537,11 @@ def readout_edge_cases(f, seed: int) -> int:
     contiguous atom ranges in slot order, as the packer lays them out,
     then in a permuted slot order with an empty slot between, and
     crystals whose rows interleave (a row's bonds always in its atom's
-    crystal).  Each runs twice: the two calls must give equal bits.  The
-    force readout also runs with its operands rounded to bf16 (kernel 4a's
-    bf16 path, within one bf16 rounding of its plain version).  Returns
-    the number of cases checked."""
+    crystal).  Each runs twice: the two calls must give equal bits.  Both
+    also run with their operands rounded to bf16 (kernels 4a's and 4b's
+    bf16 paths, 4b's distances f32: the bf16 forces within one bf16
+    rounding of the plain version, 4b's f32 sums at the same bound).
+    Returns the number of cases checked."""
     rng = np.random.default_rng(seed + 3)
     layouts = (  # bonds per atom row, crystal of each row, padded bonds
         ("one row of 700 bonds", [700, 3, 0, 5], [0, 0, 1, 1], 20),
@@ -1408,7 +1580,13 @@ def readout_edge_cases(f, seed: int) -> int:
                      _check_round_bf16),
                     ("force_virial", ops.fused_force_virial_readout,
                      ref.fused_force_virial_readout_ref, vargs,
-                     _check_close)):
+                     _check_close),
+                    # kernel 4b's bf16 path, the distances f32 as the
+                    # mixed path gives them
+                    ("force_virial bf16", ops.fused_force_virial_readout,
+                     ref.fused_force_virial_readout_ref,
+                     _to_bf16(vargs[:2]) + vargs[2:3] + _to_bf16(vargs[3:]),
+                     _check_bf16_path)):
                 got = wrapper(*args)
                 if not _equal(got, wrapper(*args)):
                     raise RuntimeError(f"{name} on {label}, D = {d}: two "
@@ -1420,44 +1598,64 @@ def readout_edge_cases(f, seed: int) -> int:
 
 def tier_edge_cases(f, ids, csr) -> int:
     """The unfused tier's kernels against their plain versions on ragged
-    and edge inputs: the segment sum at D = 3 and 64 with empty rows,
+    and edge inputs: the segment sum at D = 3, 8 and 64 with empty rows,
     every edge padded and S of 1, 7 and 1000, and once from a view that is
     not 16-byte aligned (the scalar path at D = 64); the GatedMLP at M = 1,
     255 and 257, an input width that is no multiple of 4, d_in 0, 7, 300
     and 1,000 (several and partial K chunks) at D 8, 32 and 128, and from
-    unaligned views (its 4-byte copies); the RBF at
+    unaligned views (its 4-byte copies); both in f32 and on their bf16
+    paths (twice: equal bits; within one bf16 rounding); the RBF at
     r = 0, 1e-9, r_cut and beyond; the Fourier basis at 0 and pi; then
     both bases at the edges of their tiles (``basis_edge_cases``)."""
     n = 0
-    for d in (3, 64):
+
+    def both(label, wrapper, plain, args, bf16_args):
+        """f32, then the bf16 path (called twice: equal bits) within one
+        bf16 rounding of its plain version."""
+        _check_close(f"{label} f32", wrapper(*args), plain(*args))
+        got = wrapper(*bf16_args)
+        if not torch.equal(got, wrapper(*bf16_args)):
+            raise RuntimeError(f"{label} bf16: two calls on the same inputs "
+                               "differ")
+        _check_round_bf16(f"{label} bf16", got, plain(*bf16_args))
+        return 2
+
+    bf = torch.bfloat16
+    for d in (3, 8, 64):
         for rows, n_edges, n_real in ((1, 10, 10), (7, 40, 0), (7, 50, 31),
                                       (1000, 3000, 2500)):
             seg, offs = csr(rows, n_edges, n_real)
             args = (f(n_edges, d), seg, offs, rows)
-            _check_close(f"segment_sum case {n}", ops.fused_segment_sum(
-                *args), ref.sorted_segment_sum_ref(*args))
-            n += 1
+            n += both(f"segment_sum case {n}, D = {d}",
+                      ops.fused_segment_sum, ref.sorted_segment_sum_ref,
+                      args, _to_bf16(args))
     seg, offs = csr(37, 300, 260)
+    # views that are not 16-byte aligned: the scalar paths at D = 64
     unaligned = f(300 * 64 + 1)[1:].view(300, 64)
-    args = (unaligned, seg, offs, 37)
-    _check_close(f"segment_sum case {n}", ops.fused_segment_sum(*args),
-                 ref.sorted_segment_sum_ref(*args))
-    n += 1
+    unaligned_bf = torch.zeros(300 * 64 + 1, dtype=bf, device="cuda")[1:] \
+        .view(300, 64).copy_(unaligned)
+    n += both(f"segment_sum case {n}, unaligned", ops.fused_segment_sum,
+              ref.sorted_segment_sum_ref, (unaligned, seg, offs, 37),
+              (unaligned_bf, seg, offs, 37))
     for m, d_in, d in ((1, 192, 64), (255, 256, 64), (257, 192, 64),
                        (33, 13, 16), (300, 300, 128), (40, 7, 8),
                        (513, 1000, 32), (20, 0, 64)):
         args = (f(m, d_in), f(d_in, 2 * d, scale=0.1), f(2 * d),
                 f(2 * d).abs() + 0.5, f(2 * d))
-        _check_close(f"gated_mlp case {n}", ops.fused_gated_mlp_packed(
-            *args), ref.gated_mlp_packed_ref(*args))
-        n += 1
-    # x and W from views that are not 16-byte aligned (4-byte copies)
+        # bf16: x, w and b; the LayerNorm parameters f32, as on the path
+        n += both(f"gated_mlp case {n}", ops.fused_gated_mlp_packed,
+                  ref.fused_gated_mlp_ref, args,
+                  _to_bf16(args[:3]) + args[3:])
+    # x and W from views that are not 16-byte aligned (f32: 4-byte copies;
+    # bf16: 2-byte loads)
     args = (f(100 * 192 + 1)[1:].view(100, 192),
             f(192 * 128 + 1, scale=0.1)[1:].view(192, 128), f(128),
             f(128).abs() + 0.5, f(128))
-    _check_close(f"gated_mlp case {n}", ops.fused_gated_mlp_packed(*args),
-                 ref.gated_mlp_packed_ref(*args))
-    n += 1
+    bf_args = tuple(torch.zeros(t.numel() + 1, dtype=bf, device="cuda")[1:]
+                    .view(t.shape).copy_(t) for t in args[:2]) \
+        + (args[2].to(bf),) + args[3:]
+    n += both(f"gated_mlp case {n}, unaligned", ops.fused_gated_mlp_packed,
+              ref.fused_gated_mlp_ref, args, bf_args)
     r_cut = 6.0
     # rows 5-8: the padded bonds' 1e-8 and phases f_k xi either side of
     # 2^-12, where the kernel takes sin(x) = x
@@ -1638,18 +1836,21 @@ def _check_grads_mixed(g_k, g_p) -> dict:
     return {"grad_rel_err": rel, "grad_cosine": cos}
 
 
-def plain_path_check(params, cfg, batch) -> dict:
+def plain_path_check(params, cfg, batch, reference=None) -> dict:
     """Loss and every gradient leaf of the kernels' path against the plain
     path (``plain_config``, at the same precision) on the card; also the
     launches of the kernels' forward (its backward launches none).  In f32
     each within ``1e-4 * max(1, max|plain|)``; at a bf16 compute dtype
     (the mixed tiers) DESIGN.md §4's bounds: the loss within ``3e-2 *
     max(1, |plain|)``, the gradients within 5% relative global norm and
-    cosine 0.999."""
+    cosine 0.999, every launch through a bf16 entry; with ``reference``
+    (its f32 config, on the kernels' path) against that config at the
+    same bounds."""
     ops.reset_launch_counts()
     loss_k, _ = chgnet_loss_fn(params, cfg, batch, chgnet_mptrj.LOSS)
     g_k = grads_of(loss_k, params)
     launched = ops.launch_counts()
+    entries = ops.entry_launch_counts()
     if not any(launched.values()):
         raise RuntimeError("the kernels' path launched no kernel")
     loss_p, _ = chgnet_loss_fn(params, plain_config(cfg), batch,
@@ -1657,11 +1858,24 @@ def plain_path_check(params, cfg, batch) -> dict:
     g_p = grads_of(loss_p, params)
     torch.cuda.synchronize()
     if resolve_policy(cfg.precision).low_precision_compute:
+        check_bf16_entries("plain-path check", entries, launched)
         err_l, tol_l, _ = _check_bf16("train loss", loss_k.detach(),
                                       loss_p.detach())
-        return {"loss": loss_p.item(), "loss_max_abs_err": err_l,
-                "loss_tolerance": tol_l, "grad_leaves": len(g_k),
-                **_check_grads_mixed(g_k, g_p), "launches": launched}
+        row = {"loss": loss_p.item(), "loss_max_abs_err": err_l,
+               "loss_tolerance": tol_l, "grad_leaves": len(g_k),
+               **_check_grads_mixed(g_k, g_p), "launches": launched,
+               "entries": entries}
+        if reference is not None:
+            loss_r, _ = chgnet_loss_fn(params, reference, batch,
+                                       chgnet_mptrj.LOSS)
+            g_r = grads_of(loss_r, params)
+            err_r, tol_r, _ = _check_bf16("train loss against f32",
+                                          loss_k.detach(), loss_r.detach())
+            row["f32_config"] = {"loss": loss_r.item(),
+                                 "loss_max_abs_err": err_r,
+                                 "loss_tolerance": tol_r,
+                                 **_check_grads_mixed(g_k, g_r)}
+        return row
     err_l, tol_l = _check_close("train loss", loss_k.detach(),
                                 loss_p.detach())
     errs = [_check_close(f"grad leaf {i}", a, b)
@@ -1809,7 +2023,7 @@ def prefetch_checks(tr, cfg, tcfg, first, batches, seed: int) -> dict:
 
 def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
                 seed: int, profile: str | None, traced=(), aten_ops=(),
-                prefetch: bool = False) -> dict:
+                prefetch: bool = False, reference=None) -> dict:
     """``Trainer`` at ``cfg`` over batches of ``TRAIN_BATCH`` crystals, at
     fixed capacities or on a ``CapacityLadder`` (each batch in the smallest
     bucket that fits; the bucket of each counted step is reported): on a
@@ -1821,7 +2035,10 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
     which must launch none.  With ``prefetch`` the batches come through
     ``Prefetcher(device="cuda")`` (``prefetch_checks`` on the first), and
     the packing thread's time and the steps' wait for it are reported:
-    the share of packing the thread hides is 1 - wait / (pack + copy)."""
+    the share of packing the thread hides is 1 - wait / (pack + copy).  At
+    a bf16 compute dtype every launch must go through a bf16 entry, and
+    with ``reference`` (an f32 config of the same function) the first
+    batch is also held to it (``plain_path_check``)."""
     tcfg = TrainConfig(global_batch=TRAIN_BATCH, total_steps=100,
                        loss=chgnet_mptrj.LOSS)
     tr = Trainer(cfg, tcfg, seed=seed, device="cuda")
@@ -1838,7 +2055,7 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
         first = next(iter(BatchIterator(ds, TRAIN_BATCH, 1, caps,
                                         seed=seed))).to("cuda")
     if per_forward:
-        plain = plain_path_check(tr.params, cfg, first)
+        plain = plain_path_check(tr.params, cfg, first, reference)
         check_launches(f"{name} plain-path check", plain["launches"],
                        per_forward, 1)
     try:
@@ -1860,11 +2077,15 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = ops.launch_counts()
+        entries = ops.entry_launch_counts()
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
         stats = ({k: pf.stats[k] - stats0[k] for k in stats0} if pf
                  else None)
         check_launches(name, counts, per_forward, steps)
+        if per_forward and resolve_policy(cfg.precision) \
+                .low_precision_compute:
+            check_bf16_entries(name, entries, counts)
         for h in hist:
             if not (math.isfinite(h["loss"])
                     and math.isfinite(h["grad_norm"])):
@@ -1880,7 +2101,7 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
             "crystals_per_s": crystals / elapsed,
             "atoms_per_s": atoms / elapsed,
             "peak_mem_bytes": peak, "peak_reserved_bytes": peak_reserved,
-            "launches": counts,
+            "launches": counts, "entries": entries,
             "caps_per_step": [e[3] for e in steps_log],
             "bucket_per_step": [_bucket(caps, e[3]) for e in steps_log],
             "losses": [h["loss"] for h in hist],
@@ -1942,8 +2163,9 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
     warm-up MD step, then ``steps`` counted steps of the main path (launch
     counts, finite outputs); the largest group's batch (``probe``) against
     the plain path (at a bf16 compute dtype within DESIGN.md §4's bound,
-    ``_check_bf16``) and, with ``reference`` (an f32 config of the same
-    function), against that config's outputs at the same bound; one
+    ``_check_bf16``, every launch through a bf16 entry) and, with
+    ``reference`` (an f32 config of the same function), against that
+    config's outputs at the same bound; one
     forward per group timed on both paths; one step taken apart on the
     host clock and, with ``profile``, one traced."""
     autodiff = cfg.readout == "autodiff"
@@ -1961,8 +2183,11 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = ops.launch_counts()
+    entries = ops.entry_launch_counts()
     forwards = serve.engine.batches_packed - packed0
     check_launches(f"serve {name}", counts, per_forward, forwards)
+    if resolve_policy(cfg.precision).low_precision_compute:
+        check_bf16_entries(f"serve {name}", entries, counts)
     if not (np.isfinite(out["energy"]).all()
             and all(np.isfinite(f).all() for f in out["forces"])):
         raise RuntimeError(f"serve {name}: outputs are not finite")
@@ -2009,7 +2234,7 @@ def serve_phase(name: str, cfg, params, crystals, probe, steps: int,
         "forwards": forwards, "groups_per_step": forwards / steps,
         "ms_per_batched_step": elapsed / steps * 1e3,
         "replica_steps_per_s": len(crystals) * steps / elapsed,
-        "peak_mem_bytes": peak, "launches": counts,
+        "peak_mem_bytes": peak, "launches": counts, "entries": entries,
         "plain_path_max_abs_err": {k: e for k, (e, _) in errs.items()},
         "plain_path_tolerance": {k: t for k, (_, t) in errs.items()},
         # the mixed tiers against the f32 config (DESIGN.md §4)
@@ -3226,7 +3451,7 @@ def main() -> None:
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing",
-                "message_passing_bf16", "basis"):
+                "message_passing_bf16", "segment_sum", "basis"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):
@@ -3287,22 +3512,27 @@ def main() -> None:
     rows = kernel_phase(train_cases)
     tier_rows = kernel_phase(tier_cases)
     sym_rows = kernel_phase(sym_cases)
-    # the bf16 paths of kernels 2, 3 and 4a (the mixed tiers); their bf16
-    # and f32 copies of the batch's tables are freed at once (the train
-    # phases' peak memory must not hold them)
-    bf16_train_cases = bf16_cases(train_cases + sym_cases)
+    # the bf16 paths of kernels 1-7 (the mixed tiers); their bf16 and f32
+    # copies of the batch's tables are freed at once (the train phases'
+    # peak memory must not hold them)
+    bf16_train_cases = bf16_cases(train_cases + tier_cases + sym_cases)
     bf16_rows = kernel_phase(bf16_train_cases)
-    bf16_train_paths = [c["path"] for c in bf16_train_cases]
+    bf16_train_paths = [(c["path"], c["primary"]) for c in bf16_train_cases]
     del bf16_train_cases
+    for c in tier_cases:  # their bf16 copies
+        c.pop("bf16_args", None)
+        c.pop("bf16_library", None)
     serve_cases = kernel_cases(tree, cfg, probe[big])
     serve_kernel_rows = kernel_phase(serve_cases)
-    serve_tier_rows = kernel_phase(tier_kernel_cases(tree, cfg, probe[big]))
+    serve_tier_cases = tier_kernel_cases(tree, cfg, probe[big])
+    serve_tier_rows = kernel_phase(serve_tier_cases)
     serve_sym_cases = sym_kernel_cases(tree, probe[big])
     serve_sym_rows = kernel_phase(serve_sym_cases)
-    bf16_serve_cases = bf16_cases(serve_cases + serve_sym_cases)
+    bf16_serve_cases = bf16_cases(serve_cases + serve_tier_cases
+                                  + serve_sym_cases)
     serve_bf16_rows = kernel_phase(bf16_serve_cases)
     bf16_serve_paths = [c["path"] for c in bf16_serve_cases]
-    del bf16_serve_cases, serve_cases
+    del bf16_serve_cases, serve_cases, serve_tier_cases
     print(f"kernels: {edge_case_phase(tree, args.seed)} ragged-layout and "
           "edge cases agree with the plain versions", flush=True)
 
@@ -3340,6 +3570,18 @@ def main() -> None:
             "FAST_FUSED_HALF_MIXED", chgnet_mptrj.FAST_FUSED_HALF_MIXED,
             params, crystals, probe, 2, PER_FORWARD,
             reference=chgnet_mptrj.FAST_FUSED_HALF),
+        # the tiers whose kernels 1 and 7, 5 and 6, 4b run in bf16
+        "FAST_PALLAS_MIXED": serve_phase(
+            "FAST_PALLAS_MIXED", FAST_PALLAS_MIXED, params, crystals, probe,
+            2, PER_FORWARD_PALLAS, reference=FAST_PALLAS),
+        "FAST_FUSED_SYM_MIXED": serve_phase(
+            "FAST_FUSED_SYM_MIXED", FAST_FUSED_SYM_MIXED, params, crystals,
+            probe, 2, PER_FORWARD_SYM,
+            reference=chgnet_mptrj.FAST_FUSED_SYM),
+        "FAST_FUSED_VIRIAL_MIXED": serve_phase(
+            "FAST_FUSED_VIRIAL_MIXED", FAST_FUSED_VIRIAL_MIXED, params,
+            crystals, probe, 2, PER_FORWARD_VIRIAL,
+            reference=chgnet_mptrj.FAST_FUSED_VIRIAL),
     }
     for row in serve_kernel_rows:
         row["launches"] = serve_rows["FAST_FUSED"]["launches"][row["wrapper"]]
@@ -3348,10 +3590,7 @@ def main() -> None:
     for row, c in zip(serve_sym_rows, serve_sym_cases):
         row["launches"] = serve_rows[c["path"]]["launches"][row["wrapper"]]
     for row, path in zip(serve_bf16_rows, bf16_serve_paths):
-        # [pair+und] is on no mixed path (FAST_FUSED_SYM at "mixed"
-        # raises: kernels 5 and 6 take f32 only)
-        row["launches"] = serve_rows[path]["launches"][row["wrapper"]] \
-            if path in serve_rows else 0
+        row["launches"] = serve_rows[path]["launches"][row["wrapper"]]
     serve_rows["FAST_FUSED"]["groups"] = group_sizes
     serve_rows["kernels_at_serve_batch"] = serve_kernel_rows \
         + serve_tier_rows + serve_sym_rows + serve_bf16_rows
@@ -3371,12 +3610,25 @@ def main() -> None:
     # kernels whose device time in a training step is printed from a trace
     traced = {"FAST_FUSED_VIRIAL": ("crystal_row_sum_kernel",
                                     "force_split_kernel"),
-              "FAST_PALLAS": ("rbf_kernel", "fourier_kernel")}
+              "FAST_PALLAS": ("rbf_kernel", "fourier_kernel",
+                              "gated_mlp_split_kernel", "segment_sum_kernel"),
+              # the three tiers' bf16 kernels (the same names: templates)
+              "FAST_PALLAS_MIXED": ("gated_mlp_split_kernel",
+                                    "segment_sum_kernel"),
+              "FAST_FUSED_SYM_MIXED": ("conv_split_kernel",
+                                       "segment_sum_kernel"),
+              "FAST_FUSED_VIRIAL_MIXED": ("crystal_row_sum_kernel",
+                                          "force_split_kernel")}
     # operators whose device time in a training step is printed: the
     # gathers' backward over the padded rows
     padded = ("embedding_dense_backward",)
     fused, sym = chgnet_mptrj.FAST_FUSED, chgnet_mptrj.FAST_FUSED_SYM
     mixed = chgnet_mptrj.FAST_FUSED_MIXED
+    # the new mixed tiers, each also held to its f32 config on the first
+    # batch
+    f32_configs = {"FAST_PALLAS_MIXED": FAST_PALLAS,
+                   "FAST_FUSED_SYM_MIXED": sym,
+                   "FAST_FUSED_VIRIAL_MIXED": chgnet_mptrj.FAST_FUSED_VIRIAL}
     traced["FAST_FUSED_MIXED prefetch"] = ("conv_split_kernel",
                                            "force_split_kernel")
     for name, tcfg, caps, steps, per, prefetch in (
@@ -3400,12 +3652,19 @@ def main() -> None:
              PER_FORWARD, True),
             ("FAST_FUSED_HALF_MIXED", chgnet_mptrj.FAST_FUSED_HALF_MIXED,
              train_caps, 2, PER_FORWARD, False),
+            ("FAST_PALLAS_MIXED", FAST_PALLAS_MIXED, train_caps, 2,
+             PER_FORWARD_PALLAS, False),
+            ("FAST_FUSED_SYM_MIXED", FAST_FUSED_SYM_MIXED, train_caps, 2,
+             PER_FORWARD_SYM, False),
+            ("FAST_FUSED_VIRIAL_MIXED", FAST_FUSED_VIRIAL_MIXED, train_caps,
+             2, PER_FORWARD_VIRIAL, False),
             ("REFERENCE", chgnet_mptrj.REFERENCE, train_caps, 2, {},
              False)):
         train_rows[name] = train_phase(
             name, tcfg, ds, caps, steps, per, args.seed, args.profile,
             traced.get(name, ()),
-            padded if tcfg in (fused, sym, mixed) else (), prefetch)
+            padded if tcfg in (fused, sym, mixed) else (), prefetch,
+            reference=f32_configs.get(name))
     for row in rows + tier_rows:
         path = {"fused_force_virial_readout": "FAST_FUSED_VIRIAL",
                 "fused_segment_sum": "FAST_PALLAS",
@@ -3420,18 +3679,18 @@ def main() -> None:
         if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on "
                                f"{c['path']}")
-    # the bf16 rows: directed on FAST_FUSED_MIXED (through the
-    # prefetcher), [pair] on FAST_FUSED_HALF_MIXED, [pair+und] on no path
-    bf16_path = {"FAST_FUSED_MIXED": "FAST_FUSED_MIXED prefetch",
-                 "FAST_FUSED_HALF_MIXED": "FAST_FUSED_HALF_MIXED"}
+    # the bf16 rows: directed convs and 4a on FAST_FUSED_MIXED (through
+    # the prefetcher), [pair] on FAST_FUSED_HALF_MIXED, [pair+und], 5 and 6
+    # on FAST_FUSED_SYM_MIXED, 4b on FAST_FUSED_VIRIAL_MIXED, 1 and 7 on
+    # FAST_PALLAS_MIXED; the extra shapes of 1 and 7 beside the others
+    bf16_path = {"FAST_FUSED_MIXED": "FAST_FUSED_MIXED prefetch"}
     bf16_on_path, bf16_extra = [], []
-    for row, case_path in zip(bf16_rows, bf16_train_paths):
-        path = bf16_path.get(case_path)
-        row["launches"] = train_rows[path]["launches"][row["wrapper"]] \
-            if path else 0
-        if path and not row["launches"]:
+    for row, (case_path, primary) in zip(bf16_rows, bf16_train_paths):
+        path = bf16_path.get(case_path, case_path)
+        row["launches"] = train_rows[path]["launches"][row["wrapper"]]
+        if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on {path}")
-        (bf16_on_path if path else bf16_extra).append(row)
+        (bf16_on_path if primary else bf16_extra).append(row)
 
     _stamp(t_start, "train")
     # 9. load-balanced training through StepPlans (DESIGN.md §6), beside

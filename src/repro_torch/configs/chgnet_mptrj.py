@@ -1,9 +1,8 @@
 """The paper's own model: CHGNet v0.3.0-style config for MPtrj training
 (paper §IV Parameters Setting) + the FastCHGNet variants of Table I.
 
-A copy of ``repro.configs.chgnet_mptrj``.  Every config is defined here;
-those whose tiers are not ported yet raise ``NotImplementedError`` when a
-model is built or applied with them (``core.chgnet.check_supported``).
+A copy of ``repro.configs.chgnet_mptrj``; every config, and each at every
+``precision``, runs in the port.
 """
 from repro_torch.core.chgnet import CHGNetConfig
 from repro_torch.core.losses import LossWeights

@@ -9,10 +9,9 @@ readout of reference CHGNet.  ``CHGNet`` wraps the same tree as an
 ``nn.Module`` whose parameter names follow it (``blocks.0.atom_mlp.w``,
 ...).
 
-``CHGNetConfig`` mirrors the JAX config field for field.  Tiers this
-port does not implement yet raise ``NotImplementedError`` naming the
-ROADMAP entry that adds them (``check_supported``); ``table_residency``
-is a TPU mechanic and is accepted and ignored.
+``CHGNetConfig`` mirrors the JAX config field for field; every tier runs
+at every precision.  ``table_residency`` is a TPU mechanic and is
+accepted and ignored.
 
 ``precision`` selects the policy of ``repro_torch.precision`` (DESIGN.md
 §4): parameters are stored in its ``param`` dtype (``rbf_freqs`` always
@@ -87,33 +86,6 @@ class CHGNetConfig:
 
     def with_(self, **kw) -> "CHGNetConfig":
         return dataclasses.replace(self, **kw)
-
-
-_BF16_NEXT = ("is not ported yet: its CUDA kernel has no bf16 operand "
-              "path (queued in ROADMAP section 2 for a next slice)")
-
-
-def check_supported(cfg: CHGNetConfig) -> None:
-    """Raise ``NotImplementedError`` for a tier this port lacks so far: at
-    a compute dtype below f32, a tier whose CUDA kernels take f32 only
-    (kernels 1 and 7 of the unfused Pallas tier, 5 and 6 of the fused
-    symmetric trunk, 4b of the fused virial), so that it fails when the
-    model is built, not in the middle of a step on the card."""
-    if not resolve_policy(cfg.precision).low_precision_compute:
-        return
-    tier = f"precision={cfg.precision!r} with"
-    if cfg.mlp_impl == "pallas" or (cfg.agg_impl == "pallas"
-                                    and cfg.conv_impl == "unfused"):
-        raise NotImplementedError(
-            f"{tier} mlp_impl={cfg.mlp_impl!r}, agg_impl={cfg.agg_impl!r}, "
-            f"conv_impl={cfg.conv_impl!r} (kernels 1 and 7) {_BF16_NEXT}")
-    if cfg.conv_impl == "fused" and cfg.bond_features == "undirected":
-        raise NotImplementedError(
-            f"{tier} the fused symmetric trunk (kernels 5 and 6) "
-            f"{_BF16_NEXT}")
-    if cfg.conv_impl == "fused" and cfg.stress_mode == "bond_virial":
-        raise NotImplementedError(
-            f"{tier} the fused bond virial (kernel 4b) {_BF16_NEXT}")
 
 
 def resolve_device(device) -> torch.device:
@@ -311,7 +283,6 @@ def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
     backpropagates through the kernels' recompute backwards).  ``params``
     and ``graph`` must be on the same device.
     """
-    check_supported(cfg)
     out = resolve_policy(cfg.precision).output
     if cfg.readout == "autodiff":
         return {k: x.to(out) for k, x in
@@ -380,7 +351,6 @@ class CHGNet(_Tree):
 
     def __init__(self, cfg: CHGNetConfig, params: dict | None = None, *,
                  seed: int = 0, device=None):
-        check_supported(cfg)
         device = resolve_device(device)
         super().__init__(params if params is not None
                          else chgnet_init(seed, cfg))

@@ -188,8 +188,10 @@ def force_virial_head_apply(p, graph: CrystalGraphBatch, e, bond_vec,
         from repro_torch.kernels import ops as kops
 
         l0, l1 = p["mlp"]  # force head is fixed at (dim -> dim -> 1)
+        cd = e.dtype
         forces, raw = kops.fused_force_virial_readout(
-            e, x_hat, bond_dist, l0["w"], l0["b"], l1["w"], l1["b"],
+            e, x_hat, bond_dist, l0["w"].to(cd), l0["b"].to(cd),
+            l1["w"].to(cd), l1["b"].to(cd),
             graph.bond_center, graph.bond_crystal, graph.bond_offsets,
             graph.atom_cap, graph.num_crystals)
         forces = forces * graph.atom_mask[..., None].to(forces.dtype)

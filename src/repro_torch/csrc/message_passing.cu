@@ -105,27 +105,9 @@ int sym_msg_fwd(const float* v, const float* e, const float* a_u,
                 const int* du1, const int* du2, const int* offs, float* out,
                 int n_eu, int n_au, int dim, int grid, int tm, int smem,
                 void* stream) {
-  if (n_au == 0) return 0;
-  ConvArgs<float> a{};
-  a.tab0 = v;
-  a.id0 = ctr;
-  a.tab1 = e;
-  a.id1 = du1;
-  a.tab2 = e;
-  a.id2 = du2;
-  a.tab3 = a_u;
-  a.env = e_b;
-  a.env0 = du1;
-  a.env1 = du2;
-  a.w = w23;
-  a.bias = b;
-  a.lns = ln_scale;
-  a.lnb = ln_bias;
-  a.offs = offs;
-  a.out = out;
-  a.n_rows = n_eu;
-  a.n_out = n_au;
-  return dispatch_conv<SYM>(a, dim, grid, tm, smem, stream);
+  return sym_msg<float>(v, e, a_u, e_b, w23, b, ln_scale, ln_bias, ctr, du1,
+                        du2, offs, out, n_eu, n_au, dim, grid, tm, smem,
+                        stream);
 }
 
 int force_readout_fwd(const float* e, const float* x_hat, const float* w1,

@@ -1,7 +1,8 @@
 // Message-passing kernels of the FastCHGNet forward, for Hopper (sm_90a):
 // the templates and their launchers.  message_passing.cu instantiates the
 // f32 (split-f32) kernels and defines their entries and the crystal sum;
-// message_passing_bf16.cu the bf16 kernels of 2, 3 and 4a and theirs.
+// message_passing_bf16.cu the bf16 kernels of 2, 3, 4a, 4b and 5 and
+// theirs.
 // The two compile apart, in parallel (kernels/build.py).
 //
 // One kernel per TPU megakernel of the serving and training paths:
@@ -79,11 +80,12 @@
 // (W) and 8 mod 32 (messages) keep the fragment loads and stores free of
 // bank conflicts.
 //
-// bf16 operands (DESIGN.md §4, precision "mixed" / "bf16"): the convs
-// (kernels 2 and 3, with their mirror operands) and the force readout
-// without the virial (kernel 4a) take a second operand type, T = bf16,
-// in the same templates (entries atom_conv_bf16_fwd, bond_conv_bf16_fwd,
-// force_readout_bf16_fwd).  What the JAX kernels do with bf16 operands
+// bf16 operands (DESIGN.md §4, precision "mixed" / "bf16"): every kernel
+// here (the convs, kernels 2 and 3, with their mirror operands; phase A,
+// kernel 5; the force readouts, 4a and 4b) takes a second operand type,
+// T = bf16, in the same templates (entries atom_conv_bf16_fwd,
+// bond_conv_bf16_fwd, sym_msg_bf16_fwd, force_readout_bf16_fwd,
+// force_virial_bf16_fwd).  What the JAX kernels do with bf16 operands
 // (fused_message_passing.py _mm, _masked_ln, the wrappers' final cast):
 // every product accumulates in f32, the LayerNorm statistics, the gate,
 // the envelope product and the row sums are f32, and the result is
@@ -96,10 +98,14 @@
 // partition, the epilogue on the accumulators, the f32 message tile and
 // the ordered run sums are the f32 path's, and each output element is
 // stored rounded to nearest.  Row strides of 16 mod 128 bytes keep
-// ldmatrix free of bank conflicts.  At FAST_FUSED_MIXED (D = 64, batch
-// 128) the bond conv's 5.3 GFLOP take 0.005 ms at 989 TFLOP/s, below the
-// ~0.03 ms its bf16 bytes take (its (E_cap, D) bf16 output alone is 50
-// MB): the bf16 convs and readout are bound by bytes.
+// ldmatrix free of bank conflicts.  Two outputs stay f32, as in the JAX
+// kernels: phase A's messages (fused_message_passing.py:1107) and 4b's
+// row partials of the virial; 4b's forces are bf16.  At FAST_FUSED_MIXED
+// (D = 64, batch 128) the bond conv's 5.3 GFLOP take 0.005 ms at 989
+// TFLOP/s, below the ~0.03 ms its bf16 bytes take (its (E_cap, D) bf16
+// output alone is 50 MB): the bf16 convs, readouts and phase A (2.0
+// GFLOP, 0.002 ms at the bf16 peak, its messages written in f32) are
+// bound by bytes.
 
 #pragma once
 
@@ -129,6 +135,16 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const bf16* p) {
   const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// two consecutive operands in shared memory as f32
+__device__ __forceinline__ float2 load2_shared(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2_shared(const bf16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
   return make_float2(__uint_as_float(u << 16),
                      __uint_as_float(u & 0xffff0000u));
 }
@@ -342,7 +358,8 @@ struct ConvShape {
 // The GEMM input of an edge is D-wide parts, each a row of a table: part
 // p of edge g is tab_p[id_p[g]] (id_p == nullptr: row g).  The envelope
 // factors are env[env0[g]] and, for the bond conv and SYM, env[env1[g]].
-// Every float operand and the output are of type T.
+// Every float operand and the convs' output are of type T; SYM writes f32
+// messages to msg.
 template <typename T>
 struct ConvArgs {
   const T* tab0;
@@ -361,8 +378,9 @@ struct ConvArgs {
   const T* lnb;
   const int* offs;
   T* out;
+  float* msg;  // SYM's output
   int n_rows;
-  int n_out;  // SYM: rows of out
+  int n_out;  // SYM: rows of msg
   int t_min;
 };
 
@@ -415,16 +433,21 @@ __device__ __forceinline__ const T* part_row(const ConvArgs<T>& a, int p,
 // unwritten.  e[du1] + e[du2] is added in f32 and then split, the plain
 // version's order (sum, then product).
 //
-// T = bf16 (ATOM and BOND; atom_conv_bf16_fwd, bond_conv_bf16_fwd): the
-// same sums with each 16 input columns one bf16 product into the f32
+// T = bf16 (atom_conv_bf16_fwd, bond_conv_bf16_fwd, sym_msg_bf16_fwd):
+// the same sums with each 16 input columns one bf16 product into the f32
 // accumulators, the bias and LayerNorm parameters widened to f32, the
-// envelopes widened as they are read, and out rounded to bf16 as stored.
+// envelopes widened as they are read, and the convs' out rounded to bf16
+// as stored.  SYM keeps its messages f32 and forms the A fragments of its
+// e part from the two staged rows: e[du1] + e[du2] widened and added in
+// f32, then rounded to bf16 once (the JAX kernel's _mm casts the f32 sum
+// to the weights' bf16), so e_s is rounded before the product; W's e rows
+// are W2 + W3 added in bf16 by the caller.  At D = 8 a part is narrower
+// than a k16 step: its staged columns and W rows are zero up to 16.
 template <int MODE, int D, typename T>
 __global__ void __launch_bounds__(CONV_THREADS, 2)
     conv_split_kernel(const __grid_constant__ ConvArgs<T> a) {
   using S = ConvShape<MODE, D, T>;
   constexpr bool BF = IS_BF16<T>;
-  static_assert(!BF || S::REDUCE, "bf16 operands: the convs only");
   constexpr int NT = S::NT, RW = S::RW, TM = S::TM, NK = S::NK;
   constexpr int LDX = S::LDX, LDW = S::LDW, LDM = S::LDM, N2 = 2 * D;
   constexpr int D_IN = S::D_IN;
@@ -580,12 +603,16 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
           // v, e (pair) or a chunk: its table, first column, first W row
           // and width in effective (W) columns
           const bool pair = kc >= CV && kc < CV + CE;
-          const float* tab = kc < CV ? a.tab0 : pair ? a.tab1 : a.tab3;
+          const T* tab = kc < CV ? a.tab0 : pair ? a.tab1 : a.tab3;
           const int col = kc < CV ? kc * KV : pair ? (kc - CV) * KE
                                                    : (kc - CV - CE) * KV;
           const int k0 = kc < CV ? col : pair ? D + col : 2 * D + col;
           const int kw = pair ? KE : KV;
           const int width = pair ? 2 * KE : KV;  // staged columns
+          // bf16: a k16 step reads 16 columns and 16 W rows, zeros past
+          // the part (at D = 8)
+          const int span = BF && width < 16 ? 16 : width;
+          const int w_rows = BF && kw < 16 ? 16 : kw;
 #pragma unroll
           for (int it = 0; it < TM * SPR / CONV_THREADS; ++it) {
             const int i = tid + it * CONV_THREADS;
@@ -593,20 +620,21 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
             const int l = lane / SPR + RPW * it;
             const int row1 = __shfl_sync(0xffffffffu, rows.x, l);
             const int row2 = __shfl_sync(0xffffffffu, rows.y, l);
-            if (c < width) {
-              const bool in = r < n_e;
+            if (c < span) {
+              const bool in = r < n_e && c < width;
               const bool second = c >= kw;  // pair: the e[du2] half
-              const float* src =
+              const T* src =
                   in ? tab + (size_t)(second ? row2 : row1) * D + col +
                            (second ? c - kw : c)
                      : a.w;
               cp_async16(xs + r * LDX + c, src, in);
             }
           }
-          for (int i = tid; i < kw * N2 / 4; i += CONV_THREADS) {
-            const int r = i / (N2 / 4), c = (i % (N2 / 4)) * 4;
-            cp_async16(ws + r * LDW + c, a.w + (size_t)(k0 + r) * N2 + c,
-                       true);
+          for (int i = tid; i < w_rows * N2 / SEG; i += CONV_THREADS) {
+            const int r = i / (N2 / SEG), c = (i % (N2 / SEG)) * SEG;
+            const bool in = r < kw;
+            cp_async16(ws + r * LDW + c,
+                       in ? a.w + (size_t)(k0 + r) * N2 + c : a.w, in);
           }
         }
       }
@@ -647,13 +675,30 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
         // one 16-wide step of K: the A fragments of the warp's m tiles
         // (ldmatrix), then the n tiles two at a time, their B fragments
         // from W's k-major rows (ldmatrix.trans), one bf16 product each
+        // (SYM's e chunks, pair: the A fragments formed from both rows)
         const T* ws = xs + TM * LDX;
-        auto k16_step = [&](int kk) {
+        auto k16_step = [&](int kk, bool pair) {
           uint32_t af[RW][4];
 #pragma unroll
-          for (int r = 0; r < RW; ++r)
-            ldmatrix_x4(af[r], xs + (warp * 16 * RW + 16 * r + (lane & 15)) *
-                                        LDX + kk * 16 + (lane >> 4) * 8);
+          for (int r = 0; r < RW; ++r) {
+            if (!pair) {
+              ldmatrix_x4(af[r], xs + (warp * 16 * RW + 16 * r + (lane & 15))
+                                          * LDX + kk * 16 + (lane >> 4) * 8);
+              continue;
+            }
+            // fragment order of m16n8k16: rows g / g + 8, columns 2 tq /
+            // 2 tq + 1, then the same 8 columns on; e[du2] lies KE
+            // columns after e[du1]
+            const T* x0 = xs + (warp * 16 * RW + 16 * r + g) * LDX + 2 * tq;
+            auto e_s = [&](const T* p) {
+              const float2 u = load2_shared(p), v2 = load2_shared(p + KE);
+              return pack_bf16(u.x + v2.x, u.y + v2.y);
+            };
+            af[r][0] = e_s(x0);
+            af[r][1] = e_s(x0 + 8 * LDX);
+            af[r][2] = KE < 16 ? 0u : e_s(x0 + 8);
+            af[r][3] = KE < 16 ? 0u : e_s(x0 + 8 * LDX + 8);
+          }
 #pragma unroll
           for (int j2 = 0; j2 < NT / 2; ++j2) {
             uint32_t bf[4];
@@ -667,12 +712,20 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
             }
           }
         };
-        if (kc < NK - 1 || K_LAST == KC) {
+        if (!S::REDUCE) {
+          if (kc >= CV && kc < CV + CE) {
+            k16_step(0, true);  // KE <= 16 columns of e_s
+          } else {
 #pragma unroll
-          for (int kk = 0; kk < KC / 16; ++kk) k16_step(kk);
+            for (int kk = 0; kk < (KV + 15) / 16; ++kk) k16_step(kk, false);
+          }
+        } else if (kc < NK - 1 || K_LAST == KC) {
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk) k16_step(kk, false);
         } else {  // the last, partial chunk of d_in (zeros past it)
 #pragma unroll
-          for (int kk = 0; kk < (K_LAST + 15) / 16; ++kk) k16_step(kk);
+          for (int kk = 0; kk < (K_LAST + 15) / 16; ++kk)
+            k16_step(kk, false);
         }
       } else {
         const float* xw = xs + (warp * 16 * RW + g) * LDX + 2 * tq;
@@ -805,9 +858,9 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
                 res[1] *= f2.y;
               }
             }
-            if constexpr (!S::REDUCE) {  // SYM: row ge of out, from registers
+            if constexpr (!S::REDUCE) {  // SYM: row ge of msg, from registers
               if (valid)
-                *reinterpret_cast<float2*>(a.out + (size_t)ge * D + j * 8 +
+                *reinterpret_cast<float2*>(a.msg + (size_t)ge * D + j * 8 +
                                            2 * tq) =
                     make_float2(res[0], res[1]);
             } else {
@@ -859,8 +912,10 @@ __global__ void __launch_bounds__(CONV_THREADS, 2)
 // (W = 4 or 12 floats) overwrite its own row of the staged e tile for the
 // run sums.
 //
-// T = bf16 (force_readout_bf16_fwd, VIRIAL = false): e, W1, b1, w2, b2
-// and out are bf16, x_hat f32 (the wrapper widens it, exactly).  W1 is
+// T = bf16 (force_readout_bf16_fwd, force_virial_bf16_fwd): e, W1, b1, w2,
+// b2 and out are bf16, x_hat and dist f32 (the wrapper widens bf16 ones,
+// exactly); the virial's products, run sums, row partials (vir) and the
+// crystal sum stay f32, only the forces are rounded.  W1 is
 // packed once a block as the bf16 B fragments of m16n8k16, both k pairs
 // of a fragment in one uint2; the e rows (zero past D = 8 up to 16
 // columns) give the A fragments through ldmatrix; one bf16 product per 16
@@ -914,7 +969,6 @@ __global__ void __launch_bounds__(CONV_THREADS, ForceShape<D, T>::BLOCKS)
     force_split_kernel(const __grid_constant__ ForceArgs<T> a) {
   using S = ForceShape<D, T>;
   constexpr bool BF = IS_BF16<T>;
-  static_assert(!BF || !VIRIAL, "bf16 operands: the force readout only");
   constexpr int NT = S::NT, TM = S::TM, LDX = S::LDX, LDP = S::LDP;
   constexpr int W = VIRIAL ? 12 : 4;  // floats of a bond's contribution
   // staged columns of an e row: D, and bf16 at D = 8 zeros up to 16
@@ -1287,6 +1341,38 @@ int bond_conv(const T* v, const T* e, const T* a_feat, const T* e_b,
   a.n_rows = n_rows;
   a.t_min = t_min;
   return dispatch_conv<BOND>(a, dim, grid, tm, smem, stream);
+}
+
+// Phase A of the symmetric bond conv: f32 messages msg (n_au, D) of the
+// real dedup rows [0, offs[n_eu] / 2); w23 is (3D, 2D) = [W1 | W2 + W3 |
+// W4].
+template <typename T>
+int sym_msg(const T* v, const T* e, const T* a_u, const T* e_b,
+            const T* w23, const T* b, const T* ln_scale, const T* ln_bias,
+            const int* ctr, const int* du1, const int* du2, const int* offs,
+            float* msg, int n_eu, int n_au, int dim, int grid, int tm,
+            int smem, void* stream) {
+  if (n_au == 0) return 0;
+  ConvArgs<T> a{};
+  a.tab0 = v;
+  a.id0 = ctr;
+  a.tab1 = e;
+  a.id1 = du1;
+  a.tab2 = e;
+  a.id2 = du2;
+  a.tab3 = a_u;
+  a.env = e_b;
+  a.env0 = du1;
+  a.env1 = du2;
+  a.w = w23;
+  a.bias = b;
+  a.lns = ln_scale;
+  a.lnb = ln_bias;
+  a.offs = offs;
+  a.msg = msg;
+  a.n_rows = n_eu;
+  a.n_out = n_au;
+  return dispatch_conv<SYM>(a, dim, grid, tm, smem, stream);
 }
 
 }  // namespace

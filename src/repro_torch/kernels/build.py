@@ -48,14 +48,19 @@ SIGNATURES = {
     "message_passing_bf16": {
         "atom_conv_bf16_fwd": [_P] * 12 + [_I] * 7 + [_P],
         "bond_conv_bf16_fwd": [_P] * 15 + [_I] * 6 + [_P],
+        "sym_msg_bf16_fwd": [_P] * 13 + [_I] * 6 + [_P],
         "force_readout_bf16_fwd": [_P] * 8 + [_I] * 6 + [_P],
+        "force_virial_bf16_fwd": [_P] * 10 + [_I] * 6 + [_P],
     },
     "segment_sum": {
         "segment_sum_fwd": [_P] * 3 + [_I, _I, _I, _P],
+        "segment_sum_bf16_fwd": [_P] * 3 + [_I, _I, _I, _P],
         "sym_accum_fwd": [_P] * 4 + [_I, _I, _I, _P],
+        "sym_accum_bf16_fwd": [_P] * 4 + [_I, _I, _I, _P],
     },
     "gated_mlp": {
-        "gated_mlp_fwd": [_P] * 6 + [_I, _I, _I, _P],
+        "gated_mlp_fwd": [_P] * 6 + [_I] * 6 + [_P],
+        "gated_mlp_bf16_fwd": [_P] * 6 + [_I] * 6 + [_P],
     },
     "basis": {
         "rbf_fwd": [_P] * 3 + [_I, _I, _F, _F, _I, _I, _I, _P],

@@ -9,13 +9,17 @@ path from the device of the tensors it is given:
     features, int32 ids), contiguity and shapes, or raise.  There is no
     fallback from the card to the plain version.
 
-The convs and the force readout without the virial (kernels 2, 3 and 4a)
-also take bf16 features (DESIGN.md §4, the mixed tiers): every float
-operand of a call in one dtype, bf16 kernels in the same templates
-(f32 sums, the result rounded to bf16 once), the output in the operand
-dtype.  Their backwards widen the operands to f32, recompute in f32 and
-cast each cotangent to its operand's dtype, as the JAX package's custom
-VJPs do.  The other wrappers take f32 only.
+Every kernel of the CHGNet path also takes bf16 features (DESIGN.md §4,
+the mixed tiers): the convs and the force readouts (kernels 2, 3, 4a and
+4b), the symmetric bond conv's two phases (5 and 6), the segment sum (1)
+and the GatedMLP (7).  Every float operand of a call shares one dtype,
+except the operands documented as f32 (kernel 6's messages, 4b's x_hat
+and distances, 7's LayerNorm parameters); the bf16 kernels sum in f32 and
+round the result to bf16 once; the output is in the operand dtype
+(kernel 5's messages and 4b's virial stay f32).  The backwards widen the
+operands to f32, recompute in f32 and cast each cotangent to its
+operand's dtype, as the JAX package's custom VJPs do.  The bases (8 and
+9) take f32 only: they read the f32 geometry.
 
 The backward is the same code on both devices and mirrors the JAX
 package's custom VJPs: it keeps the operands, never the messages, and
@@ -45,7 +49,9 @@ serve only: they are plain functions with no backward, and refuse inputs
 that require a gradient (LM training is ROADMAP item 14).
 
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, incremented only where a kernel is launched.
+``<wrapper>.launches``, incremented only where a kernel is launched; and
+``entry_launch_counts()`` counts them by C entry point, so that a run can
+show which of an f32 and a bf16 entry it took.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ import torch
 from . import build, ref
 
 _LIB = "message_passing"
-_LIB_BF16 = "message_passing_bf16"  # the bf16 entries of kernels 2, 3, 4a
+_LIB_BF16 = "message_passing_bf16"  # the bf16 entries of kernels 2-5
 
 # Bytes of the widest per-edge tensor of one recompute chunk (the
 # concatenated GatedMLP input).  The JAX package's chunk of 256 edges is
@@ -85,10 +91,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _operand_dtype(t: torch.Tensor) -> torch.dtype:
-    """The float operand type of a call to a kernel with a bf16 path (the
-    convs, kernels 2 and 3, and the force readout, 4a): f32 or bf16, which
-    every float operand of the call must share (``_check`` raises a
-    ``TypeError`` otherwise).  The other kernels take f32 only."""
+    """The float operand type of a call to a kernel of the CHGNet path: f32
+    or bf16, which every float operand of the call must share (``_check``
+    raises a ``TypeError`` otherwise), but for the operands each wrapper
+    documents as f32."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"operands of dtype {t.dtype}: the CUDA kernel takes "
                         "float32 or bfloat16")
@@ -157,8 +163,7 @@ def conv_plan(mode: str, dim: int, n_rows: int, sms: int,
               itemsize: int = 4) -> ConvPlan:
     """The launch geometry of the message-passing kernels, the numbers the
     kernel checks ``tm`` and ``smem`` against.  ``itemsize`` is the
-    operand type's: 4 (f32, split f32) or 2 (bf16: the convs and the
-    force readout without the virial).
+    operand type's: 4 (f32, split f32) or 2 (bf16).
 
     ``"atom"`` / ``"bond"`` (kernels 2, 3): a tile of ``tm`` edges is 4
     warps of two m16 tiles (one at D = 128) by all 2D columns; a stage of
@@ -169,18 +174,19 @@ def conv_plan(mode: str, dim: int, n_rows: int, sms: int,
     registers of the accumulators: in bf16 the stages take half the bytes,
     and three blocks would still not fit at D = 64).
 
-    ``"sym"`` (kernel 5, ``n_rows`` the dedup rows of the output; f32
-    only): no reduction, so no message tile; 64-row tiles (one m16 tile a
-    warp), whose K loop takes the v and a parts 32 columns a stage and the
-    e part 16 columns of e[du1] beside the same 16 of e[du2] (``k_chunks``
-    = 8 at D = 64), two blocks a SM for D <= 64.  The real rows are
+    ``"sym"`` (kernel 5, ``n_rows`` the dedup rows of the output): no
+    reduction, so no message tile; 64-row tiles (one m16 tile a warp),
+    whose K loop takes the v and a parts 32 columns a stage and the e part
+    16 columns of e[du1] beside the same 16 of e[du2] (``k_chunks`` = 8
+    at D = 64), two blocks a SM for D <= 64; in bf16 the stages take half
+    the bytes (W rows padded by 16 bytes).  The real rows are
     counted on the device, so the tile does not follow them: a training
     batch's 40.6k real rows are 636 tiles, 4.8 a SM, and a serving batch's
     11.9k are 187, where 128-row tiles would be 318 (1.2 waves of 264
     blocks) and 94 (38 SMs idle).  The grid is those blocks on every SM,
     at most one a tile of ``n_rows``.
 
-    ``"force"`` (kernel 4, both variants in f32, 4a in bf16): tiles of 64
+    ``"force"`` (kernel 4, both variants): tiles of 64
     bonds (one m16 tile a warp) whose e rows (stride max(D, 32) + 8
     elements), x_hat and distances (f32) are one stage; W1 lies in shared
     memory split into TF32 (hi, lo) pairs, (D / 2, D + 2) uint4, or in
@@ -194,15 +200,15 @@ def conv_plan(mode: str, dim: int, n_rows: int, sms: int,
     ``n_rows``: a chunk owns at least one row)."""
     if mode not in _PLAN_MODES:
         raise ValueError(f"mode must be one of {_PLAN_MODES}, got {mode!r}")
-    if itemsize not in (2, 4) or (itemsize == 2 and mode == "sym"):
+    if itemsize not in (2, 4):
         raise ValueError(f"no {mode!r} kernel for operands of {itemsize} "
                          "bytes")
     _check_conv_dim(dim)
     kc, stages, reserved = _CONV_KC, _CONV_STAGES, _BLOCK_RESERVED
     if mode == "sym":
         tm = _CONV_WARPS * 16
-        stage = tm * (kc + 8) + kc * (2 * dim + 4)
-        smem = 4 * (stages * stage + 6 * dim)
+        stage = itemsize * (tm * (kc + 8) + kc * (2 * dim + 16 // itemsize))
+        smem = stages * stage + 4 * 6 * dim
         per_sm = min(2, _SM_SHARED // (smem + reserved))
         k_chunks = 2 * (dim // min(dim, kc)) + dim // min(dim, 16)
         return ConvPlan(tm, tm, _CONV_WARPS,
@@ -264,10 +270,26 @@ def _conv_launch_plan(mode: str, dim: int, n_rows: int, dev,
     return conv_plan(mode, dim, n_rows, _sm_count(dev.index), itemsize)
 
 
+# launches by C entry point since the last reset_launch_counts()
+_ENTRY_LAUNCHES: dict[str, int] = {}
+
+
 def _launch(lib: str, fn: str, *args) -> None:
     err = build.entry(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+    _ENTRY_LAUNCHES[fn] = _ENTRY_LAUNCHES.get(fn, 0) + 1
+
+
+def _entry(ft: torch.dtype, lib: str, fn: str) -> tuple[str, str]:
+    """The library and C entry of a kernel for operand type ``ft``: the f32
+    entry ``fn`` as named, the bf16 one with ``_bf16`` before ``_fwd`` (in
+    ``lib``, or in ``message_passing_bf16`` for the message-passing
+    kernels)."""
+    if ft == torch.float32:
+        return lib, fn
+    bf16_lib = _LIB_BF16 if lib == _LIB else lib
+    return bf16_lib, fn.replace("_fwd", "_bf16_fwd")
 
 
 def _stream(device) -> int:
@@ -574,13 +596,15 @@ def sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2, offsets,
             *, block_rows: int = 32):
     """Phase A, forward only: the (Au, D) messages of the dedup angle rows,
     ``phi([v[ctr] | e_s | e_s | a_u]) * e_b[du1] * e_b[du2]``, ``e_s =
-    e[du1] + e[du2]`` (``kernels.ref.sym_msg_ref``).  On the card only the
-    real rows ``[0, offsets[-1] // 2)`` are computed, the count read on the
-    device (``offsets`` is the (Eu + 1,) incidence CSR); the rows past it
-    are left unwritten.  The kernel's persistent blocks stride over
-    64-row tiles of them (``conv_plan("sym", ...)``); ``block_rows`` is
-    accepted for the callers of the earlier kernel and no longer shapes
-    the launch."""
+    e[du1] + e[du2]`` (``kernels.ref.sym_msg_ref``).  The messages are f32
+    whatever the operand dtype (bf16 operands: e_s rounded to bf16 once
+    before the product, the two e weight blocks added in bf16, as the JAX
+    kernel does).  On the card only the real rows ``[0, offsets[-1] //
+    2)`` are computed, the count read on the device (``offsets`` is the
+    (Eu + 1,) incidence CSR); the rows past it are left unwritten.  The
+    kernel's persistent blocks stride over 64-row tiles of them
+    (``conv_plan("sym", ...)``); ``block_rows`` is accepted for the
+    callers of the earlier kernel and no longer shapes the launch."""
     if v.device.type == "cpu":
         return ref.sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
                                du1, du2)
@@ -592,24 +616,26 @@ def _sym_msg_cuda(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
                   offsets):
     a_rows, dim = v.shape
     eu, au = e.shape[0], a_u.shape[0]
-    dev, f32, i32 = v.device, torch.float32, torch.int32
+    dev, ft, i32 = v.device, _operand_dtype(v), torch.int32
     _check_conv_dim(dim)
     for name, t, dt, shape in (
-            ("v", v, f32, (a_rows, dim)), ("e", e, f32, (eu, dim)),
-            ("a_u", a_u, f32, (au, dim)), ("e_b", e_b, f32, (eu, dim)),
-            ("w", w, f32, (4 * dim, 2 * dim)), ("b", b, f32, (2 * dim,)),
-            ("ln_scale", ln_scale, f32, (2 * dim,)),
-            ("ln_bias", ln_bias, f32, (2 * dim,)),
+            ("v", v, ft, (a_rows, dim)), ("e", e, ft, (eu, dim)),
+            ("a_u", a_u, ft, (au, dim)), ("e_b", e_b, ft, (eu, dim)),
+            ("w", w, ft, (4 * dim, 2 * dim)), ("b", b, ft, (2 * dim,)),
+            ("ln_scale", ln_scale, ft, (2 * dim,)),
+            ("ln_bias", ln_bias, ft, (2 * dim,)),
             ("ctr", ctr, i32, (au,)), ("du1", du1, i32, (au,)),
             ("du2", du2, i32, (au,)), ("offsets", offsets, i32, (eu + 1,))):
         _check(name, t, dt, shape, dev)
     # both e slots read e_s: their weight blocks add once per call, K = 3D
+    # (in the operand dtype, as the JAX wrapper adds them)
     w23 = torch.cat([w[:dim], w[dim:2 * dim] + w[2 * dim:3 * dim],
                      w[3 * dim:]])
     _check_aligned(v=v, e=e, a_u=a_u, e_b=e_b, w23=w23)
-    out = torch.empty((au, dim), dtype=f32, device=dev)
-    plan = _conv_launch_plan("sym", dim, au, dev)
-    _launch(_LIB, "sym_msg_fwd", v.data_ptr(), e.data_ptr(), a_u.data_ptr(),
+    out = torch.empty((au, dim), dtype=torch.float32, device=dev)
+    plan = _conv_launch_plan("sym", dim, au, dev, v.element_size())
+    _launch(*_entry(ft, _LIB, "sym_msg_fwd"), v.data_ptr(), e.data_ptr(),
+            a_u.data_ptr(),
             e_b.data_ptr(), w23.data_ptr(), b.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), ctr.data_ptr(),
             du1.data_ptr(), du2.data_ptr(), offsets.data_ptr(),
@@ -619,25 +645,35 @@ def _sym_msg_cuda(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
     return out
 
 
-def sym_accum(msg, rep, dest, offsets, eu_rows: int):
+def sym_accum(msg, rep, dest, offsets, eu_rows: int, out_dtype=None):
     """Phase B, forward only: ``out[u] = sum of msg[rep[t]]`` over u's
     incidences ``t`` in ``[offsets[u], offsets[u+1])``, in CSR order ->
     (Eu, D) (``kernels.ref.sym_accum_ref``).  The walks are bounded by the
     offsets, so no padded incidence is read; ``dest`` is read by the plain
-    version only."""
+    version only.  ``msg`` is f32 (phase A's messages); the f32 sums are
+    stored in ``out_dtype``, f32 (the default) or bf16, rounded once."""
+    out_dtype = out_dtype or torch.float32
     if msg.device.type == "cpu":
-        return ref.sym_accum_ref(msg, rep, dest, offsets, eu_rows)
+        return ref.sym_accum_ref(msg, rep, dest, offsets, eu_rows, out_dtype)
+    return _sym_accum_cuda(msg, rep, dest, offsets, eu_rows, out_dtype)
+
+
+def _sym_accum_cuda(msg, rep, dest, offsets, eu_rows, out_dtype):
     n_incid = rep.shape[0]
     au, dim = msg.shape
     dev, f32, i32 = msg.device, torch.float32, torch.int32
+    if out_dtype not in (f32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype}: the CUDA kernel stores "
+                        "float32 or bfloat16")
     for name, t, dt, shape in (
             ("msg", msg, f32, (au, dim)), ("rep", rep, i32, (n_incid,)),
             ("dest", dest, i32, (n_incid,)),
             ("offsets", offsets, i32, (eu_rows + 1,))):
         _check(name, t, dt, shape, dev)
-    out = torch.empty((eu_rows, dim), dtype=f32, device=dev)
+    out = torch.empty((eu_rows, dim), dtype=out_dtype, device=dev)
     vec4 = int(dim % 4 == 0 and msg.data_ptr() % 16 == 0)
-    _launch("segment_sum", "sym_accum_fwd", msg.data_ptr(), rep.data_ptr(),
+    _launch(*_entry(out_dtype, "segment_sum", "sym_accum_fwd"),
+            msg.data_ptr(), rep.data_ptr(),
             offsets.data_ptr(), out.data_ptr(), eu_rows, dim, vec4,
             _stream(dev))
     sym_accum.launches += 1
@@ -657,7 +693,7 @@ class _SymBondConv(torch.autograd.Function):
                                                du2, rep, dest, offsets)
         msg = sym_msg(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2,
                       offsets)
-        out = sym_accum(msg, rep, dest, offsets, e.shape[0])
+        out = sym_accum(msg, rep, dest, offsets, e.shape[0], e.dtype)
         fused_sym_bond_conv.launches += 2
         return out
 
@@ -668,8 +704,9 @@ class _SymBondConv(torch.autograd.Function):
         on exactly its two pair destinations, so its cotangent is ``g[du1]
         + g[du2]`` (``2 g`` for a self-image pair, its forward double
         count)."""
-        (v, e, a_u, e_b, w, b, lns, lnb, ctr, du1, du2,
-         offs) = ctx.saved_tensors
+        *floats, ctr, du1, du2, offs = ctx.saved_tensors
+        v, e, a_u, e_b, w, b, lns, lnb = _upcast(floats)
+        (g,) = _upcast([g])
 
         def msgs(dense, edge, sl):
             vv, ee, eb, ww, bb, ss, oo = dense
@@ -688,7 +725,8 @@ class _SymBondConv(torch.autograd.Function):
             lambda sl: ref.gather_rows(g, du1[sl])
             + ref.gather_rows(g, du2[sl]),
             int(offs[-1]) // 2, ctx.chunk)
-        return (dv, de, da, deb, dw, db, dls, dlb) + (None,) * 7
+        return _cast_like((dv, de, da, deb, dw, db, dls, dlb), floats) \
+            + (None,) * 7
 
 
 def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
@@ -707,7 +745,9 @@ def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
     accepted for the callers of the earlier phase A kernel and no longer
     shapes its launch.  ``ctr = bond_center[und_angle_ij]``, ``du1 / du2 =
     bond_pair[und_angle_ij / und_angle_ik]``.  The backward recomputes
-    ``chunk`` dedup rows at a time and is twice differentiable.
+    ``chunk`` dedup rows at a time and is twice differentiable.  bf16
+    operands: phase A's messages are f32 and phase B rounds the sums to
+    bf16 once (``sym_msg``, ``sym_accum``).
     """
     return _SymBondConv.apply(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr,
                               du1, du2, rep, dest, offsets, chunk)
@@ -718,12 +758,13 @@ def fused_sym_bond_conv(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
 # ---------------------------------------------------------------------------
 
 def _force_checks(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
-                  num_atoms, ft=torch.float32):
+                  num_atoms, ft=torch.float32, xhat_dtype=None):
     n_edges, dim = e.shape
     dev, i32 = e.device, torch.int32
     _check_conv_dim(dim)
     for name, t, dt, shape in (
-            ("e", e, ft, (n_edges, dim)), ("x_hat", x_hat, ft, (n_edges, 3)),
+            ("e", e, ft, (n_edges, dim)),
+            ("x_hat", x_hat, xhat_dtype or ft, (n_edges, 3)),
             ("w1", w1, ft, (dim, dim)), ("b1", b1, ft, (dim,)),
             ("w2", w2, ft, (dim, 1)), ("b2", b2, ft, (1,)),
             ("bond_center", bond_center, i32, (n_edges,)),
@@ -812,16 +853,24 @@ def fused_force_readout(e, x_hat, w1, b1, w2, b2, bond_center, bond_offsets,
 
 def _force_virial_cuda(e, x_hat, dist, w1, b1, w2, b2, bond_center,
                        bond_crystal, bond_offsets, num_atoms, num_crystals):
-    plan = _force_checks(e, x_hat, w1, b1, w2, b2, bond_center,
-                         bond_offsets, num_atoms)
+    ft, f32 = _operand_dtype(e), torch.float32
+    if ft == torch.bfloat16:
+        # the kernel reads x_hat and dist in f32, as the JAX wrapper casts
+        # dist; widening bf16 is exact, and f32 ones pass as they are
+        x_hat = x_hat.float() if x_hat.dtype == ft else x_hat
+        dist = dist.float() if dist.dtype == ft else dist
     n_edges, dev = e.shape[0], e.device
-    _check("dist", dist, torch.float32, (n_edges,), dev)
+    _check("dist", dist, f32, (n_edges,), dev)
     _check("bond_crystal", bond_crystal, torch.int32, (n_edges,), dev)
-    out = torch.empty((num_atoms, 3), dtype=torch.float32, device=dev)
-    rows = torch.empty((num_atoms, 9), dtype=torch.float32, device=dev)
-    raw = torch.empty((num_crystals, 3, 3), dtype=torch.float32, device=dev)
+    plan = _force_checks(e, x_hat, w1, b1, w2, b2, bond_center,
+                         bond_offsets, num_atoms, ft, xhat_dtype=f32)
+    # the forces in the operand dtype; the row partials and raw stay f32
+    out = torch.empty((num_atoms, 3), dtype=ft, device=dev)
+    rows = torch.empty((num_atoms, 9), dtype=f32, device=dev)
+    raw = torch.empty((num_crystals, 3, 3), dtype=f32, device=dev)
     stream = _stream(dev)
-    _launch(_LIB, "force_virial_fwd", e.data_ptr(), x_hat.data_ptr(),
+    _launch(*_entry(ft, _LIB, "force_virial_fwd"), e.data_ptr(),
+            x_hat.data_ptr(),
             dist.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), bond_offsets.data_ptr(), out.data_ptr(),
             rows.data_ptr(), num_atoms, e.shape[1], plan.grid, plan.t,
@@ -852,8 +901,10 @@ class _ForceVirial(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_f, g_s):
-        (e, x_hat, dist, w1, b1, w2, b2, center, crystal,
-         offs) = ctx.saved_tensors
+        *floats, center, crystal, offs = ctx.saved_tensors
+        e, x_hat, dist, w1, b1, w2, b2 = _upcast(floats)
+        # the stress cotangent is f32, as raw is
+        (g_f,) = _upcast([g_f])
         c, cr = center.long(), crystal.long()
         g_s = g_s.reshape(ctx.num_crystals, 9)
 
@@ -868,7 +919,8 @@ class _ForceVirial(torch.autograd.Function):
             contribs, [w1, b1, w2, b2], [e, x_hat, dist],
             [nig[3], nig[4], nig[5], nig[6], nig[0], nig[1], nig[2]],
             lambda sl: (g_f[c[sl]], g_s[cr[sl]]), int(offs[-1]), ctx.chunk)
-        return (de, dxh, dd, dw1, db1, dw2, db2) + (None,) * 6
+        return _cast_like((de, dxh, dd, dw1, db1, dw2, db2), floats) \
+            + (None,) * 6
 
 
 def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
@@ -889,8 +941,10 @@ def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
     not have: every real bond of an atom row carries the crystal of the
     row's first bond, as a bond lies in its center atom's crystal
     (``bond_crystal[b]`` is ``atom_crystal[bond_center[b]]``);
-    ``batching.validate_layout`` checks it.  ``block_rows`` is accepted and
-    unused, as in ``fused_force_readout``.  Volume normalization and units
+    ``batching.validate_layout`` checks it.  bf16 operands: the forces are
+    bf16, rounded once, ``raw`` stays f32; x_hat and ``dist`` may be f32
+    or bf16 (read in f32).  ``block_rows`` is accepted and unused, as in
+    ``fused_force_readout``.  Volume normalization and units
     live in ``core.heads``.  The backward takes both cotangents, the force
     one gathered through ``bond_center`` and the stress one through
     ``bond_crystal``.
@@ -906,18 +960,20 @@ def fused_force_virial_readout(e, x_hat, dist, w1, b1, w2, b2, bond_center,
 
 def _segment_sum_cuda(values, segment_ids, offsets, num_segments):
     n_edges, dim = values.shape
-    dev, f32, i32 = values.device, torch.float32, torch.int32
+    dev, ft, i32 = values.device, _operand_dtype(values), torch.int32
     for name, t, dt, shape in (
-            ("values", values, f32, (n_edges, dim)),
+            ("values", values, ft, (n_edges, dim)),
             ("segment_ids", segment_ids, i32, (n_edges,)),
             ("offsets", offsets, i32, (num_segments + 1,))):
         _check(name, t, dt, shape, dev)
-    out = torch.empty((num_segments, dim), dtype=f32, device=dev)
-    # 16-byte loads where rows are whole float4s (not the force head's D=3)
-    vec4 = int(dim % 4 == 0 and values.data_ptr() % 16 == 0)
-    _launch("segment_sum", "segment_sum_fwd", values.data_ptr(),
-            offsets.data_ptr(), out.data_ptr(), num_segments, dim, vec4,
-            _stream(dev))
+    out = torch.empty((num_segments, dim), dtype=ft, device=dev)
+    # 16-byte loads where rows are whole 16-byte groups (4 floats or 8
+    # bf16; not the force head's D = 3)
+    vec = int(dim % (16 // values.element_size()) == 0
+              and values.data_ptr() % 16 == 0)
+    _launch(*_entry(ft, "segment_sum", "segment_sum_fwd"),
+            values.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            num_segments, dim, vec, _stream(dev))
     fused_segment_sum.launches += 1
     return out
 
@@ -953,8 +1009,9 @@ def fused_segment_sum(values, segment_ids, offsets, num_segments: int):
     Requires the sorted-segment layout (DESIGN.md §1): real edges sorted
     by ``segment_ids`` with CSR ``offsets`` of shape (num_segments + 1,),
     ``offsets[-1]`` the number of real edges; the padded tail past it is
-    never read.  Any width D >= 1 (the force head reduces D = 3).  The
-    backward is the gather ``g[segment_ids]`` over the real edges.
+    never read.  Any width D >= 1 (the force head reduces D = 3).  f32 or
+    bf16 values (summed in f32, rounded once).  The backward is the gather
+    ``g[segment_ids]`` over the real edges, in g's dtype.
     """
     return _SegmentSum.apply(values, segment_ids, offsets, num_segments)
 
@@ -962,24 +1019,58 @@ def fused_segment_sum(values, segment_ids, offsets, num_segments: int):
 # output widths D the GatedMLP kernel is built for (its accumulators are
 # 2D / 8 tiles of 8 columns); any d_in
 GATED_MLP_WIDTHS = (8, 16, 32, 64, 128)
+# csrc/gated_mlp.cu: 8 warps a block, one block a SM, x chunks of 64
+# columns, two cp.async stages
+_MLP_WARPS, _MLP_KC, _MLP_STAGES = 8, 64, 2
+
+
+class MlpPlan(NamedTuple):
+    """One launch of the GatedMLP kernel (``csrc/gated_mlp.cu``)."""
+    tm: int     # rows a tile
+    grid: int   # persistent blocks, one a SM at most
+    smem: int   # dynamic shared memory of a block, bytes
+
+
+def gated_mlp_plan(dim: int, m: int, sms: int,
+                   itemsize: int = 4) -> MlpPlan:
+    """The GatedMLP kernel's launch geometry, which the kernel checks
+    (``tm``, ``smem``): tiles of 256 rows (two m16 tiles a warp; 128 rows
+    at D = 128), a stage of x's 64 columns at a row stride of 72 elements
+    and W's 64 rows at 2D elements and 16 bytes, two stages, then the
+    bias and LayerNorm parameters in f32; ``itemsize`` 4 (split f32) or 2
+    (bf16)."""
+    if dim not in GATED_MLP_WIDTHS or itemsize not in (2, 4):
+        raise ValueError(f"no GatedMLP kernel for D = {dim} at operands of "
+                         f"{itemsize} bytes")
+    tm = _MLP_WARPS * 16 * (2 if dim <= 64 else 1)
+    stage = tm * (_MLP_KC + 8) + _MLP_KC * (2 * dim + 16 // itemsize)
+    smem = itemsize * _MLP_STAGES * stage + 4 * 6 * dim
+    return MlpPlan(tm, max(1, min(sms, -(-m // tm))), smem)
 
 
 def _gated_mlp_cuda(x, w, b, ln_scale, ln_bias):
     m, d_in = x.shape
     dim = w.shape[1] // 2
-    dev, f32 = x.device, torch.float32
+    dev, ft, f32 = x.device, _operand_dtype(x), torch.float32
     if w.shape[1] % 2 or dim not in GATED_MLP_WIDTHS:
         raise ValueError(f"packed width {w.shape[1]}: the CUDA kernel takes "
                          f"D = width / 2 in {GATED_MLP_WIDTHS}")
-    for name, t, shape in (
-            ("x", x, (m, d_in)), ("w", w, (d_in, 2 * dim)),
-            ("b", b, (2 * dim,)), ("ln_scale", ln_scale, (2 * dim,)),
-            ("ln_bias", ln_bias, (2 * dim,))):
-        _check(name, t, f32, shape, dev)
-    out = torch.empty((m, dim), dtype=f32, device=dev)
-    _launch("gated_mlp", "gated_mlp_fwd", x.data_ptr(), w.data_ptr(),
-            b.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            out.data_ptr(), m, d_in, dim, _stream(dev))
+    if ft == torch.bfloat16:
+        # the kernel reads the LayerNorm parameters in f32, as the JAX
+        # kernel widens them; bf16 ones are widened here (exactly)
+        ln_scale = ln_scale.float() if ln_scale.dtype == ft else ln_scale
+        ln_bias = ln_bias.float() if ln_bias.dtype == ft else ln_bias
+    for name, t, dt, shape in (
+            ("x", x, ft, (m, d_in)), ("w", w, ft, (d_in, 2 * dim)),
+            ("b", b, ft, (2 * dim,)), ("ln_scale", ln_scale, f32, (2 * dim,)),
+            ("ln_bias", ln_bias, f32, (2 * dim,))):
+        _check(name, t, dt, shape, dev)
+    out = torch.empty((m, dim), dtype=ft, device=dev)
+    plan = gated_mlp_plan(dim, m, _sm_count(dev.index), x.element_size())
+    _launch(*_entry(ft, "gated_mlp", "gated_mlp_fwd"), x.data_ptr(),
+            w.data_ptr(), b.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), out.data_ptr(), m, d_in, dim, plan.grid,
+            plan.tm, plan.smem, _stream(dev))
     fused_gated_mlp_packed.launches += 1
     return out
 
@@ -991,12 +1082,14 @@ class _GatedMLP(torch.autograd.Function):
         ctx.save_for_backward(x, w, b, ln_scale, ln_bias)
         ctx.chunk = chunk or _default_chunk(x.shape[1])
         if x.device.type == "cpu":
-            return ref.gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias)
+            return ref.fused_gated_mlp_ref(x, w, b, ln_scale, ln_bias)
         return _gated_mlp_cuda(x, w, b, ln_scale, ln_bias)
 
     @staticmethod
     def backward(ctx, g):
-        x, w, b, lns, lnb = ctx.saved_tensors
+        floats = ctx.saved_tensors
+        x, w, b, lns, lnb = _upcast(floats)
+        (g,) = _upcast([g])
 
         def mlp(dense, edge, sl):
             return ref.gated_mlp_packed_ref(edge[0], *dense)
@@ -1006,7 +1099,7 @@ class _GatedMLP(torch.autograd.Function):
             mlp, [w, b, lns, lnb], [x],
             [nig[1], nig[2], nig[3], nig[4], nig[0]],
             lambda sl: g[sl], x.shape[0], ctx.chunk)
-        return dx, dw, db, dls, dlb, None
+        return _cast_like((dx, dw, db, dls, dlb), floats) + (None,)
 
 
 def fused_gated_mlp_packed(x, w, b, ln_scale, ln_bias, *,
@@ -1014,8 +1107,10 @@ def fused_gated_mlp_packed(x, w, b, ln_scale, ln_bias, *,
     """CHGNet GatedMLP from packed parameters: (M, d_in) -> (M, D),
     ``silu(LN(x Wc + bc)) * sigmoid(LN(x Wg + bg))`` with ``w = [Wc ‖ Wg]``
     (d_in, 2D) and ``b`` / ``ln_*`` packed [core ‖ gate] (2D,).  Every row
-    is computed.  The backward recomputes ``chunk`` rows at a time
-    (default: sized by ``CHUNK_BYTES``) through the plain version."""
+    is computed.  f32 or bf16 x, w and b (the LayerNorm parameters f32 or
+    x's dtype): f32 inside, the output in x's dtype, rounded once.  The
+    backward recomputes ``chunk`` rows at a time (default: sized by
+    ``CHUNK_BYTES``) in f32 through the plain version."""
     return _GatedMLP.apply(x, w, b, ln_scale, ln_bias, chunk)
 
 
@@ -1398,7 +1493,15 @@ for _fn in WRAPPERS:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    _ENTRY_LAUNCHES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def entry_launch_counts() -> dict[str, int]:
+    """Launches by C entry point (``segment_sum_fwd``,
+    ``segment_sum_bf16_fwd``, ...) since the last ``reset_launch_counts``,
+    only the entries launched."""
+    return dict(_ENTRY_LAUNCHES)

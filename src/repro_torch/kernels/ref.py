@@ -6,12 +6,15 @@ are the yardstick the CUDA kernels are held against.  The reductions use
 ``index_add_``, which on CUDA uses atomics: fine for a yardstick of
 correctness, never used by a kernel.
 
-The convs and the force readout (kernels 2, 3 and 4a) also take bf16
-operands, as the JAX kernels do in interpret mode: every operand is
-widened to f32 (exactly), the GEMM, both LayerNorms, the gate, the
-envelopes and the sums run in f32, and the result is rounded to the
-operand dtype once, at the end (not ``gated_mlp_packed_ref`` run in bf16,
-which would round after every op).
+Every kernel of the CHGNet path also takes bf16 operands, as the JAX
+kernels do in interpret mode: every operand is widened to f32 (exactly),
+the GEMM, both LayerNorms, the gate, the envelopes and the sums run in
+f32, and the result is rounded to the operand dtype once, at the end (not
+``gated_mlp_packed_ref`` run in bf16, which would round after every op).
+The symmetric bond conv's two phases differ: phase A rounds its GEMM
+input e[du1] + e[du2] to bf16 once, adds the two e weight blocks in bf16
+and returns f32 messages; phase B sums them in f32 and rounds once.  The
+force + virial readout rounds only the forces; its virial stays f32.
 """
 from __future__ import annotations
 
@@ -76,11 +79,13 @@ def sorted_segment_sum_ref(values, seg_ids, offsets, num_segments):
     (whatever its segment ids) contributes nothing: it is zeroed before
     the scatter-add.
     """
+    dtype = values.dtype
+    (values,) = _widen(values)
     valid = torch.arange(values.shape[0], device=values.device) \
         < offsets[num_segments]
     v = torch.where(valid[:, None], values,
                     torch.zeros((), dtype=values.dtype, device=values.device))
-    return _segment_sum(v, seg_ids, num_segments)
+    return _segment_sum(v, seg_ids, num_segments).to(dtype)
 
 
 def gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias):
@@ -90,6 +95,15 @@ def gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias):
     core = _layer_norm(y[..., :d], ln_scale[:d], ln_bias[:d])
     gate = _layer_norm(y[..., d:], ln_scale[d:], ln_bias[d:])
     return F.silu(core) * torch.sigmoid(gate)
+
+
+def fused_gated_mlp_ref(x, w, b, ln_scale, ln_bias):
+    """The GatedMLP kernel's plain version: ``gated_mlp_packed_ref`` in f32
+    on the widened operands, rounded to x's dtype once (bf16 x, w and b;
+    the LayerNorm parameters f32 or bf16).  The same values as
+    ``gated_mlp_packed_ref`` on f32 operands."""
+    dtype = x.dtype
+    return gated_mlp_packed_ref(*_widen(x, w, b, ln_scale, ln_bias)).to(dtype)
 
 
 def gather_rows(table, ids):
@@ -174,19 +188,34 @@ def sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2):
     dedup angle row w, ``phi([v[ctr] | e_s | e_s | a_u[w]]) * e_b[du1] *
     e_b[du2]`` with the swap-symmetric ``e_s = e[du1] + e[du2]`` -> (Au, D).
     Every row is computed; rows past the real prefix are finite values
-    that phase B never reads."""
-    e_s = gather_rows(e, du1) + gather_rows(e, du2)
-    x = torch.cat([gather_rows(v, ctr), e_s, e_s, a_u], dim=-1)
-    return gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) \
+    that phase B never reads.
+
+    bf16 operands, as the JAX kernel reads them: the messages are f32; the
+    GEMM runs at K = 3D against [W1 | W2 + W3 | W4], the two e blocks
+    added in bf16, on [v[ctr] | e_s | a_u] with e_s summed in f32 and
+    rounded to bf16 once."""
+    if v.dtype != torch.bfloat16:
+        e_s = gather_rows(e, du1) + gather_rows(e, du2)
+        x = torch.cat([gather_rows(v, ctr), e_s, e_s, a_u], dim=-1)
+        return gated_mlp_packed_ref(x, w, b, ln_scale, ln_bias) \
+            * gather_rows(e_b, du1) * gather_rows(e_b, du2)
+    d = v.shape[1]
+    w23 = torch.cat([w[:d], w[d:2 * d] + w[2 * d:3 * d], w[3 * d:]])
+    v, e, a_u, e_b, w23, b, ln_scale, ln_bias = _widen(
+        v, e, a_u, e_b, w23, b, ln_scale, ln_bias)
+    e_s = (gather_rows(e, du1) + gather_rows(e, du2)).bfloat16().float()
+    x = torch.cat([gather_rows(v, ctr), e_s, a_u], dim=-1)
+    return gated_mlp_packed_ref(x, w23, b, ln_scale, ln_bias) \
         * gather_rows(e_b, du1) * gather_rows(e_b, du2)
 
 
-def sym_accum_ref(msg, rep, dest, offsets, eu_rows):
+def sym_accum_ref(msg, rep, dest, offsets, eu_rows, out_dtype=None):
     """Phase B: ``out[u] = sum of msg[rep[t]]`` over u's incidences t in
     ``[offsets[u], offsets[u+1])`` -> (Eu, D); the padded incidences past
-    ``offsets[-1]`` (rep 0, a real row) add nothing."""
+    ``offsets[-1]`` (rep 0, a real row) add nothing.  The f32 sums are
+    rounded to ``out_dtype`` (default: msg's) once."""
     incid = _mask_real_edges(gather_rows(msg, rep), offsets)
-    return _segment_sum(incid, dest, eu_rows)
+    return _segment_sum(incid, dest, eu_rows).to(out_dtype or msg.dtype)
 
 
 def fused_sym_bond_conv_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
@@ -196,7 +225,7 @@ def fused_sym_bond_conv_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias,
     bond twice for a self-image pair) through the dest-sorted incidence
     store."""
     msg = sym_msg_ref(v, e, a_u, e_b, w, b, ln_scale, ln_bias, ctr, du1, du2)
-    return sym_accum_ref(msg, rep, dest, offsets, e.shape[0])
+    return sym_accum_ref(msg, rep, dest, offsets, e.shape[0], e.dtype)
 
 
 def fused_force_readout_ref(e, x_hat, w1, b1, w2, b2, bond_center, offsets,
@@ -221,8 +250,12 @@ def fused_force_virial_readout_ref(e, x_hat, dist, w1, b1, w2, b2,
 
         raw_c = sum_{ij in c} n_ij d_ij x_hat_ij ⊗ x_hat_ij   (B, 3, 3) f32.
 
-    Volume normalization and units live in ``core.heads``.
+    Volume normalization and units live in ``core.heads``.  bf16
+    operands: f32 inside (a bf16 ``dist`` widened), the forces rounded to
+    bf16 once, ``raw`` f32.
     """
+    dtype = e.dtype
+    e, x_hat, dist, w1, b1, w2, b2 = _widen(e, x_hat, dist, w1, b1, w2, b2)
     h = F.silu(e @ w1 + b1)
     n = (h @ w2 + b2)[..., 0]
     contrib = _mask_real_edges(n[:, None] * x_hat, offsets)
@@ -230,7 +263,7 @@ def fused_force_virial_readout_ref(e, x_hat, dist, w1, b1, w2, b2,
     outer = (x_hat[:, :, None] * x_hat[:, None, :]).reshape(-1, 9)
     s_contrib = _mask_real_edges((n * dist)[:, None] * outer, offsets)
     raw = _segment_sum(s_contrib, bond_crystal, num_crystals)
-    return forces, raw.reshape(-1, 3, 3)
+    return forces.to(dtype), raw.reshape(-1, 3, 3)
 
 
 def swiglu_act(g, activation: str):

@@ -68,7 +68,6 @@ from repro_torch.core.chgnet import (
     CHGNetConfig,
     chgnet_apply,
     chgnet_init,
-    check_supported,
     resolve_device,
 )
 from repro_torch.core.graph import CrystalGraphBatch
@@ -476,7 +475,6 @@ class Trainer:
                  seed: int = 0, device=None, mesh: DataMesh | None = None,
                  ckpt_dir: str | None = None, ckpt_every: int = 100,
                  keep: int = 3, async_ckpt: bool = False, shutdown=None):
-        check_supported(model_cfg)
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's "

@@ -134,20 +134,6 @@ def test_every_config_is_mirrored():
         CHGNetConfig(bond_features="undirected")
 
 
-# the mixed tiers whose CUDA kernels have no bf16 path yet (kernels 1
-# and 7, 5 and 6, 4b); FAST_MIXED, FAST_FUSED_MIXED and
-# FAST_FUSED_HALF_MIXED run (tests/test_torch_precision.py)
-@pytest.mark.parametrize("cfg,item", [
-    (TC.FAST_FS_HEAD.with_(mlp_impl="pallas", agg_impl="pallas",
-                           precision="mixed"), "next slice"),
-    (TC.FAST_FUSED_SYM.with_(precision="mixed"), "next slice"),
-    (TC.FAST_FUSED_VIRIAL.with_(precision="mixed"), "next slice"),
-])
-def test_unported_tiers_fail_loudly(cfg, item):
-    with pytest.raises(NotImplementedError, match=item):
-        CHGNet(cfg, device="cpu")
-
-
 def test_pallas_aggregation_needs_offsets():
     from repro_torch.core.interaction import segment_aggregate
 

@@ -5,12 +5,14 @@ the CPU, mirroring tests/test_precision.py at its §4 bounds (forward within
 
 Covers: policy resolution; the port at ``precision="mixed"`` against JAX
 at ``"mixed"`` (forward and every gradient) and against the port at f32,
-at the tiers of test_precision.py's matrix whose kernels have a bf16 path
-(and FAST_FUSED_HALF_MIXED); the tiers whose kernels do not yet raise
-when the model is built; the features reaching the convs and the force
-readout are bf16; the bf16 operands of kernels 2, 3 and 4a against the
-JAX wrappers (forward within one bf16 rounding, backward against the
-custom VJPs); the dynamic loss scaler; a step on non-finite gradients
+at the tiers of test_precision.py's matrix (and FAST_FUSED_HALF_MIXED;
+the unfused Pallas tier, FAST_FUSED_SYM and FAST_FUSED_VIRIAL are in
+test_torch_bf16_tiers.py); the features reaching the convs and every
+kernel of those tiers are bf16 (kernel 6's messages f32); the bf16
+operands of kernels 1, 2, 3, 4a, 4b, 5 + 6 and 7 against the JAX wrappers
+(forward within one bf16 rounding, backward against the custom VJPs);
+the wrappers refuse a call whose operands mix dtypes; the dynamic loss
+scaler; a step on non-finite gradients
 skips the whole update; bf16 parameters keep f32 master weights; the loss
 descends under ``"mixed"``; the serve engine's ``precision=`` override;
 bf16 parameter trees through ``convert``.  The port runs its plain
@@ -50,6 +52,7 @@ from repro_torch.core.chgnet import chgnet_init  # noqa: E402
 from repro_torch.core.losses import LossWeights, chgnet_loss  # noqa: E402
 from repro_torch.data import BatchIterator, SyntheticConfig, make_dataset  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import trainer as ttrain  # noqa: E402
@@ -213,65 +216,100 @@ def test_mixed_matches_f32(batches, params, tier):
     _assert_grads_close([g.numpy() for g in g_mx], [g.numpy() for g in g_32])
 
 
-@pytest.mark.parametrize("cfg", [
-    TC.FAST_FS_HEAD.with_(mlp_impl="pallas", agg_impl="pallas"),
-    TC.FAST_FUSED_SYM, TC.FAST_FUSED_VIRIAL,
-], ids=["pallas-pallas-unfused", "FAST_FUSED_SYM", "FAST_FUSED_VIRIAL"])
-def test_tiers_without_bf16_kernels_raise(batches, cfg):
-    """At "mixed" the tiers whose CUDA kernels take f32 only (1 and 7, 5
-    and 6, 4b) raise naming the next slice, when the model is built and
-    when it is applied: none gives a result silently."""
-    _, tb = batches
-    cfg = cfg.with_(**SMALL, precision="mixed")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        CHGNet(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        chgnet_apply(chgnet_init(0, cfg.with_(precision="f32")), cfg, tb)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttrain.Trainer(cfg, ttrain.TrainConfig(), device="cpu")
+# the tiers whose kernels gained bf16 paths (1 and 7, 5 and 6, 4b), beside
+# TIERS: (id, config)
+NEW_TIERS = {
+    "pallas-pallas-unfused-directed": CHGNetConfig(
+        **SMALL, mlp_impl="pallas", agg_impl="pallas"),
+    "FAST_FUSED_SYM": TC.FAST_FUSED_SYM.with_(**SMALL),
+    "FAST_FUSED_VIRIAL": TC.FAST_FUSED_VIRIAL.with_(**SMALL),
+}
+FEATURE_TIERS = {"-".join(t): _tier(CHGNetConfig, t, "f32") for t in TIERS}
+FEATURE_TIERS.update(NEW_TIERS)
 
 
-@pytest.mark.parametrize("tier", TIERS, ids=["-".join(t) for t in TIERS])
+@pytest.mark.parametrize("tier", list(FEATURE_TIERS))
 def test_trunk_features_are_bf16(batches, params, tier, monkeypatch):
     """At "mixed" every conv receives bf16 features (v, e, a, e_a, e_b: a
-    bf16 feature times an f32 mask would silently be f32) and, on the
-    fused tiers, every float operand of kernels 2, 3 and 4a is bf16."""
+    bf16 feature times an f32 mask would silently be f32) and every float
+    operand of the tier's kernels is bf16: 2, 3 and 4a on the fused tiers,
+    1 (the segment sum) and 7 (the GatedMLP, its LayerNorm parameters
+    excepted) on the unfused Pallas tier, 5 (the symmetric conv's phase A)
+    on FAST_FUSED_SYM, whose phase B (kernel 6) receives the f32 messages
+    and rounds to bf16, and 4b on FAST_FUSED_VIRIAL (its distances f32, as
+    the JAX wrapper reads them)."""
     _, tb = batches
     _, tp = params
+    cfg = FEATURE_TIERS[tier].with_(precision="mixed")
     seen = []
 
-    def spy(fn, name, first, count=None):
+    def spy(fn, name, first, count=None, skip=()):
         def wrapped(*args, **kw):
-            floats = [a for a in args[first:first + count if count else None]
-                      if torch.is_tensor(a) and a.is_floating_point()]
+            floats = [a for i, a in enumerate(
+                args[first:first + count if count else None])
+                if torch.is_tensor(a) and a.is_floating_point()
+                and i not in skip]
             seen.append((name, [a.dtype for a in floats]))
             return fn(*args, **kw)
         return wrapped
 
+    sym = cfg.bond_features == "undirected"
     atom = spy(interaction.atom_conv, "atom_conv", 2, 3)  # v, e, e_a
     monkeypatch.setattr(interaction, "atom_conv", atom)
     monkeypatch.setattr(tchgnet, "atom_conv", atom)  # the final atom conv
-    monkeypatch.setattr(interaction, "bond_conv",  # v, e, a, e_b
-                        spy(interaction.bond_conv, "bond_conv", 2, 4))
-    for name in ("fused_atom_conv", "fused_bond_conv", "fused_force_readout"):
+    bond = "sym_bond_conv" if sym else "bond_conv"
+    monkeypatch.setattr(interaction, bond,  # v, e, a, e_b
+                        spy(getattr(interaction, bond), bond, 2, 4))
+    for name in ("fused_atom_conv", "fused_bond_conv", "fused_force_readout",
+                 "fused_sym_bond_conv", "fused_segment_sum"):
         monkeypatch.setattr(tops, name, spy(getattr(tops, name), name, 0))
+    # the GatedMLP's x, w, b (its LayerNorm parameters are the f32 tree's)
+    monkeypatch.setattr(tops, "fused_gated_mlp_packed", spy(
+        tops.fused_gated_mlp_packed, "fused_gated_mlp_packed", 0, 3))
+    # 4b: every float but the f32 distances (argument 2)
+    monkeypatch.setattr(tops, "fused_force_virial_readout", spy(
+        tops.fused_force_virial_readout, "fused_force_virial_readout", 0,
+        skip=(2,)))
+    # kernels 5 and 6 as the CPU path reaches them, through their plain
+    # versions: phase A's operands bf16; phase B's f32 messages, the
+    # output dtype bf16
+    monkeypatch.setattr(tref, "sym_msg_ref",
+                        spy(tref.sym_msg_ref, "sym_msg", 0))
+    msgs = []
+
+    def accum(msg, *args):
+        msgs.append((msg.dtype, args[-1]))
+        return accum_ref(msg, *args)
+
+    accum_ref = tref.sym_accum_ref
+    monkeypatch.setattr(tref, "sym_accum_ref", accum)
     with torch.no_grad():
-        out = chgnet_apply(tp, _tier(CHGNetConfig, tier, "mixed"), tb)
+        out = chgnet_apply(tp, cfg, tb)
     calls = {}
     for name, dtypes in seen:
         calls[name] = calls.get(name, 0) + 1
         assert dtypes and all(d == BF16 for d in dtypes), (name, dtypes)
     blocks = SMALL["num_blocks"]
-    want = {"atom_conv": blocks + 1, "bond_conv": blocks}
-    if tier[2] == "fused":
-        want.update(fused_atom_conv=blocks + 1, fused_bond_conv=blocks,
-                    fused_force_readout=1)
+    want = {"atom_conv": blocks + 1, bond: blocks}
+    if cfg.conv_impl == "fused":
+        want.update(fused_atom_conv=blocks + 1)
+        if sym:
+            want.update(fused_sym_bond_conv=blocks, sym_msg=blocks)
+        else:
+            want.update(fused_bond_conv=blocks)
+        want["fused_force_virial_readout" if cfg.stress_mode == "bond_virial"
+             else "fused_force_readout"] = 1
+    if cfg.mlp_impl == "pallas":
+        # the 3 convs a block and the final atom conv; the force head's sum
+        want.update(fused_gated_mlp_packed=3 * blocks + 1,
+                    fused_segment_sum=2 * blocks + 2)
     assert calls == want
+    assert msgs == [(torch.float32, BF16)] * (blocks if sym else 0)
     assert all(v.dtype == torch.float32 for v in out.values())
 
 
 # ---------------------------------------------------------------------------
-# op level: kernels 2, 3 and 4a on bf16 operands
+# op level: kernels 1, 2, 3, 4a, 4b, 5 + 6 and 7 on bf16 operands
 # ---------------------------------------------------------------------------
 
 def _sorted_edges(rng, num_edges, num_segments, n_real):
@@ -292,11 +330,45 @@ def _mlp(rng, d_in, d):
             _f(rng, 2 * d, scale=.1))
 
 
+def _sym_case(rng, d, a_rows, eu, au, n_real):
+    """The symmetric bond conv's operands on a padded tail: ``au`` dedup
+    rows, the first ``n_real`` real, a seventh self-image pairs, their
+    incidences sorted by destination into the (Eu + 1,) offsets."""
+    du1 = rng.integers(0, eu - 1, au).astype(np.int32)
+    du2 = rng.integers(0, eu - 1, au).astype(np.int32)
+    du2[:n_real // 7] = du1[:n_real // 7]
+    du1[n_real:] = du2[n_real:] = 0
+    dest = np.concatenate([du1[:n_real], du2[:n_real]])
+    rep = np.concatenate([np.arange(n_real, dtype=np.int32)] * 2)
+    order = np.argsort(dest, kind="stable")
+    sym_dest = np.zeros(2 * au, np.int32)
+    sym_rep = np.zeros(2 * au, np.int32)
+    sym_dest[:2 * n_real] = dest[order]
+    sym_rep[:2 * n_real] = rep[order]
+    offs = np.searchsorted(sym_dest[:2 * n_real],
+                           np.arange(eu + 1)).astype(np.int32)
+    floats = [_f(rng, a_rows, d), _f(rng, eu, d), _f(rng, au, d),
+              _f(rng, eu, d)] + list(_mlp(rng, 4 * d, d))
+    ints = [rng.integers(0, a_rows, au).astype(np.int32), du1, du2,
+            sym_rep, sym_dest, offs]
+    return "fused_sym_bond_conv", floats, ints, {}
+
+
 def _op_case(kind):
-    """(JAX wrapper, port wrapper, float operands, the other arguments,
-    keyword arguments) of one kernel on a padded tail."""
+    """(wrapper name, float operands, the other arguments, keyword
+    arguments) of one kernel on a padded tail."""
     rng = np.random.default_rng(11)
     d, a_rows, eu = 16, 12, 70
+    if kind.startswith("segment_sum"):
+        width = 3 if kind == "segment_sum[D=3]" else d
+        seg, offs = _sorted_edges(rng, 160, a_rows, 140)
+        return "fused_segment_sum", [_f(rng, 160, width)], \
+            [seg, offs, a_rows], {}
+    if kind == "gated_mlp":
+        return "fused_gated_mlp_packed", [_f(rng, 150, 3 * d)] \
+            + list(_mlp(rng, 3 * d, d)), [], {}
+    if kind == "sym":
+        return _sym_case(rng, d, a_rows, eu, 90, 75)
     if kind.startswith("atom"):
         e_rows, n_real = 160, 140
         seg, offs = _sorted_edges(rng, e_rows, a_rows, n_real)
@@ -327,11 +399,20 @@ def _op_case(kind):
     floats = [_f(rng, e_rows, d), xh, _f(rng, d, d, scale=d ** -0.5),
               _f(rng, d, scale=.1), _f(rng, d, 1, scale=d ** -0.5),
               _f(rng, 1, scale=.1)]
+    if kind == "force_virial":
+        # crystals own contiguous atom ranges; slot 2 stays empty
+        atom_cry = np.sort(rng.choice([0, 1, 3], a_rows)).astype(np.int32)
+        cry = atom_cry[seg]
+        cry[n_real:] = 0
+        dist = rng.uniform(.8, 3., e_rows).astype(np.float32)
+        return "fused_force_virial_readout", floats[:2] + [dist] \
+            + floats[2:], [seg, cry, offs, a_rows, 4], {}
     return "fused_force_readout", floats, [seg, offs, a_rows], {}
 
 
 OP_CASES = ["atom", "atom[pair]", "atom[pair+und]", "bond", "bond[pair]",
-            "force"]
+            "force", "segment_sum[D=16]", "segment_sum[D=3]", "gated_mlp",
+            "sym", "force_virial"]
 
 
 def _j(x):
@@ -344,12 +425,14 @@ def _t(x):
 
 @pytest.mark.parametrize("kind", OP_CASES)
 def test_bf16_kernel_operands_match_jax(kind):
-    """Kernels 2 (directed, pair, pair + und), 3 (directed, pair) and 4a
-    on bf16 operands: the port's wrapper (its plain version here: f32
-    inside, rounded once) against the JAX wrapper (the Pallas kernel in
-    interpret mode) on the same bf16 inputs, within one bf16 rounding of
-    the output; the backward (the recompute in f32, cotangents cast to the
-    operands' bf16) against JAX's custom VJP at the §4 gradient bound."""
+    """Kernels 2 (directed, pair, pair + und), 3 (directed, pair), 4a, 1
+    (D = 16 and the force head's D = 3), 7, 5 + 6 (the symmetric bond
+    conv) and 4b on bf16 operands: the port's wrapper (its plain version
+    here: f32 inside, rounded once) against the JAX wrapper (the Pallas
+    kernel in interpret mode) on the same bf16 inputs, within one bf16
+    rounding of the output (4b: the bf16 forces and the f32 virial sums);
+    the backward (the recompute in f32, cotangents cast to the operands'
+    bf16) against JAX's custom VJP at the §4 gradient bound."""
     name, floats, ints, kw = _op_case(kind)
     jf = [jnp.asarray(x, jnp.bfloat16) for x in floats]
     tf = [torch.from_numpy(x).to(BF16).requires_grad_() for x in floats]
@@ -361,45 +444,86 @@ def test_bf16_kernel_operands_match_jax(kind):
 
     want, vjp = jax.vjp(jfn, *jf)
     got = getattr(tops, name)(*tf, *map(_t, ints), **tkw)
-    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
-    want32 = np.asarray(want, np.float32)
-    err = np.abs(got.detach().float().numpy() - want32).max()
-    assert err <= BF16_TOL * max(1.0, np.abs(want32).max()), err
-    r = np.random.default_rng(5).normal(0, 1, want.shape).astype(np.float32)
-    jgrads = vjp(jnp.asarray(r, jnp.bfloat16))
+    # 4b: the forces in the operands' bf16, the virial sums f32
+    wants, gots = (want, got) if isinstance(got, tuple) else ((want,), (got,))
+    dtypes = [BF16, torch.float32][:len(gots)]
+    assert [g.dtype for g in gots] == dtypes
+    assert [w.dtype for w in wants] == [jnp.bfloat16, jnp.float32][
+        :len(wants)]
+    rng = np.random.default_rng(5)
+    rs = []
+    for g, w, dt in zip(gots, wants, dtypes):
+        want32 = np.asarray(w, np.float32)
+        err = np.abs(g.detach().float().numpy() - want32).max()
+        assert err <= BF16_TOL * max(1.0, np.abs(want32).max()), err
+        rs.append(torch.from_numpy(
+            rng.normal(0, 1, w.shape).astype(np.float32)).to(dt))
+    jr = [jnp.asarray(r.float().numpy(), w.dtype) for r, w in zip(rs, wants)]
+    jgrads = vjp(tuple(jr) if isinstance(got, tuple) else jr[0])
     tgrads = torch.autograd.grad(
-        (got.float() * torch.from_numpy(r).to(BF16).float()).sum(), tf)
+        sum((g.float() * r.float()).sum() for g, r in zip(gots, rs)), tf)
     assert all(g.dtype == BF16 for g in tgrads)
     _assert_grads_close([g.float().numpy() for g in tgrads],
                         [np.asarray(g, np.float32) for g in jgrads])
 
 
-@pytest.mark.parametrize("kind", ["atom", "bond", "force"])
+def _cuda_call(kind, floats, ints, kw):
+    """The card's entry of ``kind``'s wrapper (its checks run on any
+    device) and its arguments."""
+    name = _op_case(kind)[0]
+    args = list(floats) + [_t(x) for x in ints]
+    if name == "fused_atom_conv":
+        return tops._atom_conv_cuda, args + [_t(kw.get("pair")), False]
+    if name == "fused_bond_conv":
+        return tops._bond_conv_cuda, args + [args[8], args[9], False]
+    if name == "fused_sym_bond_conv":  # phase A: its ids and offsets
+        return tops._sym_msg_cuda, args[:11] + [args[-1]]
+    return {"fused_force_readout": tops._force_readout_cuda,
+            "fused_force_virial_readout": tops._force_virial_cuda,
+            "fused_segment_sum": tops._segment_sum_cuda,
+            "fused_gated_mlp_packed": tops._gated_mlp_cuda}[name], args
+
+
+@pytest.mark.parametrize("kind", ["atom", "bond", "force", "gated_mlp",
+                                  "sym", "force_virial"])
 def test_cuda_wrappers_refuse_mixed_operand_dtypes(kind):
     """A bf16 call whose float operands do not share one dtype fails on
-    the card's checks; the f32-only kernels keep refusing bf16."""
-    name, floats, ints, kw = _op_case(kind)
-    tf = [torch.from_numpy(x).to(BF16) for x in floats]
-    tf[-1] = tf[-1].float()
-    cuda = {"fused_atom_conv": tops._atom_conv_cuda,
-            "fused_bond_conv": tops._bond_conv_cuda,
-            "fused_force_readout": tops._force_readout_cuda}[name]
-    args = tf + [_t(x) for x in ints]
-    if name == "fused_atom_conv":
-        args += [_t(kw.get("pair")), False]
-    elif name == "fused_bond_conv":
-        seg, ik = args[8], args[9]
-        args += [seg, ik, False]
-    with pytest.raises(TypeError, match="dtype"):
-        cuda(*args)
-    seg = torch.zeros(8, dtype=torch.int32)
-    offs = torch.tensor([0, 4, 8], dtype=torch.int32)
-    with pytest.raises(TypeError, match="dtype"):
-        tops._force_virial_cuda(
-            torch.zeros(8, 16, dtype=BF16), torch.zeros(8, 3, dtype=BF16),
-            torch.ones(8, dtype=BF16), torch.zeros(16, 16, dtype=BF16),
-            torch.zeros(16, dtype=BF16), torch.zeros(16, 1, dtype=BF16),
-            torch.zeros(1, dtype=BF16), seg, seg, offs, 2, 1)
+    the card's checks with a TypeError: kernels 2, 3, 4a, 7, 5 and 4b,
+    each with a bf16 operand among f32 ones and an f32 one among bf16
+    ones, but for the operands documented as f32 (7's LayerNorm
+    parameters, 4b's x_hat and distances), which a bf16 call accepts in
+    f32."""
+    _, floats, ints, kw = _op_case(kind)
+    for lone, rest in ((torch.float32, BF16), (BF16, torch.float32)):
+        for i in range(len(floats)):
+            tf = [torch.from_numpy(x).to(rest) for x in floats]
+            tf[i] = tf[i].to(lone)
+            cuda, args = _cuda_call(kind, tf, ints, kw)
+            f32_ok = rest == BF16 and lone == torch.float32 and (
+                (kind == "gated_mlp" and i >= 3)
+                or (kind == "force_virial" and i in (1, 2)))
+            if f32_ok:
+                continue  # accepted (the mixed tiers pass them on the card)
+            with pytest.raises(TypeError, match="dtype"):
+                cuda(*args)
+
+
+def test_cuda_wrappers_refuse_other_dtypes():
+    """Kernel 1's one float operand and kernel 6's f32 messages: a value
+    table neither f32 nor bf16 and bf16 messages raise a TypeError on the
+    card's checks, as does a kernel 6 output dtype neither f32 nor
+    bf16."""
+    _, floats, ints, _ = _op_case("segment_sum[D=16]")
+    for dt in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="dtype"):
+            tops._segment_sum_cuda(torch.from_numpy(floats[0]).to(dt),
+                                   *map(_t, ints))
+    _, floats, ints, _ = _op_case("sym")
+    rep, dest, offs = map(_t, ints[3:])
+    for msg_dt, out_dt in ((BF16, BF16), (torch.float32, torch.float16)):
+        with pytest.raises(TypeError, match="dtype"):
+            tops._sym_accum_cuda(torch.zeros(90, 16, dtype=msg_dt), rep,
+                                 dest, offs, 70, out_dt)
 
 
 # ---------------------------------------------------------------------------

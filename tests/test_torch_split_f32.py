@@ -281,6 +281,28 @@ def test_bf16_product_accumulates_in_f32(k):
     assert _err(mma_bf16_emulated(a, b), a.double() @ b.double()) <= TOL
 
 
+@pytest.mark.parametrize("d_in", [192, 256, 13])
+def test_bf16_gated_mlp_rounds_once(d_in):
+    """Kernel 7's bf16 path emulated (bf16 x, W and bias, f32 LayerNorm
+    parameters, the bf16 product into one f32 accumulator over d_in, the
+    f32 epilogue, the output rounded to bf16 once) against the float64
+    plain version of the same bf16 operands, within one bf16 rounding; the
+    plain version on bf16 tensors too (its d_in of 13 is no multiple of a
+    16-wide step: the kernel's zero columns)."""
+    x, w, b, lns, lnb = _mlp_inputs(d_in)
+    x, w, b = (round_bf16(t) for t in (x, w, b))
+    want = ref.gated_mlp_packed_ref(*(t.double() for t in (x, w, b, lns,
+                                                            lnb)))
+    got = ref.gated_mlp_packed_ref(mma_bf16_emulated(x, w),
+                                   torch.eye(w.shape[1]), b, lns, lnb)
+    assert _err(_bf16(got), want) <= BF16_TOL
+    bf = ref.fused_gated_mlp_ref(_bf16(x), _bf16(w), _bf16(b), lns, lnb)
+    assert bf.dtype == torch.bfloat16 and _err(bf, want) <= BF16_TOL
+    # f32 operands: the plain version is gated_mlp_packed_ref itself
+    assert torch.equal(ref.fused_gated_mlp_ref(x, w, b, lns, lnb),
+                       ref.gated_mlp_packed_ref(x, w, b, lns, lnb))
+
+
 @pytest.mark.parametrize("stage_k,meets", [(32, True), (64, True),
                                            (14336, False)])
 def test_swiglu_down_product_sums_a_stage_at_a_time(stage_k, meets):
@@ -486,12 +508,12 @@ def test_bf16_force_readout_rounds_once(d):
     assert bf.dtype == torch.bfloat16 and _err(bf, want) <= BF16_TOL
 
 
-@pytest.mark.parametrize("mode", ["atom", "bond", "force"])
+@pytest.mark.parametrize("mode", ["atom", "bond", "force", "sym"])
 @pytest.mark.parametrize("dim", ops.CONV_WIDTHS)
 def test_bf16_plans_fit_the_card(mode, dim):
-    """The bf16 plans (kernels 2, 3 and 4a): a block's shared memory and
-    the blocks a SM fit, the tiles are the f32 plan's, and the stages take
-    fewer bytes; kernel 5 has no bf16 path."""
+    """The bf16 plans (kernels 2, 3, 4a and 4b, 5): a block's shared
+    memory and the blocks a SM fit, the tiles are the f32 plan's, and the
+    stages take fewer bytes; no plan for another operand size."""
     f32 = ops.conv_plan(mode, dim, 394_496, 132)
     bf = ops.conv_plan(mode, dim, 394_496, 132, itemsize=2)
     assert bf.smem < f32.smem and bf.smem <= 232_448
@@ -499,8 +521,27 @@ def test_bf16_plans_fit_the_card(mode, dim):
     assert bf.blocks_per_sm >= f32.blocks_per_sm
     assert (bf.tm, bf.t, bf.k_chunks) == (f32.tm, f32.t, f32.k_chunks)
     assert bf.grid == bf.blocks_per_sm * 132
-    with pytest.raises(ValueError, match="no 'sym' kernel"):
-        ops.conv_plan("sym", dim, 100, 132, itemsize=2)
+    with pytest.raises(ValueError, match="operands of 8 bytes"):
+        ops.conv_plan(mode, dim, 100, 132, itemsize=8)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("dim", ops.GATED_MLP_WIDTHS)
+def test_gated_mlp_plans_fit_the_card(itemsize, dim):
+    """Kernel 7's plan in f32 and bf16: one block a SM whose shared memory
+    fits 227 KB, tiles of whole warp tiles (8 warps of two m16 tiles, one
+    at D = 128), the bf16 stages smaller than the f32 ones, and at most
+    one block a tile."""
+    plan = ops.gated_mlp_plan(dim, 380_928, 132, itemsize)
+    assert plan.smem <= 232_448 and plan.smem + 1024 <= 233_472
+    assert plan.tm == 8 * 16 * (2 if dim <= 64 else 1)
+    assert plan.grid == 132
+    if itemsize == 2:
+        f32 = ops.gated_mlp_plan(dim, 380_928, 132)
+        assert plan.tm == f32.tm and plan.smem < f32.smem
+    assert ops.gated_mlp_plan(dim, 3 * plan.tm - 1, 132, itemsize).grid == 3
+    with pytest.raises(ValueError, match="no GatedMLP kernel"):
+        ops.gated_mlp_plan(dim, 10, 132, itemsize=8)
 
 
 @pytest.mark.parametrize("mode", ["atom", "bond"])
@@ -668,6 +709,50 @@ def test_split_sym_msg_matches_float64(d, n_real):
     assert _err(ref.sym_msg_ref(*args[:11])[:n_real], want) <= TOL
 
 
+def _sym_bf16(v, e, a_u, e_b, w, b, lns, lnb, ctr, du1, du2, offsets,
+              mma=mma_bf16_emulated, round_e=True):
+    """Kernel 5's bf16 path on bf16-valued f32 operands: the real rows'
+    v[ctr], e_s = e[du1] + e[du2] added in f32 and rounded to bf16 once,
+    and a_u rows; the product (``mma``) against [W1 | W2 + W3 | W4] with
+    the two e blocks added in bf16; the f32 epilogue and envelope; the
+    messages f32, not rounded.  ``mma=None``: the same function in
+    float64; ``round_e=False``: e_s not rounded."""
+    d, n_real = v.shape[1], int(offsets[-1]) // 2
+    w23 = torch.cat([w[:d], round_bf16(w[d:2 * d] + w[2 * d:3 * d]),
+                     w[3 * d:]])
+    i0, i1, i2 = (t[:n_real].long() for t in (ctr, du1, du2))
+    e_s = e[i1] + e[i2]
+    x = torch.cat([v[i0], round_bf16(e_s) if round_e else e_s,
+                   a_u[:n_real]], dim=1)
+    env = e_b[i1] * e_b[i2]
+    if mma is None:
+        return ref.gated_mlp_packed_ref(
+            x.double(), w23.double(), b.double(), lns.double(),
+            lnb.double()) * e_b[i1].double() * e_b[i2].double()
+    return ref.gated_mlp_packed_ref(mma(x, w23), torch.eye(2 * d), b, lns,
+                                    lnb) * env
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+@pytest.mark.parametrize("n_real", [1, 33])
+def test_bf16_sym_msg_rounds_e_s_once(d, n_real):
+    """Kernel 5's bf16 path emulated (e_s rounded to bf16 once before the
+    product, W2 + W3 in bf16, the bf16 product into f32, f32 messages)
+    against the float64 function of the same bf16 operands with the same
+    two roundings: within 1e-5, as the messages are not rounded again;
+    the plain version on bf16 tensors gives f32 messages within the same
+    bound.  Without the rounding of e_s, 33 rows at D = 64 miss that
+    bound."""
+    args = tuple(round_bf16(t) if t.is_floating_point() else t
+                 for t in _sym_inputs(d, n_real))
+    want = _sym_bf16(*args, mma=None)
+    assert _err(_sym_bf16(*args), want) <= TOL
+    plain = ref.sym_msg_ref(*(_bf16(t) for t in args[:11]))[:n_real]
+    assert plain.dtype == torch.float32 and _err(plain, want) <= TOL
+    if (d, n_real) == (64, 33):
+        assert _err(_sym_bf16(*args, mma=None, round_e=False), want) > TOL
+
+
 # crystal of each of the 30 atom rows of ``_readout_inputs``: slot 1 holds
 # atoms with no bonds, slot 3 none at all
 _ROW_CRYSTALS = {
@@ -792,6 +877,34 @@ def test_split_crystal_sum_takes_any_slot_order(layout):
     assert _err(raw, want) <= TOL
     assert not raw[1].any() and not raw[3].any()
     assert raw[0].any() and raw[2].any()
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_bf16_force_virial_rounds_forces_once(d):
+    """Kernel 4b's bf16 path emulated (W1 and e in bf16, x_hat widened and
+    the distances f32, the bf16 product, silu, n . w2, the contributions,
+    the row sums and the crystal sum in f32; only the forces rounded to
+    bf16, once) against the float64 plain version of the same operands:
+    the forces within one bf16 rounding, the per-crystal sums within 1e-5
+    (they are not rounded); the plain version on bf16 tensors returns bf16
+    forces and f32 sums within the same bounds."""
+    (e, x_hat, dist, w1, b1, w2, b2, seg, cry, offs, n_atoms,
+     n_crys) = _readout_inputs(d)
+    e, x_hat, w1, b1, w2, b2 = (round_bf16(t)
+                                for t in (e, x_hat, w1, b1, w2, b2))
+    f64 = [t.double() for t in (e, x_hat, dist, w1, b1, w2, b2)]
+    want_f, want_raw = ref.fused_force_virial_readout_ref(
+        *f64, seg, cry, offs, n_atoms, n_crys)
+    forces, raw = _readout_emulated(e, x_hat, dist, w1, b1, w2, b2, offs,
+                                    cry, n_crys, mma=mma_bf16_emulated)
+    assert _err(_bf16(forces), want_f) <= BF16_TOL
+    assert _err(raw, want_raw) <= TOL
+    assert not raw[1].any() and not raw[3].any()
+    bf_f, bf_raw = ref.fused_force_virial_readout_ref(
+        _bf16(e), _bf16(x_hat), dist, *(_bf16(t) for t in (w1, b1, w2, b2)),
+        seg, cry, offs, n_atoms, n_crys)
+    assert bf_f.dtype == torch.bfloat16 and _err(bf_f, want_f) <= BF16_TOL
+    assert bf_raw.dtype == torch.float32 and _err(bf_raw, want_raw) <= TOL
 
 
 @pytest.mark.parametrize("mode", ["sym", "force"])

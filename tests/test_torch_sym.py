@@ -477,11 +477,14 @@ def test_serve_predict_and_md_match_jax(params):
 
 
 def test_sym_configs_run_and_only_precision_raises():
-    """FAST_FUSED_HALF, FAST_FUSED_SYM and FAST_FUSED_HALF_MIXED build; the
-    fused symmetric trunk at a bf16 compute dtype raises (kernels 5 and 6
-    have no bf16 path yet)."""
+    """FAST_FUSED_HALF, FAST_FUSED_SYM and FAST_FUSED_HALF_MIXED build, and
+    the fused symmetric trunk at a bf16 compute dtype does too (kernels 5
+    and 6 have bf16 paths; nothing raises any more); its config keeps the
+    precision asked for."""
     for cfg in (TC.FAST_FUSED_HALF, TC.FAST_FUSED_SYM, TC.FAST_SYM,
                 TC.FAST_FUSED_HALF_MIXED):
         CHGNet(cfg.with_(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        CHGNet(TC.FAST_FUSED_SYM.with_(precision="mixed"), device="cpu")
+    for prec in ("mixed", "bf16"):
+        model = CHGNet(TC.FAST_FUSED_SYM.with_(**SMALL, precision=prec),
+                       device="cpu")
+        assert model.cfg.precision == prec
