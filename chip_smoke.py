@@ -170,7 +170,36 @@ PyTorch version:
      128) and ragged shapes in both dtypes, each against its plain version
      (bf16 at the §4 bound, f32 within 1e-4), kernels and yardsticks timed
      in turns; then llama3-8b cut to 2 layers in f32, kernels' path
-     against plain within 1e-4.
+     against plain within 1e-4;
+ 14. eval_serve: ``make_chgnet_eval_serve_step`` at ``FAST_FUSED`` and
+     ``FAST_FUSED_SYM`` on the largest serving group's batch and the first
+     training batch: one forward's launches, metrics and outputs equal to
+     ``eval_step``'s and ``serve_step``'s bit for bit (deterministic
+     algorithms), the combined step timed in turns with the two; and
+     ``param_count`` of ``FAST_FUSED`` and ``REFERENCE`` within 5% of the
+     paper's 429.1K and 412.5K;
+ 15. lm_train: llama3-8b at full width cut to 2 layers, f32 master
+     weights and bf16 compute, 4 x 512 tokens: the gradient at
+     ``accum_steps`` 2 against 1 (loss within 3e-2, global norm within
+     5%, cosine 0.999), 1 + 5 steps of ``launch.steps.make_lm_train_step``
+     on one repeated batch (the loss must fall) and 1 + 2 at ``accum_steps``
+     2, ms a step, tokens/s and peak memory; the SMOKE config in f32, one
+     step on the card against the same step on the CPU: the parameters
+     within 1e-4, the update of every leaf within 2% of lr element by
+     element and 1% in norm;
+ 16. moe: deepseek-moe-16b at full width cut to 2 layers, bf16 weights:
+     prefill of 4 x 512 and 16 decode steps, the kernels' path (the shared
+     experts on kernel 10) teacher-forced against the plain path at §4's
+     bound, both timed through ``serve.lm`` in turns, kernel 10 at the
+     shared experts' prefill and decode shapes, the routing (tokens per
+     expert, the share kept under capacity), then 1 + 3 training steps
+     from f32 master weights; phi3.5-moe at full width, 1 layer, on the
+     plain path (no shared expert): prefill + 4 decode steps finite, the
+     prefill against the forward at §4's bound, the routing;
+ 17. qwen110b: qwen1.5-110b at full width (QKV bias) cut to 2 layers,
+     bf16: prefill + 8 decode steps, the kernels' path against the plain
+     path at §4's bound, both timed, and kernel 10 at D 8192, F 49152
+     against its plain version beside the plain path's MLP.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS``, ``FUSED_MLP_PALLAS``,
 ``FAST_PALLAS_MIXED``, ``FAST_FUSED_SYM_MIXED`` and
@@ -179,8 +208,9 @@ no named config of the package.  bf16
 products outside the kernels (cuBLAS) sum in f32
 (``allow_bf16_reduced_precision_reduction`` off), as TF32 is off for f32
 ones.  Prints
-``{"serve": ...}``, ``{"train": ...}``, ``{"dp": ...}``, ``{"lm": ...}``
-and ``{"kernels": [...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
+``{"serve": ...}``, ``{"train": ...}``, ``{"dp": ...}``, ``{"lm": ...}``,
+``{"eval_serve": ...}``, ``{"lm_train": ...}``, ``{"moe": ...}``,
+``{"qwen110b": ...}`` and ``{"kernels": [...]}`` JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero; without CUDA it exits nonzero before printing a result.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
@@ -239,7 +269,10 @@ from repro_torch.distributed import (  # noqa: E402
     init_data_mesh,
 )
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.steps import lm_grads, make_lm_train_step  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.optim.adam import adam_init  # noqa: E402
 from repro_torch.optim.grad import global_norm  # noqa: E402
 from repro_torch.optim.tree import leaves  # noqa: E402
 from repro_torch.precision import resolve_policy, scale_loss  # noqa: E402
@@ -267,6 +300,8 @@ from repro_torch.train.trainer import (  # noqa: E402
     chgnet_loss_fn,
     grads_of,
     make_chgnet_accum_step_fns,
+    make_chgnet_eval_serve_step,
+    make_chgnet_step_fns,
     params_on,
 )
 
@@ -338,6 +373,14 @@ PER_FORWARD_SYM = {"fused_atom_conv": 4, "fused_sym_bond_conv": 6,
 LM_ARCH = "llama3-8b"
 LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 512, 640, 16
 LM_TPU_DIR = "src/repro/kernels"
+# LM training: llama3-8b at full width, 2 layers, f32 master weights and
+# bf16 compute, batches of 4 x 512 tokens; the MoE family at full width
+# (deepseek-moe-16b, 2 layers; phi3.5-moe, 1 layer) and qwen1.5-110b at
+# full width, 2 layers
+LM_TRAIN_LAYERS, LM_TRAIN_STEPS = 2, 5
+MOE_ARCH, PHI_ARCH, QWEN_ARCH = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
+                                 "qwen1.5-110b")
+MOE_TRAIN_STEPS, PHI_DECODE, QWEN_DECODE = 3, 4, 8
 
 
 def plain_config(cfg):
@@ -2324,6 +2367,38 @@ def ptxas_lines(log: str) -> list[str]:
     return [f"{d}: {'; '.join(stats[n])}" for n, d in zip(names, short)]
 
 
+def swiglu_case(gen, name: str, m: int, weights, act: str, dtype,
+                path: str | None = None, yardstick: bool = False) -> dict:
+    """Kernel 10 on (M, D) inputs drawn from ``gen`` and the given (wg, wu,
+    wd): its plain version, its work (6 M D F flops; x, the weights and the
+    output moved once), its plan and, for a case on a model path
+    (``path``) or with ``yardstick``, the plain LM path's MLP at the same
+    shapes as its ``composition``."""
+    wg, wu, wd = weights
+    d, f = wg.shape
+    x = _rand(gen, (m, d), dtype)
+    size = x.element_size()
+    bf16 = dtype == torch.bfloat16
+    composition = None
+    if path or yardstick:
+        def composition(x=x, p={"wg": wg, "wu": wu, "wd": wd}, act=act):
+            return layers.gated_mlp_apply(p, x, act, use_pallas=False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(
+        name=name, counter="fused_swiglu", path=path,
+        wrapper=lambda *a, act=act: ops.fused_swiglu(*a, activation=act),
+        plain=lambda *a, act=act: ref.fused_swiglu_ref(*a, act),
+        args=(x, wg, wu, wd), source=f"{CSRC}/swiglu.cu",
+        composition=composition,
+        replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49", split=not bf16,
+        check=_check_bf16 if bf16 else _check_close,
+        peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+        flops=6 * m * d * f, bytes=size * (2 * m * d + 3 * d * f),
+        plan=_plan_row(ops.swiglu_plan(m, d, f, size, sms)),
+        shape={"M": m, "D": d, "F": f, "dtype": str(dtype)[6:],
+               "activation": act})
+
+
 def lm_kernel_cases(mlp, gen) -> list[dict]:
     """Kernels 10 and 11, their plain versions and inputs.  The fused
     feed-forward on layer 0's weights at the serving path's shapes
@@ -2346,32 +2421,10 @@ def lm_kernel_cases(mlp, gen) -> list[dict]:
     feed-forward also at full width at M 4, 16 and 256, each beside the
     plain path's cuBLAS f32 MLP."""
     cases = []
-    src10 = f"{CSRC}/swiglu.cu"
     src11 = f"{CSRC}/flash_attention.cu"
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def swiglu(name, m, weights, act, dtype, path=None, yardstick=False):
-        wg, wu, wd = weights
-        d, f = wg.shape
-        x = _rand(gen, (m, d), dtype)
-        size = x.element_size()
-        bf16 = dtype == torch.bfloat16
-        composition = None
-        if path or yardstick:
-            def composition(x=x, p={"wg": wg, "wu": wu, "wd": wd}, act=act):
-                return layers.gated_mlp_apply(p, x, act, use_pallas=False)
-        cases.append(dict(
-            name=name, counter="fused_swiglu", path=path,
-            wrapper=lambda *a, act=act: ops.fused_swiglu(*a, activation=act),
-            plain=lambda *a, act=act: ref.fused_swiglu_ref(*a, act),
-            args=(x, wg, wu, wd), source=src10, composition=composition,
-            replaces=f"{LM_TPU_DIR}/fused_swiglu.py:49", split=not bf16,
-            check=_check_bf16 if bf16 else _check_close,
-            peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
-            flops=6 * m * d * f, bytes=size * (2 * m * d + 3 * d * f),
-            plan=_plan_row(ops.swiglu_plan(m, d, f, size, sms)),
-            shape={"M": m, "D": d, "F": f, "dtype": str(dtype)[6:],
-                   "activation": act}))
+    def swiglu(*a, **kw):
+        cases.append(swiglu_case(gen, *a, **kw))
 
     def small(d, f, dtype):
         return (_rand(gen, (d, f), dtype, d ** -0.5),
@@ -2550,6 +2603,43 @@ def lm_f32_check(seed: int) -> dict:
     return row
 
 
+def lm_forced_pair(name: str, cfg, params, tokens, steps: int) -> dict:
+    """The kernels' path teacher-forced on the plain path's greedy tokens,
+    every step's logits at DESIGN.md §4's bf16 bound."""
+    plain, fed = lm_forced_run(cfg, params, tokens, steps, LM_MAX_LEN, False)
+    got, _ = lm_forced_run(cfg, params, tokens, steps, LM_MAX_LEN, True,
+                           forced=fed)
+    errs = [_check_bf16(f"{name} {'prefill' if i == 0 else f'decode {i}'}",
+                        g, p) for i, (g, p) in enumerate(zip(got, plain))]
+    agree = [float((g.argmax(-1) == p.argmax(-1)).float().mean())
+             for g, p in zip(got, plain)]
+    print(f"{name} teacher-forced, kernels' path against plain: max abs "
+          f"error {max(e[0] for e in errs):.3e} (smallest tolerance "
+          f"{min(e[1] for e in errs):.3e}), smallest cosine "
+          f"{min(e[2] for e in errs):.6f}; greedy tokens agree "
+          f"{sum(agree) / len(agree):.3f} (prefill + {steps} steps)",
+          flush=True)
+    return {"max_abs_err": [e[0] for e in errs],
+            "tolerance": [e[1] for e in errs],
+            "cosine": [e[2] for e in errs], "token_agreement": agree}
+
+
+def lm_serve_turns(name: str, cfg, params, tokens, steps: int) -> dict:
+    """``lm_serve_run`` of the plain and the kernels' path in turns."""
+    runs = {"plain": [], "kernels": []}
+    for path in ("plain", "kernels", "kernels", "plain"):
+        r = lm_serve_run(cfg, params, tokens, steps, path == "kernels")
+        runs[path].append(r)
+        print(f"{name} serve {path}: {r['ms_per_prefill']:.2f} ms per "
+              f"prefill ({r['prompt_tokens_per_s']:.0f} prompt tokens/s), "
+              f"{r['ms_per_decode_step']:.3f} ms per decode step "
+              f"({r['decode_tokens_per_s']:.1f} tokens/s), peak "
+              f"{r['peak_mib']:.0f} MiB, fused_swiglu launches "
+              f"{r['prefill_launches']} + {r['decode_launches']}",
+              flush=True)
+    return runs
+
+
 def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
     """llama3-8b served at full width and depth with bf16 weights from the
     seed: the kernels' path (every layer's MLP through kernel 10) against
@@ -2575,32 +2665,8 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
           f"{LM_PROMPT} tokens, cache of {LM_MAX_LEN} positions, "
           f"{LM_DECODE} decode steps", flush=True)
 
-    plain, fed = lm_forced_run(cfg, params, tokens, LM_DECODE, LM_MAX_LEN,
-                               False)
-    got, _ = lm_forced_run(cfg, params, tokens, LM_DECODE, LM_MAX_LEN, True,
-                           forced=fed)
-    errs = [_check_bf16(f"lm {'prefill' if i == 0 else f'decode {i}'}", g, p)
-            for i, (g, p) in enumerate(zip(got, plain))]
-    agree = [float((g.argmax(-1) == p.argmax(-1)).float().mean())
-             for g, p in zip(got, plain)]
-    print(f"lm teacher-forced, kernels' path against plain: max abs error "
-          f"{max(e[0] for e in errs):.3e} (smallest tolerance "
-          f"{min(e[1] for e in errs):.3e}), smallest cosine "
-          f"{min(e[2] for e in errs):.6f}; greedy tokens agree "
-          f"{sum(agree) / len(agree):.3f} (prefill + {LM_DECODE} steps)",
-          flush=True)
-
-    runs = {"plain": [], "kernels": []}
-    for name in ("plain", "kernels", "kernels", "plain"):
-        r = lm_serve_run(cfg, params, tokens, LM_DECODE, name == "kernels")
-        runs[name].append(r)
-        print(f"lm serve {name}: {r['ms_per_prefill']:.2f} ms per prefill "
-              f"({r['prompt_tokens_per_s']:.0f} prompt tokens/s), "
-              f"{r['ms_per_decode_step']:.3f} ms per decode step "
-              f"({r['decode_tokens_per_s']:.1f} tokens/s), peak "
-              f"{r['peak_mib']:.0f} MiB, fused_swiglu launches "
-              f"{r['prefill_launches']} + {r['decode_launches']}",
-              flush=True)
+    forced = lm_forced_pair("lm", cfg, params, tokens, LM_DECODE)
+    runs = lm_serve_turns("lm", cfg, params, tokens, LM_DECODE)
     traces = {}
     if profile:
         positions = torch.arange(LM_PROMPT, device="cuda").expand(
@@ -2661,16 +2727,345 @@ def lm_phase(seed: int, profile: str | None = None) -> tuple[dict, list]:
         "arch": LM_ARCH, "parameters": n_params, "dtype": "bfloat16",
         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "max_len": LM_MAX_LEN,
         "decode_steps": LM_DECODE, "init_s": init_s,
-        "teacher_forced": {
-            "max_abs_err": [e[0] for e in errs],
-            "tolerance": [e[1] for e in errs],
-            "cosine": [e[2] for e in errs],
-            "token_agreement": agree},
-        "serve": runs, "f32_two_layers": f32,
+        "teacher_forced": forced, "serve": runs, "f32_two_layers": f32,
         "kernel_extra_shapes": [r for r in krows if r not in primary]}
     if traces:
         row["profile"] = traces
     return row, primary
+
+
+def eval_serve_phase(seed: int, batches: dict) -> dict:
+    """``make_chgnet_eval_serve_step`` at ``FAST_FUSED`` and
+    ``FAST_FUSED_SYM`` on each batch: under deterministic algorithms its
+    metrics and outputs equal ``eval_step``'s and ``serve_step``'s bit for
+    bit, its launches are one forward's; the combined step and the two
+    steps timed in turns (CUDA events); and ``param_count`` beside the
+    paper's Table I."""
+    train_cfg = TrainConfig(global_batch=TRAIN_BATCH, loss=chgnet_mptrj.LOSS)
+    rows = {}
+    for name, per in (("FAST_FUSED", PER_FORWARD),
+                      ("FAST_FUSED_SYM", PER_FORWARD_SYM)):
+        cfg = getattr(chgnet_mptrj, name)
+        params = params_on(chgnet.chgnet_init(seed, cfg), "cuda")
+        step = make_chgnet_eval_serve_step(cfg, train_cfg)
+        _, eval_step, serve_step = make_chgnet_step_fns(cfg, train_cfg)
+        for bname, batch in batches.items():
+            label = f"eval_serve {name} {bname}"
+            with _deterministic():
+                ops.reset_launch_counts()
+                metrics, out = step(params, batch)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                check_launches(label, counts, per, 1)
+                want_m = eval_step(params, batch)
+                want_o = serve_step(params, batch)
+                for part, got, want in (("metric", metrics, want_m),
+                                        ("output", out, want_o)):
+                    if got.keys() != want.keys() or not all(
+                            torch.equal(got[k], want[k]) for k in got):
+                        raise RuntimeError(f"{label}: the {part}s differ "
+                                           "from the separate steps'")
+            es_ms, two_ms = _time_turns(
+                [lambda: step(params, batch),
+                 lambda: (eval_step(params, batch),
+                          serve_step(params, batch))], reps=10, inner=3)
+            rows[f"{name} {bname}"] = {
+                "atoms": int(batch.atom_mask.sum()),
+                "launches": {k: v for k, v in counts.items() if v},
+                "bitwise_equal": True, "eval_serve_ms": es_ms,
+                "eval_plus_serve_ms": two_ms,
+                "loss": float(metrics["loss"])}
+            print(f"{label}: {int(batch.atom_mask.sum())} atoms, one "
+                  f"forward's launches {rows[f'{name} {bname}']['launches']}"
+                  f", metrics and outputs equal the two steps' bit for bit; "
+                  f"{es_ms:.3f} ms against {two_ms:.3f} ms for eval_step + "
+                  "serve_step", flush=True)
+        del params
+    sizes = {name: chgnet.param_count(chgnet.chgnet_init(
+        seed, getattr(chgnet_mptrj, name))) for name in
+        ("FAST_FUSED", "REFERENCE")}
+    paper = {"FAST_FUSED": 429_100, "REFERENCE": 412_500}
+    for name, n in sizes.items():
+        if abs(n - paper[name]) > 0.05 * paper[name]:
+            raise RuntimeError(f"param_count {name}: {n}, not within 5% of "
+                               f"the paper's {paper[name]}")
+    print(f"param_count: FAST_FUSED {sizes['FAST_FUSED']} (paper 429.1K), "
+          f"REFERENCE {sizes['REFERENCE']} (paper 412.5K)", flush=True)
+    rows["param_count"] = sizes
+    return rows
+
+
+def _lm_batch(cfg, gen, b: int, s: int) -> tuple:
+    """Seeded tokens (B, S) on the card, their next tokens as labels, and
+    positions 0..S-1."""
+    t = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                      device="cuda")
+    return (t[:, :-1].contiguous(), t[:, 1:].contiguous(),
+            torch.arange(s, device="cuda").expand(b, s))
+
+
+def lm_train_run(name: str, cfg, params, batch, steps: int, **kw) -> dict:
+    """1 + ``steps`` steps of ``make_lm_train_step`` on one repeated batch
+    from ``params`` (updated in place): every loss finite, the last below
+    the first; ms a counted step on the host clock (each step ends in a
+    read of its loss), tokens/s, peak memory."""
+    opt = adam_init(params)
+    step = make_lm_train_step(cfg, **kw)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, *batch)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: losses {losses} (finite, falling "
+                           "expected)")
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = batch[0].numel()
+    row = {"losses": losses, "ms_per_step": ms,
+           "tokens_per_s": tokens / ms * 1e3,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "accum_steps": kw.get("accum_steps", 1)}
+    print(f"{name}: losses {[round(x, 4) for x in losses]}, "
+          f"{ms:.1f} ms a step ({row['tokens_per_s']:.0f} tokens/s), peak "
+          f"{row['peak_mib']:.0f} MiB", flush=True)
+    del opt
+    return row
+
+
+def lm_train_phase(seed: int) -> dict:
+    """llama3-8b at full width and 2 layers trained from the seed: f32
+    master weights, bf16 compute.  The gradient at ``accum_steps`` 2
+    against 1 on one batch (the loss within 3e-2, the global norm within
+    5%, cosine 0.999: DESIGN.md §4); 1 + 5 steps on that batch; then the
+    SMOKE config in f32, one step on the card against the same step on the
+    CPU, every parameter within ``1e-4 * max(1, max|p|)`` and every
+    leaf's update within 2% of lr element by element and 1% of the CPU's
+    update in norm."""
+    cfg = lm_configs.get_config(LM_ARCH).with_(num_layers=LM_TRAIN_LAYERS)
+    params = transformer.decoder_init(cfg, seed, device="cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    batch = _lm_batch(cfg, gen, LM_BATCH, LM_PROMPT)
+    print(f"lm_train: {LM_ARCH} at full width, {LM_TRAIN_LAYERS} layers, "
+          f"{n_params} f32 parameters ({n_params * 16 / 2**30:.2f} GiB with "
+          f"gradients and Adam moments), bf16 compute, batch {LM_BATCH} x "
+          f"{LM_PROMPT}", flush=True)
+    l1, g1 = lm_grads(cfg, params, batch, 1)
+    l2, g2 = lm_grads(cfg, params, batch, 2)
+    n1, n2 = global_norm(g1).item(), global_norm(g2).item()
+    dot = sum((a * b).sum(dtype=torch.float64).item()
+              for a, b in zip(g1, g2))
+    cos = dot / (n1 * n2)
+    l1, l2 = l1.item(), l2.item()
+    accum = {"loss_k1": l1, "loss_k2": l2, "grad_norm_k1": n1,
+             "grad_norm_k2": n2, "cosine": cos}
+    del g1, g2
+    if not (abs(l2 - l1) <= 3e-2 * max(1.0, abs(l1))
+            and abs(n2 - n1) <= 0.05 * n1 and cos >= 0.999):
+        raise RuntimeError(f"lm_train accum 2 against 1: {accum}")
+    print(f"lm_train accum 2 against 1: loss {l2:.6f} / {l1:.6f}, gradient "
+          f"norm {n2:.6f} / {n1:.6f}, cosine {cos:.6f}", flush=True)
+    row = {"arch": LM_ARCH, "layers": LM_TRAIN_LAYERS, "parameters": n_params,
+           "batch": LM_BATCH, "seq": LM_PROMPT, "accum_2_vs_1": accum}
+    row["k1"] = lm_train_run("lm_train k1", cfg, params, batch,
+                             LM_TRAIN_STEPS)
+    row["k2"] = lm_train_run("lm_train k2", cfg, params, batch, 2,
+                             accum_steps=2)
+    del params, batch
+    torch.cuda.empty_cache()
+    # the algorithm without bf16: SMOKE in f32, card against CPU.  Adam's
+    # first update is about lr an element, within the parameters' bound
+    # of 1e-4 * max(1, max|p|) at lr 1e-4; so the updates themselves are
+    # held: per leaf within 2% of lr element by element and 1% of the
+    # CPU's update in norm, the CPU's update reaching lr / 2 in every leaf
+    scfg = lm_configs.get_smoke(LM_ARCH)
+    lr = 1e-4
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, 33)))
+    cpu_batch = (tok[:, :-1], tok[:, 1:],
+                 torch.arange(32).expand(4, 32))
+    init = transformer.decoder_init(scfg, seed, device="cpu")
+    p0 = [t.clone() for t in leaves(init)]
+    trees = {}
+    for dev in ("cpu", "cuda"):
+        tree = params_on(init, dev)
+        step = make_lm_train_step(scfg, lr=lr)
+        trees[dev], _, _ = step(tree, adam_init(tree),
+                                *(x.to(dev) for x in cpu_batch))
+    errs, upd_err, upd_rel = [], 0.0, 0.0
+    for i, (c, p, q) in enumerate(zip(leaves(trees["cuda"]),
+                                      leaves(trees["cpu"]), p0)):
+        c, p = c.detach().cpu(), p.detach()
+        errs.append(_check_close(f"lm_train smoke leaf {i}", c, p))
+        d_card, d_cpu = c - q, p - q
+        err = (d_card - d_cpu).abs().max().item()
+        rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+        if not (d_cpu.abs().max().item() >= lr / 2 and err <= 2e-2 * lr
+                and rel <= 1e-2):
+            raise RuntimeError(
+                f"lm_train smoke leaf {i}: update on the card against the "
+                f"CPU's: max abs error {err} (limit {2e-2 * lr}), relative "
+                f"norm {rel} (limit 1e-2), CPU's largest "
+                f"{d_cpu.abs().max().item()} (at least {lr / 2})")
+        upd_err, upd_rel = max(upd_err, err), max(upd_rel, rel)
+    row["smoke_f32_card_vs_cpu"] = {
+        "max_abs_err": max(e for e, _ in errs),
+        "tolerance": min(t for _, t in errs), "leaves": len(errs),
+        "update_max_abs_err": upd_err, "update_tolerance": 2e-2 * lr,
+        "update_max_rel_norm_err": upd_rel, "lr": lr}
+    print(f"lm_train smoke f32: one step on the card against the CPU, "
+          f"{len(errs)} leaves: parameters within "
+          f"{row['smoke_f32_card_vs_cpu']['max_abs_err']:.3e}, updates "
+          f"within {upd_err:.3e} (limit {2e-2 * lr:.1e}) and {upd_rel:.3e} "
+          f"of their norm (limit 1e-2)", flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def _moe_routes():
+    """While inside, record each MoE layer call's expert ids and kept
+    mask (``models.moe.route`` / ``dispatch`` called through)."""
+    seen = []
+    route, dispatch = lm_moe.route, lm_moe.dispatch
+
+    def spy_route(p, x, cfg):
+        gate, idx = route(p, x, cfg)
+        seen.append({"idx": idx})
+        return gate, idx
+
+    def spy_dispatch(x, idx, e, cap):
+        out = dispatch(x, idx, e, cap)
+        seen[-1].update(keep=out[2], capacity=cap)
+        return out
+
+    lm_moe.route, lm_moe.dispatch = spy_route, spy_dispatch
+    try:
+        yield seen
+    finally:
+        lm_moe.route, lm_moe.dispatch = route, dispatch
+
+
+def _route_row(call, num_experts: int) -> dict:
+    idx, keep = call["idx"], call["keep"]
+    return {"tokens": idx.shape[0] * idx.shape[1],
+            "capacity": call["capacity"],
+            "per_expert": torch.bincount(idx.flatten(),
+                                         minlength=num_experts).tolist(),
+            "kept_share": keep.float().mean().item()}
+
+
+def _serving_model(arch: str, layers_: int, seed: int):
+    cfg = lm_configs.get_config(arch).with_(num_layers=layers_)
+    params = lm.load_serving_params(
+        transformer.decoder_init(cfg, seed, device="cuda",
+                                 dtype=torch.bfloat16), cfg)
+    n = sum(t.numel() for t in leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    print(f"{arch}: full width, {layers_} layers, {n} bf16 parameters "
+          f"({n * 2 / 2**30:.2f} GiB)", flush=True)
+    return cfg, params, n, gen, tokens
+
+
+def _kernel10_rows(gen, mlp, label: str, runs: dict) -> list:
+    """Kernel 10 on ``mlp``'s weights at a serving path's prefill and
+    decode shapes, against its plain version and beside the plain path's
+    MLP; each row's launches are those of the path's first kernels' run."""
+    w = (mlp["wg"], mlp["wu"], mlp["wd"])
+    cases = [swiglu_case(gen, f"swiglu_fwd {label} prefill",
+                         LM_BATCH * LM_PROMPT, w, "silu", torch.bfloat16,
+                         "prefill"),
+             swiglu_case(gen, f"swiglu_fwd {label} decode", LM_BATCH, w,
+                         "silu", torch.bfloat16, "decode")]
+    rows = kernel_phase(cases)
+    run = runs["kernels"][0]
+    for row, c in zip(rows, cases):
+        row["launches"] = run[f"{c['path']}_launches"]
+        row["on_main_path"] = True
+    del cases
+    return rows
+
+
+def moe_phase(seed: int) -> tuple[dict, list]:
+    """The MoE family at full width.  deepseek-moe-16b, 2 layers, bf16:
+    the kernels' path (the shared experts through kernel 10) against the
+    plain path, teacher-forced, at DESIGN.md §4's bound; both timed
+    through ``serve.lm``; kernel 10 at the shared experts' shapes; then 1 +
+    3 training steps from f32 master weights.  phi3.5-moe, 1 layer, on the
+    plain path (no shared expert, so no kernel): prefill + 4 decode steps,
+    finite logits, the prefill against the forward, the expert counts."""
+    cfg, params, n, gen, tokens = _serving_model(MOE_ARCH, 2, seed)
+    e = cfg.moe.num_experts
+    with _moe_routes() as routes:
+        forced = lm_forced_pair("moe", cfg, params, tokens, LM_DECODE)
+    prefill_routes = [_route_row(c, e) for c in routes[:cfg.num_layers]]
+    print(f"moe {MOE_ARCH} prefill routing (layer 0 of the plain run): "
+          f"{prefill_routes[0]}", flush=True)
+    runs = lm_serve_turns("moe", cfg, params, tokens, LM_DECODE)
+    shared = transformer.layer_params(params["layers"], 0)["moe"]["shared"]
+    krows = _kernel10_rows(gen, shared, "moe shared", runs)
+    row = {"arch": MOE_ARCH, "layers": 2, "parameters": n,
+           "teacher_forced": forced, "serve": runs,
+           "prefill_routing": prefill_routes}
+    del params, shared
+    torch.cuda.empty_cache()
+    tparams = transformer.decoder_init(cfg, seed, device="cuda")
+    for t in leaves(tparams):
+        t.requires_grad_()
+    row["train"] = lm_train_run(
+        "moe train", cfg, tparams, _lm_batch(cfg, gen, LM_BATCH, LM_PROMPT),
+        MOE_TRAIN_STEPS)
+    del tparams
+    torch.cuda.empty_cache()
+    # phi3.5-moe: 16 experts of 6400, top-2, no shared expert
+    pcfg, params, pn, _, tokens = _serving_model(PHI_ARCH, 1, seed)
+    with _moe_routes() as routes:
+        outs, _ = lm_forced_run(pcfg, params, tokens, PHI_DECODE, LM_MAX_LEN,
+                                False)
+    for i, o in enumerate(outs):
+        if not torch.isfinite(o).all():
+            raise RuntimeError(f"phi step {i}: non-finite logits")
+    with torch.inference_mode():
+        full = transformer.forward_train(
+            pcfg, params, tokens,
+            torch.arange(LM_PROMPT, device="cuda").expand(LM_BATCH,
+                                                          LM_PROMPT))
+    err, tol, cos = _check_bf16("phi prefill against forward", outs[0],
+                                full[:, -1].float())
+    phi_routes = _route_row(routes[0], pcfg.moe.num_experts)
+    print(f"moe {PHI_ARCH}: prefill + {PHI_DECODE} decode steps finite, "
+          f"prefill within {err:.3e} of the forward (tolerance {tol:.3e}, "
+          f"cosine {cos:.6f}); prefill routing {phi_routes}", flush=True)
+    row["phi"] = {"arch": PHI_ARCH, "layers": 1, "parameters": pn,
+                  "prefill_vs_forward": {"max_abs_err": err,
+                                         "tolerance": tol, "cosine": cos},
+                  "prefill_routing": phi_routes,
+                  "decode_routing": [_route_row(c, pcfg.moe.num_experts)
+                                     for c in routes[1:]]}
+    del params, full
+    torch.cuda.empty_cache()
+    return row, krows
+
+
+def qwen110b_phase(seed: int) -> tuple[dict, list]:
+    """qwen1.5-110b at full width (QKV bias), 2 layers, bf16: prefill + 8
+    decode steps, the kernels' path against the plain path at DESIGN.md
+    §4's bound, both timed through ``serve.lm``; kernel 10 at D 8192, F
+    49152 against its plain version, beside the plain path's MLP."""
+    cfg, params, n, gen, tokens = _serving_model(QWEN_ARCH, 2, seed)
+    forced = lm_forced_pair("qwen110b", cfg, params, tokens, QWEN_DECODE)
+    runs = lm_serve_turns("qwen110b", cfg, params, tokens, QWEN_DECODE)
+    krows = _kernel10_rows(gen, transformer.layer_params(
+        params["layers"], 0)["mlp"], "qwen110b", runs)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": QWEN_ARCH, "layers": 2, "parameters": n,
+            "teacher_forced": forced, "serve": runs}, krows
 
 
 def _plans(it):
@@ -3736,10 +4131,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_row, lm_kernel_rows = lm_phase(args.seed, args.profile)
     print(json.dumps({"lm": lm_row}))
+    _stamp(t_start, "lm")
+    # 14. one forward for eval metrics and serve outputs, on the largest
+    # serving group's batch and the first training batch
+    print(json.dumps({"eval_serve": eval_serve_phase(
+        args.seed, {"serve": probe[big], "train": train_b0})}))
+    _stamp(t_start, "eval_serve")
+    # 15. LM training; 16. the MoE family; 17. qwen1.5-110b
+    print(json.dumps({"lm_train": lm_train_phase(args.seed)}))
+    _stamp(t_start, "lm_train")
+    moe_row, moe_kernel_rows = moe_phase(args.seed)
+    print(json.dumps({"moe": moe_row}))
+    _stamp(t_start, "moe")
+    qwen_row, qwen_kernel_rows = qwen110b_phase(args.seed)
+    print(json.dumps({"qwen110b": qwen_row}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows + primary + sym_rows + bf16_on_path
-                      + lm_kernel_rows}))
+                      + lm_kernel_rows + moe_kernel_rows
+                      + qwen_kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 ``chgnet_mptrj`` holds the CHGNet family.  The LM architectures resolve
 by id as in ``repro.configs``: each module exposes ``CONFIG`` (the exact
 assigned configuration) and ``SMOKE`` (a reduced same-family config for
-CPU tests).  The port has the dense decoders; the other ids of the JAX
-registry raise ``NotImplementedError`` (ROADMAP item 14).
+CPU tests).  The port has the dense decoders and the MoE family; the
+other ids of the JAX registry (encoder-decoder, VLM, hybrid, RWKV) raise
+``NotImplementedError`` (ROADMAP item 14d).
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "gemma-2b": "gemma_2b",
     "qwen3-8b": "qwen3_8b",
+    "qwen1.5-110b": "qwen15_110b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 ARCH_IDS = ["llama3-8b", "gemma-2b", "qwen3-8b", "qwen1.5-110b",
@@ -28,7 +32,7 @@ def _module(name: str):
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if name not in _MODULES:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP item 14); the port "
+            f"arch {name!r} is not ported yet (ROADMAP item 14d); the port "
             f"has {list(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 

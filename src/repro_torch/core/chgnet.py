@@ -314,6 +314,11 @@ def chgnet_apply(params, cfg: CHGNetConfig, graph: CrystalGraphBatch):
             "stress": stress.to(out), "magmom": magmom.to(out)}
 
 
+def param_count(params) -> int:
+    """Number of elements over the tree's tensor leaves."""
+    return sum(t.numel() for t in leaves(params))
+
+
 # ---------------------------------------------------------------------------
 # nn.Module
 # ---------------------------------------------------------------------------

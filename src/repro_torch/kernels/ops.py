@@ -46,7 +46,8 @@ The LM substrate's two kernels, the fused gated feed-forward
 (``fused_swiglu``, ``csrc/swiglu.cu``) and flash attention
 (``flash_attention``, ``csrc/flash_attention.cu``), take f32 or bf16 and
 serve only: they are plain functions with no backward, and refuse inputs
-that require a gradient (LM training is ROADMAP item 14).
+that require a gradient: LM training runs the plain MLP and attention,
+as the JAX package's does (its Pallas kernels have no VJP).
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, incremented only where a kernel is launched; and
@@ -1374,7 +1375,8 @@ def _lm_operands(names, tensors, ndims):
                              f"{tuple(t.shape)}")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name} requires a gradient; the LM kernels "
-                               "have no backward yet (ROADMAP item 14)")
+                               "have no backward: train with use_pallas="
+                               "False")
 
 
 def _swiglu_cuda(x, w_gate, w_up, w_down, activation):

@@ -15,15 +15,59 @@ the CPU over gloo.  Capacities are sized per device (``ceil(batch /
 N)``), the balanced path goes through ``runtime.elastic_train`` (a
 device drop re-bin-packs over the survivors and the dropped rank
 leaves), rank 0 of the job prints and position 0 of the mesh writes the
-checkpoints.  More ranks than visible GPUs raise.  The LM
-architectures wait for the LM substrate (ROADMAP 'Modules to port' item
-14) and raise ``NotImplementedError``.
+checkpoints.  More ranks than visible GPUs raise.
+
+``--arch <LM id>`` trains that architecture's ``SMOKE`` config from the
+seed (``train_lm``, the JAX launcher's LM mode) on ``--device``; the
+families the port lacks (encoder-decoder, VLM, hybrid, RWKV) raise
+``NotImplementedError`` (ROADMAP item 14d).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-moe-16b --steps 4 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import itertools
 import tempfile
+
+
+def train_lm(args) -> int:
+    """The JAX launcher's LM mode: the ``SMOKE`` config of ``--arch``,
+    parameters from seed 0, Adam at 1e-3, batches of 4 x 32 numpy
+    ``default_rng(0)`` tokens and labels; prints the loss about every
+    tenth step and returns the steps taken."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.chgnet import resolve_device
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models.api import family_fns
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.optim.tree import leaves
+
+    cfg = get_smoke(args.arch)
+    # "cuda" is the card, and without CUDA an error
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    params = family_fns(cfg).init(cfg, 0, device=device)
+    opt = adam_init(params)
+    step = make_lm_train_step(cfg, lr=1e-3, grad_clip=math.inf)
+    rng = np.random.default_rng(0)
+    b, s = 4, 32
+    pos = torch.arange(s, device=device).expand(b, s)
+    print(f"arch={cfg.name} (SMOKE) family={cfg.family} device={device} "
+          f"parameters={sum(p.numel() for p in leaves(params))}", flush=True)
+    for i in range(args.steps):
+        x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        params, opt, loss = step(params, opt, x.to(device), labels.to(device),
+                                 pos)
+        if i % max(1, args.steps // 10) == 0:
+            print(f"  step {i:3d} loss {float(loss):.4f}", flush=True)
+    return args.steps
 
 
 def train_chgnet(args, mesh=None) -> int:
@@ -272,9 +316,9 @@ def main(argv=None) -> int:
                     help="capacity buckets (1 = single worst-case pad)")
     args = ap.parse_args(argv)
     if args.arch != "chgnet":
-        raise NotImplementedError(
-            f"--arch {args.arch} (LM training) is not ported yet: ROADMAP "
-            "'Modules to port' item 14")
+        if args.devices != 1:
+            raise ValueError("LM training runs on one device")
+        return train_lm(args)
     if args.devices < 1:
         raise ValueError(f"--devices must be >= 1, got {args.devices}")
     return train_chgnet(args) if args.devices == 1 \

@@ -1,10 +1,10 @@
 """Per-family API of the port's LM substrate.
 
-``family_fns(cfg)`` returns the forward-only bundle of the family: init,
+``family_fns(cfg)`` returns the family's bundle: init, the training loss,
 logits over a sequence, prefill and decode.  The JAX ``FamilyFns`` also
-carries the training loss and sharding specs; those come with LM training
-and multi-GPU (ROADMAP items 14 and 13).  The dense family is ported;
-every other family raises.
+carries sharding specs for the TPU mesh; those have no counterpart here.
+The dense and MoE families are ported; every other family raises
+(ROADMAP item 14d).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from .config import LMConfig
 @dataclasses.dataclass(frozen=True)
 class FamilyFns:
     init: Callable              # (cfg, seed, *, device, dtype) -> params
+    loss: Callable              # (cfg, params, tokens, labels, positions)
     forward: Callable           # (cfg, params, tokens, positions) -> logits
     prefill: Callable           # (cfg, params, tokens, positions, max_len)
     decode_step: Callable       # (cfg, params, tokens, cache, positions)
@@ -32,9 +33,10 @@ def family_fns(cfg: LMConfig) -> FamilyFns:
     if cfg.family not in ("dense", "moe", "vlm", "encdec", "hybrid",
                           "rwkv"):
         raise ValueError(f"unknown family {cfg.family!r}")
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     return FamilyFns(
         init=transformer.decoder_init,
+        loss=transformer.lm_loss,
         forward=transformer.forward_train,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,

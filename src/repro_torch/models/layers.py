@@ -12,11 +12,14 @@ g_idx`` grouped over its KV head.
 
 ``Maker`` is a seeded initializer on a ``torch.Generator``.  What the JAX
 module adds for the TPU mesh is left out: ``Maker``'s abstract
-``PartitionSpec`` mode, ``constrain_batch`` / ``constrain_logits`` and
-``cast_floats`` as a tree map inside every forward.  The port's forwards
-run in the dtype of the parameters they are given
-(``serve.lm.load_serving_params`` casts once), and ``embed_lookup``'s
-custom backward comes with LM training (ROADMAP item 14).
+``PartitionSpec`` mode and ``constrain_batch`` / ``constrain_logits``.
+The port's forwards run in the dtype of the parameters they are given
+(``serve.lm.load_serving_params`` casts once); ``cast_floats`` is the
+training loss's differentiable cast of f32 master weights.  The
+embedding lookup is plain indexing: JAX's ``embed_lookup`` computes its
+backward as a one-hot product so that GSPMD partitions it over the vocab,
+and the index backward sums the same rows (in a fixed order under
+``torch.use_deterministic_algorithms``).
 """
 from __future__ import annotations
 
@@ -49,6 +52,14 @@ class Maker:
         w = torch.randn(full, generator=self.gen, device=self.device,
                         dtype=torch.float32)
         return w.mul_(std).to(self.dtype)
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """The tree with every float leaf cast to ``dtype``, differentiably
+    (leaves already in it are returned as they are)."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +244,7 @@ def attn_qkv(p, x, cfg, positions):
     if positions is not None:
         if cfg.mrope_sections:
             raise NotImplementedError(
-                "M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 14)")
+                "M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 14d)")
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,20 +1,24 @@
-"""Decoder-only transformer LM, dense family, forward only: logits over a
-sequence, prefill into a KV cache, one-token decode.
+"""Decoder-only transformer LM, dense and MoE families: logits over a
+sequence, the next-token loss, prefill into a KV cache, one-token decode.
 
 Mirrors ``repro.models.transformer`` (llama3, gemma with GeGLU and tied
-embeddings, qwen3 with qk-norm, qwen1.5's qkv bias).  The parameter tree
-has the JAX layout: ``embed`` (V, d), ``final_norm`` (d,), ``unembed``
-(d, V) unless tied, and ``layers`` with every leaf stacked along a leading
-L axis.  The JAX ``lax.scan`` over layers becomes a Python loop over
-views of the stacked leaves; remat and ``layer_block`` are training
-memory policies and do not carry over.  ``_layer_fwd`` keeps the full and
-q-chunked attention modes; its cache-writing decode mode, which no JAX
-caller uses, is left out (``decode_step`` has its own).  MoE layers and
-the other families raise: ROADMAP item 14.
+embeddings, qwen3 with qk-norm, qwen1.5's qkv bias, phi3.5-moe and
+deepseek-moe through ``models.moe``).  The parameter tree has the JAX
+layout: ``embed`` (V, d), ``final_norm`` (d,), ``unembed`` (d, V) unless
+tied, and ``layers`` with every leaf stacked along a leading L axis
+(``mlp``, or ``moe`` in the MoE family).  The JAX ``lax.scan`` over
+layers becomes a Python loop over views of the stacked leaves; remat and
+``layer_block`` are training memory policies and do not carry over.
+``_layer_fwd`` keeps the full and q-chunked attention modes; its
+cache-writing decode mode, which no JAX caller uses, is left out
+(``decode_step`` has its own).  The other families raise (ROADMAP item
+14d).
 
-Every function takes parameters already in ``cfg.compute_dtype`` and
-raises otherwise (the JAX forwards cast them on every call; the port casts
-once, ``serve.lm.load_serving_params``).
+The forwards take parameters already in ``cfg.compute_dtype`` and raise
+otherwise: serving casts once (``serve.lm.load_serving_params``), where
+the JAX forwards cast on every call.  ``lm_loss`` is the training entry:
+it casts f32 master weights to the compute dtype with a differentiable
+cast, so the gradients reach the f32 leaves as under ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.core.chgnet import resolve_device
 from .config import LMConfig
 from .layers import (
     Maker,
+    cast_floats,
     attention_chunked,
     attention_decode_merge,
     attention_full,
@@ -34,16 +39,16 @@ from .layers import (
     gated_mlp_init,
     rms_norm,
 )
+from .moe import moe_apply, moe_init
 
 
-def require_dense(cfg: LMConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder without MoE layers, the one
-    family the port runs."""
-    if cfg.family != "dense" or cfg.is_moe:
+def require_ported(cfg: LMConfig) -> None:
+    """Raise unless ``cfg`` is a decoder of a family the port runs: dense,
+    or MoE."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family"
-            f"{' with MoE layers' if cfg.is_moe else ''} is not ported yet "
-            "(ROADMAP item 14)")
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            "(ROADMAP item 14d)")
 
 
 def _float_leaves(tree):
@@ -72,7 +77,7 @@ def decoder_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
     """Parameter tree from ``seed`` on ``device`` (``None``: the card),
     each leaf drawn in f32 and stored in ``dtype`` (default
     ``cfg.param_dtype``); the stacked layer leaves are drawn whole."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     mk = Maker(seed, dev, getattr(torch, cfg.param_dtype)
                if dtype is None else dtype)
@@ -83,8 +88,11 @@ def decoder_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
         "attn": attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
                           qk_norm=cfg.qk_norm, stack=n),
-        "mlp": gated_mlp_init(mk, d, cfg.d_ff, stack=n),
     }
+    if cfg.is_moe:
+        layers["moe"] = moe_init(mk, cfg, stack=n)
+    else:
+        layers["mlp"] = gated_mlp_init(mk, d, cfg.d_ff, stack=n)
     params = {
         "embed": mk.make((v, d), scale=0.02),
         "final_norm": mk.make((d,), init="ones"),
@@ -105,6 +113,15 @@ def layer_params(layers, i: int):
 # layer forward
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: LMConfig, p, x, use_pallas: bool):
+    """The residual feed-forward half of a layer: the gated MLP, or the
+    MoE layer."""
+    h2 = rms_norm(x, p["ln2"])
+    if cfg.is_moe:
+        return x + moe_apply(p["moe"], h2, cfg, use_pallas=use_pallas)
+    return x + gated_mlp_apply(p["mlp"], h2, cfg.activation, use_pallas)
+
+
 def _layer_fwd(cfg: LMConfig, p, x, positions, *, attn_mode: str,
                chunk: int, use_pallas: bool = False):
     """One pre-norm layer over a whole sequence -> (x, (k, v))."""
@@ -119,9 +136,7 @@ def _layer_fwd(cfg: LMConfig, p, x, positions, *, attn_mode: str,
                          f"{attn_mode!r}")
     b, s = out.shape[:2]
     x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
-    h2 = rms_norm(x, p["ln2"])
-    x = x + gated_mlp_apply(p["mlp"], h2, cfg.activation, use_pallas)
-    return x, (k, v)
+    return _ffn(cfg, p, x, use_pallas), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +156,8 @@ def _unembed(cfg: LMConfig, params, x):
 def forward_train(cfg: LMConfig, params, tokens, positions, *,
                   attn_mode: str = "full", chunk: int = 1024,
                   use_pallas: bool = False):
-    """tokens (B, S) -> logits (B, S, V); the forward of the training
-    step (its loss and backward come with LM training, item 14)."""
-    require_dense(cfg)
+    """tokens (B, S) -> logits (B, S, V) in the compute dtype."""
+    require_ported(cfg)
     _check_params(cfg, params)
     x = _embed(cfg, params, tokens)
     for i in range(cfg.num_layers):
@@ -151,6 +165,18 @@ def forward_train(cfg: LMConfig, params, tokens, positions, *,
                           positions, attn_mode=attn_mode, chunk=chunk,
                           use_pallas=use_pallas)
     return _unembed(cfg, params, x)
+
+
+def lm_loss(cfg: LMConfig, params, tokens, labels, positions, **fw):
+    """Mean next-token cross-entropy (``labels`` are the tokens shifted by
+    the caller): logits in f32, logsumexp minus the gold logit.  Float
+    leaves are cast to ``cfg.compute_dtype`` first, differentiably (a no-op
+    for leaves already in it); ``fw`` goes to ``forward_train``."""
+    params = cast_floats(params, getattr(torch, cfg.compute_dtype))
+    logits = forward_train(cfg, params, tokens, positions, **fw).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -172,7 +198,7 @@ def prefill(cfg: LMConfig, params, tokens, positions, max_len: int, *,
     (B, 1, V), cache of ``max(max_len, S)`` positions, S filled, the rest
     zeros).  Each layer's k / v goes straight into the preallocated cache
     (the JAX version stacks them and pads once; same values)."""
-    require_dense(cfg)
+    require_ported(cfg)
     _check_params(cfg, params)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len, s), cache_dtype, tokens.device)
@@ -199,7 +225,7 @@ def decode_step(cfg: LMConfig, params, tokens, cache, positions, *,
     before ``pos``, so the result is the same; the returned cache shares
     the given one's ``k`` / ``v`` tensors, with ``pos + 1``.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     _check_params(cfg, params)
     pos = cache["pos"]
     if pos >= cache["k"].shape[2]:
@@ -217,7 +243,6 @@ def decode_step(cfg: LMConfig, params, tokens, cache, positions, *,
         v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
         b, s = out.shape[:2]
         x = x + out.reshape(b, s, -1) @ lp["attn"]["wo"]
-        h2 = rms_norm(x, lp["ln2"])
-        x = x + gated_mlp_apply(lp["mlp"], h2, cfg.activation, use_pallas)
+        x = _ffn(cfg, lp, x, use_pallas)
     logits = _unembed(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

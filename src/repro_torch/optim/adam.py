@@ -80,6 +80,7 @@ def adam_update(grads, state: dict, params, lr, cfg: AdamConfig = AdamConfig()):
     torch._foreach_mul_(g2, g)
     torch._foreach_mul_(nu, b2)
     torch._foreach_add_(nu, g2)
+    del g2  # a copy of the gradients: free it before upd and den
     c = np.float32(count.item())
     bc1 = float(np.float32(1.0) - np.float32(b1) ** c)
     bc2 = float(np.float32(1.0) - np.float32(b2) ** c)

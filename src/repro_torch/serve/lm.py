@@ -1,13 +1,16 @@
 """Greedy LM serving steps on the card: the counterparts of the prefill and
-decode steps of ``repro.launch.steps.build_cell`` for the dense family.
+decode steps of ``repro.launch.steps.build_cell`` for the dense and MoE
+families.
 
 Each step returns greedy token ids, not logits, so its output stays small
 on a 128k-256k vocabulary, and runs under ``torch.inference_mode``.  The
 weights are cast once to the serving dtype (bf16, as ``build_cell``'s
 ``serve_dtype`` holds them), which is what halves the per-token weight
 read.  ``use_pallas`` (the JAX flag's name) runs every layer's MLP through
-the fused gated feed-forward kernel (``kernels.ops.fused_swiglu``): the
-port's serving path does by default.  The JAX TPU steps leave the MLP to
+the fused gated feed-forward kernel (``kernels.ops.fused_swiglu``), and
+in the MoE family the shared experts' (the routed experts are einsums
+over stacked weights, as in JAX): the port's serving path does by
+default.  The JAX TPU steps leave the MLP to
 XLA; ``use_pallas=False`` is that path, plain PyTorch.
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ def load_serving_params(tree, cfg: LMConfig, device=None, *,
     CUDA) with every float leaf cast to ``serve_dtype``, once.  The steps
     need it equal to ``cfg.compute_dtype`` (bf16 for every full config;
     the SMOKE configs compute in f32)."""
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, serve_dtype)
 

@@ -296,6 +296,25 @@ def make_chgnet_step_fns(model_cfg: CHGNetConfig, train_cfg: TrainConfig):
     return train_step, eval_step, serve_step
 
 
+def make_chgnet_eval_serve_step(model_cfg: CHGNetConfig,
+                                train_cfg: TrainConfig):
+    """``eval_serve_step(params, batch) -> (metrics, outputs)``: ONE
+    forward, whose outputs are returned and give the eval metrics, for
+    callers that want predictions and errors (validation that archives
+    outputs, MD loops that log errors) without two forwards.  It runs
+    under ``torch.no_grad()`` like ``serve_step``: the direct readout
+    records nothing, the autodiff readout turns autograd on for its own
+    derivative.  The JAX signature's ``cache`` and ``donate`` are dropped
+    (``make_chgnet_step_fns``)."""
+
+    @torch.no_grad()
+    def eval_serve_step(params, batch):
+        out = chgnet_apply(params, model_cfg, batch)
+        return chgnet_loss(out, batch, train_cfg.loss)[1], out
+
+    return eval_serve_step
+
+
 def _with_stop(values: dict, stop) -> dict:
     """``values`` plus this rank's stop flag (SIGTERM) as a float, to ride
     the step's metrics all-reduce; unchanged when ``stop`` is None."""

@@ -43,7 +43,12 @@ def test_port_files_exist():
             "src/repro_torch/runtime/elastic.py",
             "src/repro_torch/distributed/mesh.py",
             "src/repro_torch/distributed/collectives.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/steps.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/qwen15_110b.py",
+            "src/repro_torch/configs/phi35_moe.py",
+            "src/repro_torch/configs/deepseek_moe_16b.py"} <= names
 
 
 def test_every_library_has_its_source():
@@ -110,6 +115,8 @@ def test_port_imports_without_jax():
         "import repro_torch.configs.chgnet_mptrj\n"
         "import repro_torch.models, repro_torch.serve.lm\n"
         "import repro_torch.configs.llama3_8b\n"
+        "import repro_torch.configs.deepseek_moe_16b\n"
+        "import repro_torch.models.moe, repro_torch.launch.steps\n"
         "import repro_torch.kernels.build\n"
         "import repro_torch.batching.balance, repro_torch.batching.cost\n"
         "import repro_torch.runtime, repro_torch.launch.train\n"

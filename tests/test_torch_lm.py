@@ -1,7 +1,9 @@
 """The port's dense LM substrate (``repro_torch.models``, ``serve.lm``)
 against ``repro.models`` on the CPU at the SMOKE sizes: the layers, the
-logits of ``forward_train`` for llama3-8b, gemma-2b and qwen3-8b, prefill
-and decode, the weight bridge and the configs.
+logits of ``forward_train`` for llama3-8b, gemma-2b, qwen3-8b and
+qwen1.5-110b, prefill and decode, the weight bridge and the configs (the
+MoE family is in tests/test_torch_moe.py, training in
+tests/test_torch_lm_train.py).
 
 Both packages get one parameter tree (JAX's ``decoder_init``, through
 ``convert.lm_params_from_numpy``) and one set of numpy tokens.  Tolerances:
@@ -34,7 +36,8 @@ from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serve import lm  # noqa: E402
 
-DENSE = ["llama3-8b", "gemma-2b", "qwen3-8b"]
+DENSE = ["llama3-8b", "gemma-2b", "qwen3-8b", "qwen1.5-110b"]
+PORTED = DENSE + ["phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"]
 
 
 def _np(a):
@@ -298,16 +301,19 @@ def test_lm_params_from_numpy_round_trips(dtype):
 # configs, registry, devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_full_config_matches_assignment(arch):
     cfg = tconfigs.get_config(arch)
     expected = {
         "llama3-8b": (32, 4096, 32, 8, 14336, 128256),
         "gemma-2b": (18, 2048, 8, 1, 16384, 256000),
         "qwen3-8b": (36, 4096, 32, 8, 12288, 151936),
+        "qwen1.5-110b": (80, 8192, 64, 8, 49152, 152064),
+        "phi3.5-moe-42b-a6.6b": (32, 4096, 32, 8, 6400, 32064),
+        "deepseek-moe-16b": (28, 2048, 16, 16, 1408, 102400),
     }[arch]
     got = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-           cfg.d_ff, cfg.vocab_size)
+           cfg.moe.d_ff_expert if cfg.is_moe else cfg.d_ff, cfg.vocab_size)
     assert got == expected
     assert _same(jax_config(arch), cfg)
     assert _same(jax_smoke(arch), tconfigs.get_smoke(arch))
@@ -322,12 +328,14 @@ def test_llama3_8b_serving_size():
 
 def test_other_archs_raise():
     assert tconfigs.ARCH_IDS == ARCH_IDS
-    for arch in set(ARCH_IDS) - set(DENSE):
-        with pytest.raises(NotImplementedError, match="item 14"):
+    others = set(ARCH_IDS) - set(PORTED)
+    assert others == {"whisper-medium", "qwen2-vl-2b", "zamba2-1.2b",
+                      "rwkv6-3b"}
+    for arch in others:
+        with pytest.raises(NotImplementedError, match="item 14d"):
             tconfigs.get_config(arch)
-        if jax_smoke(arch).family != "dense":
-            with pytest.raises(NotImplementedError, match="item 14"):
-                tapi.family_fns(jax_smoke(arch))
+        with pytest.raises(NotImplementedError, match="item 14d"):
+            tapi.family_fns(jax_smoke(arch))
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-5")
     fns = tapi.family_fns(tconfigs.get_smoke("gemma-2b"))
