@@ -58,12 +58,15 @@ def _to_numpy(tree):
 
 
 def lm_params_from_numpy(tree):
-    """Numpy LM parameter tree (``repro.models.transformer.decoder_init``'s
-    layout after ``jax.tree.map(np.asarray, ...)``) -> the port's tree of
-    CPU tensors: the same nested dicts, stacked ``layers`` leaves and
-    ``x @ w`` weights, so every leaf is copied and none transposed.  bf16
-    leaves (numpy's ``bfloat16`` extension type, which ``torch.from_numpy``
-    does not take) are copied bit for bit as ``torch.bfloat16``."""
+    """Numpy LM parameter tree (the layout of any family's JAX init after
+    ``jax.tree.map(np.asarray, ...)``: ``transformer.decoder_init``'s
+    ``layers``, ``hybrid.zamba_init``'s ``layers`` + ``shared``,
+    ``rwkv.rwkv_init``'s ``layers``, ``encdec.whisper_init``'s
+    ``encoder`` / ``decoder``) -> the port's tree of CPU tensors: the same
+    nested dicts, stacked leaves and ``x @ w`` weights, so every leaf is
+    copied and none transposed.  bf16 leaves (numpy's ``bfloat16``
+    extension type, which ``torch.from_numpy`` does not take) are copied
+    bit for bit as ``torch.bfloat16``."""
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v) for k, v in tree.items()}
     return _leaf_from_numpy(tree)

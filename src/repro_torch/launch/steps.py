@@ -21,12 +21,14 @@ from repro_torch.optim.grad import global_norm
 from repro_torch.optim.tree import leaves
 
 
-def lm_grads(cfg: LMConfig, params, inputs, accum_steps: int = 1):
+def lm_grads(cfg: LMConfig, params, inputs, accum_steps: int = 1,
+             **loss_kw):
     """``(loss, grads)``: the mean loss over ``accum_steps`` microbatches
-    of ``inputs`` (tokens, labels, positions), a 0-d f32 tensor, and the
+    of ``inputs`` (the family's: tokens or whisper's frames, labels, and
+    positions where the family has them), a 0-d f32 tensor, and the
     gradients of ``params``' leaves (in ``leaves`` order; the leaves are
     set to require gradients) summed over the microbatches and divided
-    by K."""
+    by K.  ``loss_kw`` goes to the family's loss (``ssd_chunk``)."""
     loss_fn = family_fns(cfg).loss
     b = inputs[0].shape[0]
     if b % accum_steps:
@@ -37,7 +39,7 @@ def lm_grads(cfg: LMConfig, params, inputs, accum_steps: int = 1):
     flat = [p.requires_grad_() for p in leaves(params)]
     gsum, loss_sum = None, torch.zeros((), device=flat[0].device)
     for i in range(accum_steps):
-        loss = loss_fn(cfg, params, *(m[i] for m in micro))
+        loss = loss_fn(cfg, params, *(m[i] for m in micro), **loss_kw)
         grads = list(torch.autograd.grad(loss, flat))
         if gsum is None:
             gsum = grads
@@ -54,15 +56,17 @@ def lm_grads(cfg: LMConfig, params, inputs, accum_steps: int = 1):
 
 def make_lm_train_step(cfg: LMConfig, *, accum_steps: int = 1,
                        lr: float = 1e-4, grad_clip: float = 1.0,
-                       compress_grads: bool = False):
-    """``train_step(params, opt_state, tokens, labels, positions) ->
-    (params, opt_state, loss)``: ``params`` (f32 master weights) and
-    ``opt_state`` (``adam_init``) are updated in place, ``loss`` is the
-    microbatches' mean loss, a 0-d f32 tensor on the parameters' device.
-    ``grad_clip=math.inf`` leaves the gradients unclipped."""
+                       compress_grads: bool = False, **loss_kw):
+    """``train_step(params, opt_state, *inputs) -> (params, opt_state,
+    loss)``, ``inputs`` the family's (``lm_grads``): ``params`` (f32
+    master weights) and ``opt_state`` (``adam_init``) are updated in
+    place, ``loss`` is the microbatches' mean loss, a 0-d f32 tensor on
+    the parameters' device.  ``grad_clip=math.inf`` leaves the gradients
+    unclipped; ``loss_kw`` goes to the family's loss (the hybrid's
+    ``ssd_chunk``)."""
 
     def train_step(params, opt_state, *inputs):
-        loss, grads = lm_grads(cfg, params, inputs, accum_steps)
+        loss, grads = lm_grads(cfg, params, inputs, accum_steps, **loss_kw)
         with torch.no_grad():
             if compress_grads:
                 for g in grads:

@@ -18,9 +18,10 @@ leaves), rank 0 of the job prints and position 0 of the mesh writes the
 checkpoints.  More ranks than visible GPUs raise.
 
 ``--arch <LM id>`` trains that architecture's ``SMOKE`` config from the
-seed (``train_lm``, the JAX launcher's LM mode) on ``--device``; the
-families the port lacks (encoder-decoder, VLM, hybrid, RWKV) raise
-``NotImplementedError`` (ROADMAP item 14d).
+seed (``train_lm``, the JAX launcher's LM mode) on ``--device``, for any
+of the ten ids: each family gets its own inputs (whisper float frames,
+qwen2-vl (B, S, 3) positions, none for rwkv and whisper; the hybrid at
+``ssd_chunk=8``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-moe-16b --steps 4 [--device cpu]
@@ -34,9 +35,11 @@ import tempfile
 
 def train_lm(args) -> int:
     """The JAX launcher's LM mode: the ``SMOKE`` config of ``--arch``,
-    parameters from seed 0, Adam at 1e-3, batches of 4 x 32 numpy
-    ``default_rng(0)`` tokens and labels; prints the loss about every
-    tenth step and returns the steps taken."""
+    parameters from seed 0, Adam at 1e-3, batches of 4 x 32 from numpy's
+    ``default_rng(0)`` as the JAX launcher draws them (tokens, or whisper's
+    N(0, 1) frames, then labels; positions 0..31, on all three M-RoPE
+    components); prints the loss about every tenth step and returns the
+    steps taken."""
     import math
 
     import numpy as np
@@ -50,21 +53,31 @@ def train_lm(args) -> int:
     from repro_torch.optim.tree import leaves
 
     cfg = get_smoke(args.arch)
+    fns = family_fns(cfg)
     # "cuda" is the card, and without CUDA an error
     device = resolve_device(None if args.device == "cuda" else args.device)
-    params = family_fns(cfg).init(cfg, 0, device=device)
+    params = fns.init(cfg, 0, device=device)
     opt = adam_init(params)
-    step = make_lm_train_step(cfg, lr=1e-3, grad_clip=math.inf)
+    kw = dict(ssd_chunk=8) if cfg.family == "hybrid" else {}
+    step = make_lm_train_step(cfg, lr=1e-3, grad_clip=math.inf, **kw)
     rng = np.random.default_rng(0)
     b, s = 4, 32
     pos = torch.arange(s, device=device).expand(b, s)
+    if fns.positions_3d:
+        pos = pos[..., None].expand(b, s, 3)
     print(f"arch={cfg.name} (SMOKE) family={cfg.family} device={device} "
           f"parameters={sum(p.numel() for p in leaves(params))}", flush=True)
     for i in range(args.steps):
-        x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        if fns.token_input:
+            x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        else:
+            x = torch.from_numpy(
+                rng.normal(0, 1, (b, s, cfg.d_model)).astype(np.float32))
         labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
-        params, opt, loss = step(params, opt, x.to(device), labels.to(device),
-                                 pos)
+        batch = [x.to(device), labels.to(device)]
+        if fns.has_positions:
+            batch.append(pos)
+        params, opt, loss = step(params, opt, *batch)
         if i % max(1, args.steps // 10) == 0:
             print(f"  step {i:3d} loss {float(loss):.4f}", flush=True)
     return args.steps

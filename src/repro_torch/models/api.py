@@ -1,27 +1,35 @@
 """Per-family API of the port's LM substrate.
 
 ``family_fns(cfg)`` returns the family's bundle: init, the training loss,
-logits over a sequence, prefill and decode.  The JAX ``FamilyFns`` also
-carries sharding specs for the TPU mesh; those have no counterpart here.
-The dense and MoE families are ported; every other family raises
-(ROADMAP item 14d).
+logits over a sequence, prefill and decode, with one calling convention
+across the five families (dense / MoE / VLM through
+``models.transformer``, ``models.encdec``, ``models.hybrid``,
+``models.rwkv``), mirroring ``repro.models.api``.  The JAX ``FamilyFns``
+also carries sharding specs for the TPU mesh; those have no counterpart
+here.  ``prefill`` is ``(cfg, params, inputs, positions, max_len, **kw)
+-> (logits, state)`` for every family: rwkv ignores ``max_len`` (its
+state is O(1)); whisper's is ``encode`` + ``init_cache``, and its logits
+are the JAX serving step's placeholder readout (``repro.launch.steps.
+build_cell``), whose greedy token is 0.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from . import transformer
+import torch
+
+from . import encdec, hybrid, rwkv, transformer
 from .config import LMConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class FamilyFns:
     init: Callable              # (cfg, seed, *, device, dtype) -> params
-    loss: Callable              # (cfg, params, tokens, labels, positions)
-    forward: Callable           # (cfg, params, tokens, positions) -> logits
-    prefill: Callable           # (cfg, params, tokens, positions, max_len)
-    decode_step: Callable       # (cfg, params, tokens, cache, positions)
+    loss: Callable              # (cfg, params, inputs, labels, [positions])
+    forward: Callable           # (cfg, params, inputs, positions) -> logits
+    prefill: Callable           # (cfg, params, inputs, positions, max_len)
+    decode_step: Callable       # (cfg, params, tokens, state, positions)
     init_decode_state: Callable  # (cfg, batch, max_len, dtype, device)
     has_positions: bool         # the forwards take positions
     positions_3d: bool          # M-RoPE (B, S, 3)
@@ -29,11 +37,7 @@ class FamilyFns:
     supports_long_context: bool
 
 
-def family_fns(cfg: LMConfig) -> FamilyFns:
-    if cfg.family not in ("dense", "moe", "vlm", "encdec", "hybrid",
-                          "rwkv"):
-        raise ValueError(f"unknown family {cfg.family!r}")
-    transformer.require_ported(cfg)
+def _transformer_fns(cfg: LMConfig) -> FamilyFns:
     return FamilyFns(
         init=transformer.decoder_init,
         loss=transformer.lm_loss,
@@ -42,7 +46,90 @@ def family_fns(cfg: LMConfig) -> FamilyFns:
         decode_step=transformer.decode_step,
         init_decode_state=transformer.init_cache,
         has_positions=True,
-        positions_3d=False,
+        positions_3d=bool(cfg.mrope_sections),
         token_input=True,
         supports_long_context=False,
     )
+
+
+def _encdec_fns(cfg: LMConfig) -> FamilyFns:
+    def loss(c, params, frames, labels, positions=None, **fw):
+        return encdec.lm_loss(c, params, frames, labels, **fw)
+
+    def prefill(c, params, frames, positions, max_len, *, chunk=1024,
+                cache_dtype=torch.bfloat16):
+        enc_out = encdec.encode(c, params, frames, attn_mode="chunked",
+                                chunk=chunk)
+        cache = encdec.init_cache(c, params, enc_out, max_len, cache_dtype)
+        return enc_out[:, -1:, :1], cache  # placeholder readout: token 0
+
+    def decode(c, params, tokens, state, positions=None):
+        return encdec.decode_step(c, params, tokens, state)
+
+    def init_state(c, batch, max_len, dtype=torch.bfloat16, device=None):
+        raise NotImplementedError(
+            "the cache holds the encoder's cross K / V: use "
+            "encdec.init_cache(cfg, params, enc_out, max_len) directly")
+
+    return FamilyFns(
+        init=encdec.whisper_init,
+        loss=loss,
+        forward=encdec.forward_train,   # (cfg, params, frames, dec_tokens)
+        prefill=prefill,
+        decode_step=decode,
+        init_decode_state=init_state,
+        has_positions=False,
+        positions_3d=False,
+        token_input=False,
+        supports_long_context=False,
+    )
+
+
+def _hybrid_fns(cfg: LMConfig) -> FamilyFns:
+    return FamilyFns(
+        init=hybrid.zamba_init,
+        loss=hybrid.lm_loss,
+        forward=hybrid.forward_train,
+        prefill=hybrid.prefill,
+        decode_step=hybrid.decode_step,
+        init_decode_state=hybrid.init_state,
+        has_positions=True,
+        positions_3d=False,
+        token_input=True,
+        supports_long_context=True,
+    )
+
+
+def _rwkv_fns(cfg: LMConfig) -> FamilyFns:
+    def prefill(c, params, tokens, positions=None, max_len=None):
+        del max_len  # O(1) state, independent of context length
+        return rwkv.prefill(c, params, tokens)
+
+    def init_state(c, batch, max_len, dtype=torch.bfloat16, device=None):
+        del max_len
+        return rwkv.rwkv_init_states(c, batch, dtype, device)
+
+    return FamilyFns(
+        init=rwkv.rwkv_init,
+        loss=rwkv.lm_loss,
+        forward=rwkv.forward_train,
+        prefill=prefill,
+        decode_step=rwkv.decode_step,
+        init_decode_state=init_state,
+        has_positions=False,
+        positions_3d=False,
+        token_input=True,
+        supports_long_context=True,
+    )
+
+
+def family_fns(cfg: LMConfig) -> FamilyFns:
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _transformer_fns(cfg)
+    if cfg.family == "encdec":
+        return _encdec_fns(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_fns(cfg)
+    if cfg.family == "rwkv":
+        return _rwkv_fns(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -4,7 +4,7 @@ The port's own copy of ``repro.models.config`` (plain dataclasses; the
 port never imports the JAX package).  One dataclass; family-specific
 fields are ignored by other families.  ``configs/<arch>.py`` instantiates
 these with the exact assigned values and provides a ``SMOKE`` reduction
-for CPU tests.  The port runs the dense family (``models.api``).
+for CPU tests.  The port runs every family (``models.api``).
 """
 from __future__ import annotations
 

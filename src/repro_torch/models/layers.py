@@ -1,5 +1,6 @@
-"""Shared LM layers, forward only: RMSNorm, RoPE, GQA attention (full,
-q-chunked, decode-merge), the gated MLP and the attention projections.
+"""Shared LM layers, forward only: RMSNorm, RoPE and M-RoPE, GQA attention
+(full, q-chunked, decode-merge), the gated and the plain MLP, the
+attention projections and the next-token cross-entropy.
 
 Mirrors ``repro.models.layers`` function for function, params-in and
 value-out, with the same rounding points: ``rms_norm`` takes its variance
@@ -72,7 +73,7 @@ def rms_norm(x, scale, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def _inv_freqs(head_dim: int, theta: float, device=None):
@@ -81,15 +82,35 @@ def _inv_freqs(head_dim: int, theta: float, device=None):
                                    device=device) / half)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, D); positions: (B, S) int -> rotated x."""
-    d = x.shape[-1]
-    inv = _inv_freqs(d, theta, x.device)
-    ang = positions[..., None].to(torch.float32) * inv  # (B, S, D/2)
+def _rotate(x, ang):
+    """x: (B, S, H, D) rotated by the angles ang (B, S, D/2), cos / sin
+    cast to ``x.dtype``."""
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) int -> rotated x."""
+    inv = _inv_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * inv)
+
+
+def apply_mrope(x, positions, sections: tuple[int, ...], theta: float):
+    """Qwen2-VL M-RoPE. positions: (B, S, 3) for (t, h, w); ``sections``
+    splits the D/2 frequency slots across the three position components."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not split "
+                         f"head_dim / 2 = {d // 2}")
+    inv = _inv_freqs(d, theta, x.device)  # (D/2,)
+    comp, off = [], 0
+    for i, sec in enumerate(sections):
+        comp.append(positions[..., i:i + 1].to(torch.float32)
+                    * inv[off:off + sec])
+        off += sec
+    return _rotate(x, torch.cat(comp, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +224,27 @@ def gated_mlp_init(mk: Maker, d: int, f: int, *, stack: int | None = None):
             "wd": mk.make((f, d), stack=stack)}
 
 
+def plain_mlp_init(mk: Maker, d: int, f: int, *, stack: int | None = None):
+    return {"w1": mk.make((d, f), stack=stack),
+            "b1": mk.make((f,), init="zeros", stack=stack),
+            "w2": mk.make((f, d), stack=stack),
+            "b2": mk.make((d,), init="zeros", stack=stack)}
+
+
+def plain_mlp_apply(p, x):
+    """Whisper's ungated MLP: tanh-GELU between two biased linears."""
+    h = torch.nn.functional.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
+
+
+def cross_entropy(logits, labels):
+    """Mean next-token cross-entropy of f32 ``logits`` (B, S, V) against
+    ``labels`` (B, S): logsumexp minus the gold logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
 # ---------------------------------------------------------------------------
 # Attention block params
 # ---------------------------------------------------------------------------
@@ -243,8 +285,9 @@ def attn_qkv(p, x, cfg, positions):
         k = rms_norm(k, p["k_norm"])
     if positions is not None:
         if cfg.mrope_sections:
-            raise NotImplementedError(
-                "M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 14d)")
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+            q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

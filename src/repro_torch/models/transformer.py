@@ -1,18 +1,19 @@
-"""Decoder-only transformer LM, dense and MoE families: logits over a
+"""Decoder-only transformer LM, dense, MoE and VLM families: logits over a
 sequence, the next-token loss, prefill into a KV cache, one-token decode.
 
 Mirrors ``repro.models.transformer`` (llama3, gemma with GeGLU and tied
-embeddings, qwen3 with qk-norm, qwen1.5's qkv bias, phi3.5-moe and
-deepseek-moe through ``models.moe``).  The parameter tree has the JAX
-layout: ``embed`` (V, d), ``final_norm`` (d,), ``unembed`` (d, V) unless
-tied, and ``layers`` with every leaf stacked along a leading L axis
-(``mlp``, or ``moe`` in the MoE family).  The JAX ``lax.scan`` over
-layers becomes a Python loop over views of the stacked leaves; remat and
-``layer_block`` are training memory policies and do not carry over.
-``_layer_fwd`` keeps the full and q-chunked attention modes; its
-cache-writing decode mode, which no JAX caller uses, is left out
-(``decode_step`` has its own).  The other families raise (ROADMAP item
-14d).
+embeddings, qwen3 with qk-norm, qwen1.5's qkv bias, qwen2-vl's M-RoPE
+over (B, S, 3) positions, phi3.5-moe and deepseek-moe through
+``models.moe``).  The parameter tree has the JAX layout: ``embed`` (V,
+d), ``final_norm`` (d,), ``unembed`` (d, V) unless tied, and ``layers``
+with every leaf stacked along a leading L axis (``mlp``, or ``moe`` in
+the MoE family).  The JAX ``lax.scan`` over layers becomes a Python loop
+over views of the stacked leaves; remat and ``layer_block`` are training
+memory policies and do not carry over.  ``_layer_fwd`` keeps the full
+and q-chunked attention modes; its cache-writing decode mode, which no
+JAX caller uses, is left out (``decode_step`` has its own).  The other
+families have modules of their own: ``models.hybrid``, ``models.rwkv``
+and ``models.encdec``.
 
 The forwards take parameters already in ``cfg.compute_dtype`` and raise
 otherwise: serving casts once (``serve.lm.load_serving_params``), where
@@ -35,6 +36,7 @@ from .layers import (
     attention_full,
     attn_init,
     attn_qkv,
+    cross_entropy,
     gated_mlp_apply,
     gated_mlp_init,
     rms_norm,
@@ -42,13 +44,20 @@ from .layers import (
 from .moe import moe_apply, moe_init
 
 
+def require_family(cfg: LMConfig, families: tuple, module: str) -> None:
+    """Raise unless ``cfg``'s family is one of ``families``, the ones
+    ``models.<module>`` runs."""
+    if cfg.family not in families:
+        raise ValueError(
+            f"{cfg.name}: models.{module} runs the {'/'.join(families)} "
+            f"families, not {cfg.family!r}; use models.api.family_fns")
+
+
 def require_ported(cfg: LMConfig) -> None:
-    """Raise unless ``cfg`` is a decoder of a family the port runs: dense,
-    or MoE."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP item 14d)")
+    """Raise unless ``cfg`` is a decoder of this module's families: dense,
+    MoE or VLM (the others run in ``models.hybrid``, ``models.rwkv`` and
+    ``models.encdec``)."""
+    require_family(cfg, ("dense", "moe", "vlm"), "transformer")
 
 
 def _float_leaves(tree):
@@ -174,9 +183,7 @@ def lm_loss(cfg: LMConfig, params, tokens, labels, positions, **fw):
     for leaves already in it); ``fw`` goes to ``forward_train``."""
     params = cast_floats(params, getattr(torch, cfg.compute_dtype))
     logits = forward_train(cfg, params, tokens, positions, **fw).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    return cross_entropy(logits, labels)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

@@ -48,7 +48,15 @@ def test_port_files_exist():
             "src/repro_torch/models/moe.py",
             "src/repro_torch/configs/qwen15_110b.py",
             "src/repro_torch/configs/phi35_moe.py",
-            "src/repro_torch/configs/deepseek_moe_16b.py"} <= names
+            "src/repro_torch/configs/deepseek_moe_16b.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/hybrid.py",
+            "src/repro_torch/models/rwkv.py",
+            "src/repro_torch/models/encdec.py",
+            "src/repro_torch/configs/qwen2_vl_2b.py",
+            "src/repro_torch/configs/zamba2_1p2b.py",
+            "src/repro_torch/configs/rwkv6_3b.py",
+            "src/repro_torch/configs/whisper_medium.py"} <= names
 
 
 def test_every_library_has_its_source():
@@ -121,6 +129,15 @@ def test_port_imports_without_jax():
         "import repro_torch.batching.balance, repro_torch.batching.cost\n"
         "import repro_torch.runtime, repro_torch.launch.train\n"
         "import repro_torch.distributed, repro_torch.runtime.elastic\n"
+        "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
+        "import repro_torch.models.rwkv, repro_torch.models.encdec\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "from repro_torch.models.api import family_fns\n"
+        "for arch in ARCH_IDS:\n"
+        "    family_fns(get_config(arch))\n"
+        "from repro_torch.launch import train\n"
+        "assert train.main(['--arch', 'zamba2-1.2b', '--steps', '1',\n"
+        "                   '--device', 'cpu']) == 1\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

@@ -30,6 +30,7 @@ from repro.configs import get_smoke as jax_smoke  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.convert import _to_numpy  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
@@ -301,7 +302,7 @@ def test_lm_params_from_numpy_round_trips(dtype):
 # configs, registry, devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_full_config_matches_assignment(arch):
     cfg = tconfigs.get_config(arch)
     expected = {
@@ -311,6 +312,10 @@ def test_full_config_matches_assignment(arch):
         "qwen1.5-110b": (80, 8192, 64, 8, 49152, 152064),
         "phi3.5-moe-42b-a6.6b": (32, 4096, 32, 8, 6400, 32064),
         "deepseek-moe-16b": (28, 2048, 16, 16, 1408, 102400),
+        "whisper-medium": (24, 1024, 16, 16, 4096, 51865),
+        "qwen2-vl-2b": (28, 1536, 12, 2, 8960, 151936),
+        "zamba2-1.2b": (38, 2048, 32, 32, 8192, 32000),
+        "rwkv6-3b": (32, 2560, 40, 40, 8960, 65536),
     }[arch]
     got = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
            cfg.moe.d_ff_expert if cfg.is_moe else cfg.d_ff, cfg.vocab_size)
@@ -327,17 +332,26 @@ def test_llama3_8b_serving_size():
 
 
 def test_other_archs_raise():
+    """Every id of JAX's registry resolves (the four families of
+    qwen2-vl, zamba2, rwkv6 and whisper included), its CONFIG and SMOKE
+    equal JAX's field by field, and ``family_fns`` has a bundle with
+    JAX's flags for each; an unknown id or family still raises."""
+    from repro.models.api import family_fns as jax_family_fns
+
     assert tconfigs.ARCH_IDS == ARCH_IDS
-    others = set(ARCH_IDS) - set(PORTED)
-    assert others == {"whisper-medium", "qwen2-vl-2b", "zamba2-1.2b",
-                      "rwkv6-3b"}
-    for arch in others:
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            tconfigs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            tapi.family_fns(jax_smoke(arch))
+    for arch in ARCH_IDS:
+        assert _same(jax_config(arch), tconfigs.get_config(arch)), arch
+        assert _same(jax_smoke(arch), tconfigs.get_smoke(arch)), arch
+        cfg = tconfigs.get_smoke(arch)
+        fns, jfns = tapi.family_fns(cfg), jax_family_fns(jax_smoke(arch))
+        for flag in ("has_positions", "positions_3d", "token_input",
+                     "supports_long_context"):
+            assert getattr(fns, flag) == getattr(jfns, flag), (arch, flag)
+    assert tapi.family_fns(tconfigs.get_smoke("qwen2-vl-2b")).positions_3d
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-5")
+    with pytest.raises(ValueError, match="unknown family"):
+        tapi.family_fns(tconfigs.get_smoke("gemma-2b").with_(family="cnn"))
     fns = tapi.family_fns(tconfigs.get_smoke("gemma-2b"))
     assert fns.forward is tt.forward_train and fns.has_positions
 
@@ -352,3 +366,22 @@ def test_load_serving_params_needs_cuda(monkeypatch):
         tt.decoder_init(cfg, 0)
     out = lm.load_serving_params(tree, cfg, "cpu")
     assert out["layers"]["mlp"]["wg"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "zamba2-1.2b", "rwkv6-3b",
+                                  "whisper-medium"])
+def test_lm_params_from_numpy_carries_new_families(arch):
+    """The weight bridge carries the trees of item 14d's families (the
+    VLM decoder, the hybrid's ``layers`` + ``shared``, rwkv's ``layers``,
+    whisper's ``encoder`` / ``decoder``) bit for bit, f32 and bf16."""
+    cfg = tconfigs.get_smoke(arch)
+    tree = tapi.family_fns(cfg).init(cfg, 0, device="cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        src = jax.tree.map(lambda t, d=dtype: _to_numpy(t.to(d)), tree)
+        got = lm_params_from_numpy(src)
+        assert jax.tree.structure(jax.tree.map(lambda t: 0, got)) == \
+            jax.tree.structure(jax.tree.map(lambda a: 0, src))
+        for t, a in zip(jax.tree.leaves(got), jax.tree.leaves(src)):
+            assert t.dtype == dtype and tuple(t.shape) == a.shape
+            assert np.array_equal(_to_numpy(t).view(np.uint8),
+                                  np.asarray(a).view(np.uint8))

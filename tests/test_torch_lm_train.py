@@ -237,25 +237,45 @@ def test_make_lm_train_step_matches_jax_reference(compress, monkeypatch):
     assert int(opt["count"]) == 2
 
 
-@pytest.mark.parametrize("arch", PORTED)
+def _family_inputs(cfg, fns, b=2, s=16, seed=0):
+    """The inputs of tests/test_models_smoke.py's ``_inputs``: tokens (or
+    whisper's N(0, 1) frames), labels, and positions where the family has
+    them ((B, S, 3) for M-RoPE)."""
+    rng = np.random.default_rng(seed)
+    if fns.token_input:
+        x = rng.integers(0, cfg.vocab_size, (b, s))
+    else:
+        x = rng.normal(0, 1, (b, s, cfg.d_model)).astype(np.float32)
+    args = [x, rng.integers(0, cfg.vocab_size, (b, s))]
+    if fns.has_positions:
+        pos = np.broadcast_to(np.arange(s)[None], (b, s))
+        if fns.positions_3d:
+            pos = np.broadcast_to(pos[..., None], (b, s, 3))
+        args.append(pos.astype(np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_smoke_forward_and_train_step(arch):
     """Mirror of tests/test_models_smoke.py::
-    test_smoke_forward_and_train_step: the port's own seeded init, a
-    finite loss and gradients, and one SGD step that lowers the loss."""
+    test_smoke_forward_and_train_step for every architecture: the port's
+    own seeded init, a finite loss and gradients, and one SGD step that
+    lowers the loss (the hybrid at ``ssd_chunk=8``, as there)."""
     cfg = tconfigs.get_smoke(arch)
     assert cfg.family == tconfigs.get_config(arch).family
     fns = tapi.family_fns(cfg)
     params = fns.init(cfg, 0, device="cpu")
     flat = [p.requires_grad_() for p in leaves(params)]
-    (x, y, pos), = _batches(cfg, 1, b=2, s=16)
-    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (x, y, pos)]
-    loss = fns.loss(cfg, params, *args)
+    args = _family_inputs(cfg, fns)
+    kw = dict(ssd_chunk=8) if cfg.family == "hybrid" else {}
+    loss = fns.loss(cfg, params, *args, **kw)
     grads = torch.autograd.grad(loss, flat)
     assert np.isfinite(float(loss.detach()))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     with torch.no_grad():
         torch._foreach_sub_(flat, torch._foreach_mul(grads, 1e-2))
-        assert float(fns.loss(cfg, params, *args)) < float(loss.detach())
+        assert float(fns.loss(cfg, params, *args, **kw)) < \
+            float(loss.detach())
 
 
 def test_lm_loss_casts_master_weights():
@@ -278,12 +298,13 @@ def test_lm_loss_casts_master_weights():
 
 def test_launcher_trains_lm(capsys):
     """``--arch <LM id>`` trains the SMOKE config (the JAX launcher's LM
-    mode); the families the port lacks raise."""
-    argv = ["--arch", "deepseek-moe-16b", "--steps", "2", "--device", "cpu"]
-    assert launch_train.main(argv) == 2
-    out = capsys.readouterr().out
-    assert "step   0 loss" in out and "step   1 loss" in out
-    for arch in ("whisper-medium", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            launch_train.main(["--arch", arch, "--steps", "1",
-                               "--device", "cpu"])
+    mode): deepseek-moe, whisper-medium (float frames, no positions) and
+    rwkv6-3b, 2 steps each, a finite loss every step."""
+    for arch in ("deepseek-moe-16b", "whisper-medium", "rwkv6-3b"):
+        argv = ["--arch", arch, "--steps", "2", "--device", "cpu"]
+        assert launch_train.main(argv) == 2
+        out = capsys.readouterr().out
+        assert f"arch={arch} (SMOKE)" in out
+        losses = [float(line.split("loss")[1]) for line in out.splitlines()
+                  if "step" in line and "loss" in line]
+        assert len(losses) == 2 and all(np.isfinite(losses)), out
