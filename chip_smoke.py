@@ -227,7 +227,41 @@ PyTorch version:
      zamba2 6 at SSD chunk 128, rwkv6 2, whisper 2 + 2), f32 masters and
      bf16 compute, 4 x 512: every first gradient leaf finite, 1 + 2 steps
      with a falling loss; each SMOKE config's ``lm_loss`` on the card
-     against the CPU within 1e-4.
+     against the CPU within 1e-4;
+ 19. pipeline (GPipe, ``distributed.pipeline.gpipe_apply``): 4 spawned
+     processes share the card over gloo (NCCL refuses two ranks on one
+     device) on a (1, 4) ("data", "pipe") ``launch.mesh.make_host_mesh``;
+     llama3-8b's layers at full width (d 4096, 32 heads, 8 KV heads, F
+     14336), 8 of its 32 from the seed, 2 a stage, 8 microbatches of 1 x
+     512 hidden states at positions 0..511: the kernels' path in bf16
+     (every stage's MLP on kernel 10 at M 512) pipelined against the same
+     8 layers run one after another in one process at §4's bound (3e-2 *
+     max(1, max|p|), cosine 0.999; bit equality reported), against the
+     plain path at §4; the same in f32 within 1e-4; each stage's
+     gradients of sum(out ** 2) on the plain path in f32 against the
+     sequential ones within 1e-4 relative global norm, cosine 0.999999;
+     kernel 10 exactly M * L / S = 16 launches a rank (fill and drain
+     steps run no stage); every rank's outputs equal; ms of the pipelined
+     and the sequential forward on CUDA events beside ``bubble_fraction(4,
+     8)`` (four processes time-share one card: no speed-up can show), the
+     hop's bytes and ms, peak MiB a rank;
+ 20. launch: ``launch.steps.build_cell``'s train, prefill and decode
+     steps run for real on llama3-8b at full width cut to 2 layers, at
+     SHAPES' sequence lengths with the batch cut (train_4k 1 of 256, f32
+     masters, the default accum; prefill_32k 1 of 32, bf16, kernel 10 at
+     M 32,768; decode_32k 8 of 128 against a 32,768-position cache, bf16,
+     kernel 10 at M 8), their inputs checked against the cell's ``meta``
+     structures, each timed on CUDA events with peak MiB beside the
+     roofline's compute and memory terms of the same cut cell at one chip
+     (``analysis.roofline``; no collective term at one chip) and the
+     measured share of the larger; prefill and decode logits and caches
+     on the kernels' path against the plain path at §4; ``python -m
+     repro_torch.launch.dryrun --all`` in process (82 records: 66 ok, 16
+     skip), ``torch.cuda.memory_allocated()`` unchanged; the dry run's
+     CHGNet cell at one rank (``FAST_FS_HEAD``, one step on 8 crystals at
+     the per-device capacities 512 / 12,288 / 16,384), its peak MiB beside
+     the record's argument bytes.  Kernel 10 at the three new shapes joins
+     the ``kernels`` line.
 
 ``FAST_PALLAS``, ``WO_HEAD_PALLAS``, ``FUSED_MLP_PALLAS``,
 ``FAST_PALLAS_MIXED``, ``FAST_FUSED_SYM_MIXED`` and
@@ -238,7 +272,8 @@ products outside the kernels (cuBLAS) sum in f32
 ones.  Prints
 ``{"serve": ...}``, ``{"train": ...}``, ``{"dp": ...}``, ``{"lm": ...}``,
 ``{"eval_serve": ...}``, ``{"lm_train": ...}``, ``{"moe": ...}``,
-``{"qwen110b": ...}``, ``{"families": ...}`` and ``{"kernels": [...]}``
+``{"qwen110b": ...}``, ``{"families": ...}``, ``{"pipeline": ...}``,
+``{"launch": ...}`` and ``{"kernels": [...]}``
 JSON lines and, last, ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits nonzero; without CUDA it exits nonzero before printing a
 result.
@@ -292,14 +327,23 @@ from repro_torch.data import (  # noqa: E402
     generate_crystal,
     make_dataset,
 )
+from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
     GRAD_REDUCE,
     all_reduce_grads,
     bucket_plan,
     init_data_mesh,
 )
+from repro_torch.distributed import pipeline as gpipe  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import LogicalMesh, make_host_mesh  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch.steps import lm_grads, make_lm_train_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_cell,
+    lm_grads,
+    make_lm_train_step,
+)
 from repro_torch.models import (  # noqa: E402
     hybrid,
     layers,
@@ -4340,6 +4384,623 @@ def dp_phase(ds, ladder, seed: int, card: str, root: Path) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the pipeline phase: GPipe over torch.distributed (distributed.pipeline)
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width, 8 of its 32 layers pipelined over 4 ranks that
+# share the card over gloo (2 layers a stage), 8 microbatches of 1 x 512
+# hidden states at positions 0..511
+PIPE_RANKS, PIPE_LAYERS, PIPE_MICRO, PIPE_TOKENS = 4, 8, 8, 512
+PIPE_HOPS = 10  # timed ring hops
+
+
+def _pipe_layers(cfg, seed: int) -> dict:
+    """The 8 layers' stacked f32 weights drawn from ``seed`` on the card:
+    every rank draws the same tree (no embedding table)."""
+    mk = layers.Maker(seed, "cuda", torch.float32)
+    n, d = PIPE_LAYERS, cfg.d_model
+    return {"ln1": mk.make((d,), init="ones", stack=n),
+            "ln2": mk.make((d,), init="ones", stack=n),
+            "attn": layers.attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim, stack=n),
+            "mlp": layers.gated_mlp_init(mk, d, cfg.d_ff, stack=n)}
+
+
+def _pipe_inputs(cfg, seed: int):
+    """(M, 1, 512, d) f32 hidden states from the seed, positions (1, 512)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x = torch.randn((PIPE_MICRO, 1, PIPE_TOKENS, cfg.d_model),
+                    generator=gen, device="cuda")
+    return x, torch.arange(PIPE_TOKENS, device="cuda")[None]
+
+
+def _digest_tensor(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def _events_ms(fn) -> tuple:
+    """(result, ms) of one call of ``fn`` on CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _pipe_rank_runs(mesh, seed: int) -> dict:
+    """One rank of the pipeline phase (see ``pipeline_phase``)."""
+    cfg = lm_configs.get_config(LM_ARCH)
+    line = mesh.line("pipe")
+    s, idx = line.size, line.rank
+    lo, hi = idx * PIPE_LAYERS // s, (idx + 1) * PIPE_LAYERS // s
+    full = _pipe_layers(cfg, seed)
+    x32, pos = _pipe_inputs(cfg, seed)
+    mine32 = gpipe.stage_params(gpipe.split_stages(full, s), idx)
+
+    def piped(stage, x, use_pallas):
+        with torch.no_grad():
+            return gpipe.gpipe_apply(
+                stage, x, lambda p, h: transformer.run_layers(
+                    cfg, p, h, pos, use_pallas=use_pallas), mesh=mesh)
+
+    def sequential(tree, x, use_pallas):
+        """Every microbatch through the 8 layers one after another, at
+        the pipeline's shapes."""
+        with torch.no_grad():
+            return torch.stack([transformer.run_layers(
+                cfg, tree, x[m], pos, use_pallas=use_pallas)
+                for m in range(x.shape[0])])
+
+    res = {"rank": idx, "layers": [lo, hi]}
+    torch.cuda.reset_peak_memory_stats()
+    # 1. bf16: the kernels' path pipelined, counted and timed; the plain
+    # path; rank 0 runs both sequentially while the others wait
+    x16 = x32.to(torch.bfloat16)
+    mine16 = layers.cast_floats(mine32, torch.bfloat16)
+    piped(mine16, x16, True)                       # warm-up
+    line.barrier()
+    ops.reset_launch_counts()
+    out_k, res["piped_ms"] = _events_ms(lambda: piped(mine16, x16, True))
+    res["launches"] = ops.launch_counts()["fused_swiglu"]
+    out_p = piped(mine16, x16, False)
+    res["plain_launches"] = ops.launch_counts()["fused_swiglu"] \
+        - res["launches"]
+    res["digest"] = _digest_tensor(out_k)
+    line.barrier()
+    if idx == 0:
+        full16 = layers.cast_floats(full, torch.bfloat16)
+        sequential(full16, x16[:1], True)          # warm-up
+        seq_k, res["sequential_ms"] = _events_ms(
+            lambda: sequential(full16, x16, True))
+        seq_p = sequential(full16, x16, False)
+        del full16
+        res["bf16"] = {
+            "piped_vs_sequential": _check_bf16(
+                "pipeline bf16 kernels piped vs sequential", out_k, seq_k),
+            "bit_equal": torch.equal(out_k, seq_k),
+            "kernels_vs_plain": _check_bf16(
+                "pipeline bf16 piped kernels vs plain", out_k, out_p),
+            "sequential_kernels_vs_plain": _check_bf16(
+                "pipeline bf16 sequential kernels vs plain", seq_k, seq_p),
+            "plain_bit_equal": torch.equal(out_p, seq_p)}
+        del seq_k, seq_p
+    line.barrier()
+    del out_k, out_p, mine16, x16
+    # 2. the same in f32 (kernel 10's split-f32 path)
+    ops.reset_launch_counts()
+    out32 = piped(mine32, x32, True)
+    res["f32_launches"] = ops.launch_counts()["fused_swiglu"]
+    if idx == 0:
+        seq32 = sequential(full, x32, True)
+        err, tol = _check_close("pipeline f32 kernels piped vs sequential",
+                                out32, seq32)
+        res["f32"] = {"max_abs_err": err, "tolerance": tol,
+                      "bit_equal": torch.equal(out32, seq32)}
+        del seq32
+    line.barrier()
+    del out32
+    # 3. gradients of sum(out ** 2), plain path in f32: this stage's
+    # through the pipeline against the same layers' in the 8 run one
+    # after another (per microbatch, the gradients summed)
+    # (the stage's leaves are views of ``full``, made leaves that record
+    # gradients: no copy)
+    stage = _tree_map(lambda t: t.requires_grad_(), mine32)
+    out = gpipe.gpipe_apply(
+        stage, x32, lambda p, h: transformer.run_layers(cfg, p, h, pos),
+        mesh=mesh)
+    (out.float() ** 2).sum().backward()
+    del out
+    g_pipe = [t.grad for t in leaves(stage)]
+    for t in leaves(stage):
+        t.grad = None
+    before = _tree_map(lambda t: t[:lo], full)
+    after = _tree_map(lambda t: t[hi:], full)
+    for m in range(PIPE_MICRO):
+        with torch.no_grad():
+            h = transformer.run_layers(cfg, before, x32[m], pos)
+        h = transformer.run_layers(cfg, stage, h, pos)
+        h = transformer.run_layers(cfg, after, h, pos)
+        (h.float() ** 2).sum().backward()
+    g_seq = [t.grad for t in leaves(stage)]
+    diff = global_norm([a - b for a, b in zip(g_pipe, g_seq)])
+    norm = global_norm(g_seq)
+    dot = sum(float((a.double() * b.double()).sum())
+              for a, b in zip(g_pipe, g_seq))
+    cos = dot / (float(global_norm(g_pipe)) * float(norm))
+    res["grad"] = {"rel_err": float(diff / norm), "cosine": cos,
+                   "norm": float(norm),
+                   "bit_equal": all(torch.equal(a, b)
+                                    for a, b in zip(g_pipe, g_seq))}
+    if not (res["grad"]["rel_err"] <= 1e-4 and cos >= 0.999999):
+        raise RuntimeError(f"pipeline rank {idx}: stage gradients "
+                           f"{res['grad']} against the sequential ones")
+    del g_pipe, g_seq, stage
+    # 4. the hop alone: one activation of 1 x 512 x d bf16 around the ring
+    act = torch.zeros((1, PIPE_TOKENS, cfg.d_model), dtype=torch.bfloat16,
+                      device="cuda")
+    line.barrier()
+    times = []
+    for _ in range(PIPE_HOPS):
+        t0 = time.perf_counter()
+        gpipe.ring_shift(line, act)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["hop"] = {"bytes": act.numel() * act.element_size(),
+                  "ms": statistics.median(times), "backend": line.backend}
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return res
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _pipe_rank(rank: int, init_method: str, seed: int, results) -> None:
+    """A spawned rank of the pipeline phase: cuda:0 over gloo (NCCL
+    refuses two ranks on one device), its results or its traceback to
+    ``results``."""
+    try:
+        _precision_flags()
+        build.load_libraries()
+        init_data_mesh("cuda:0", rank=rank, world_size=PIPE_RANKS,
+                       init_method=init_method, backend="gloo")
+        try:
+            mesh = make_host_mesh((1, PIPE_RANKS), ("data", "pipe"),
+                                  device="cuda:0")
+            res = _pipe_rank_runs(mesh, seed)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, res))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def pipeline_phase(seed: int, root: Path) -> tuple[dict, list]:
+    """GPipe (``distributed.pipeline.gpipe_apply``) over ``PIPE_RANKS``
+    spawned processes sharing the card over gloo, on a (1, 4) ("data",
+    "pipe") ``launch.mesh.make_host_mesh``: llama3-8b's layers at full
+    width (d 4096, 32 heads, 8 KV heads, F 14336), 8 of 32 drawn from the
+    seed, 2 a stage, ``PIPE_MICRO`` microbatches of 1 x 512.  1. bf16, the
+    kernels' path (every stage's MLP on kernel 10, M 512) pipelined
+    against the same 8 layers run one after another in rank 0 (§4's bound:
+    3e-2 * max(1, max|p|), cosine 0.999; bit equality reported), the
+    kernels' path against the plain path (§4); kernel 10 launched exactly
+    M * L / S = 16 times a rank (fill and drain steps run no stage), 0 on
+    the plain path; every rank's outputs equal (sha256).  2. the same in
+    f32 at 1e-4 * max(1, max|p|).  3. each stage's gradients of sum(out **
+    2) on the plain path in f32 against the sequential gradients of its
+    layers: within 1e-4 relative global norm, cosine 0.999999.  4. the
+    hop's bytes and host ms, peak MiB a rank.  Four processes time-share
+    one card, so the pipelined forward cannot be faster than the
+    sequential one; its ms is reported beside ``bubble_fraction``.
+    Returns the ``{"pipeline"}`` row and kernel 10's row at M 512."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_pipe_rank, args=(
+        r, f"file://{root}/gloo", seed, results))
+        for r in range(PIPE_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out: dict = {}
+    try:
+        while len(out) < PIPE_RANKS:
+            rank, res = results.get(timeout=300)
+            out[rank] = res
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall = time.perf_counter() - t0
+    for rank, res in out.items():
+        if isinstance(res, str):
+            raise RuntimeError(f"pipeline rank {rank} failed:\n{res}")
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * PIPE_RANKS:
+        raise RuntimeError(f"pipeline ranks exited {codes}")
+    ranks = [out[r] for r in range(PIPE_RANKS)]
+    want = PIPE_MICRO * PIPE_LAYERS // PIPE_RANKS
+    for r in ranks:
+        if r["launches"] != want or r["f32_launches"] != want \
+                or r["plain_launches"] != 0:
+            raise RuntimeError(
+                f"pipeline rank {r['rank']}: kernel 10 launched "
+                f"{r['launches']} (bf16) / {r['f32_launches']} (f32) / "
+                f"{r['plain_launches']} (plain) times, {want} / {want} / 0 "
+                "expected")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise RuntimeError("pipeline: the ranks' outputs differ")
+    row = {
+        "ranks": PIPE_RANKS, "layers": PIPE_LAYERS, "microbatches":
+        PIPE_MICRO, "tokens": PIPE_TOKENS, "backend": ranks[0]["hop"]
+        ["backend"], "wall_s": wall,
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "launches_expected": want,
+        "piped_ms": [r["piped_ms"] for r in ranks],
+        "sequential_ms": ranks[0]["sequential_ms"],
+        "bubble_fraction": gpipe.bubble_fraction(PIPE_RANKS, PIPE_MICRO),
+        "bf16": ranks[0]["bf16"], "f32": ranks[0]["f32"],
+        "grad": [r["grad"] for r in ranks],
+        "hop": [r["hop"] for r in ranks],
+        "peak_mib": [r["peak_mib"] for r in ranks],
+        "note": "four processes time-share one card: no speed-up can show",
+        "card_free_mib_before": free / 2**20,
+        "parent_allocated_mib": torch.cuda.memory_allocated() / 2**20,
+    }
+    b = row["bf16"]
+    print(f"pipeline: {PIPE_RANKS} ranks (gloo, one card), {PIPE_LAYERS} "
+          f"llama3-8b layers, {PIPE_MICRO} x 1 x {PIPE_TOKENS}: bf16 piped "
+          f"vs sequential max err {b['piped_vs_sequential'][0]:.3e} (tol "
+          f"{b['piped_vs_sequential'][1]:.3e}, cos "
+          f"{b['piped_vs_sequential'][2]:.6f}, bit-equal {b['bit_equal']}), "
+          f"f32 {row['f32']['max_abs_err']:.3e} (bit-equal "
+          f"{row['f32']['bit_equal']}), grads rel "
+          f"{max(g['rel_err'] for g in row['grad']):.3e} / cos "
+          f"{min(g['cosine'] for g in row['grad']):.8f}; kernel 10 "
+          f"{row['launches_per_rank']} a rank ({want} expected); piped "
+          f"{max(row['piped_ms']):.1f} ms vs sequential "
+          f"{row['sequential_ms']:.1f} ms (bubble "
+          f"{row['bubble_fraction']:.3f}; time-shared card); hop "
+          f"{ranks[0]['hop']['bytes']} B in "
+          f"{statistics.median(h['ms'] for h in row['hop']):.3f} ms; peak "
+          f"{max(row['peak_mib']):.0f} MiB a rank", flush=True)
+    cfg = lm_configs.get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    w = tuple(_rand(gen, shape, torch.bfloat16, shape[0] ** -0.5)
+              for shape in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                            (cfg.d_ff, cfg.d_model)))
+    cases = [swiglu_case(gen, f"swiglu_fwd pipeline stage M {PIPE_TOKENS}",
+                         PIPE_TOKENS, w, "silu", torch.bfloat16, "pipeline")]
+    rows = kernel_phase(cases)
+    rows[0]["launches"] = sum(row["launches_per_rank"])
+    rows[0]["on_main_path"] = True
+    del cases, w
+    return row, rows
+
+
+# ---------------------------------------------------------------------------
+# the launch phase: build_cell's steps, the roofline, the dry run
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width cut to 2 layers; batch cut, SHAPES' sequences
+LAUNCH_LAYERS = 2
+LAUNCH_BATCH = {"train_4k": 1, "prefill_32k": 1, "decode_32k": 8}
+LAUNCH_DECODE_STEPS = 3
+
+
+def _same_meta(name: str, real, meta) -> None:
+    """``real`` (tensors on the card) has the shapes and dtypes of the
+    ``meta`` structure ``build_cell`` gave."""
+    if isinstance(meta, dict):
+        for k in meta:
+            _same_meta(f"{name}.{k}", real[k], meta[k])
+        return
+    if isinstance(real, int):
+        if meta.shape != () or meta.dtype != torch.int32:
+            raise RuntimeError(f"{name}: an int for {meta}")
+        return
+    if tuple(real.shape) != tuple(meta.shape) or real.dtype != meta.dtype:
+        raise RuntimeError(f"{name}: {tuple(real.shape)} {real.dtype} "
+                           f"against {tuple(meta.shape)} {meta.dtype}")
+
+
+def _cell_terms(cfg, shape, accum: int, ms: float) -> dict:
+    """The roofline's compute and memory terms of a cut cell at one chip
+    (chips = model_par = dp_total = 1; no collective at one chip) beside
+    the measured ms."""
+    t = roofline.roofline_terms(cfg, shape, chips=1, model_par=1,
+                                dp_total=1, accum=accum)
+    comp, mem = t["compute"] * 1e3, t["memory"] * 1e3
+    row = {"compute_ms": comp, "memory_ms": mem, "collective_ms": None,
+           "collective_note": "left out at one chip",
+           "larger": "compute" if comp >= mem else "memory",
+           "share_of_larger": max(comp, mem) / ms}
+    if shape.kind == "train":
+        # the port recomputes nothing: its step does 3x the forward
+        noremat = roofline.analytic_flops(cfg, shape)["flops_noremat"]
+        row["compute_noremat_ms"] = noremat / roofline.PEAK_FLOPS * 1e3
+    return row
+
+
+def launch_cells(cfg, seed: int) -> tuple[dict, list]:
+    """``build_cell``'s train, prefill and decode steps of llama3-8b at
+    full width cut to ``LAUNCH_LAYERS`` layers, batches cut as
+    ``LAUNCH_BATCH``, at SHAPES' sequence lengths on a one-chip mesh."""
+    mesh = LogicalMesh((1, 1), ("data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    out, mlp_weights = {}, None
+
+    # train_4k: f32 masters, the default accum (clamped to the batch)
+    name = "train_4k"
+    shape = dataclasses.replace(SHAPES[name], batch=LAUNCH_BATCH[name])
+    step, args, _, donate, _ = build_cell(cfg, shape, mesh, multi_pod=False)
+    params = transformer.decoder_init(cfg, seed, device="cuda")
+    opt = adam_init(params)
+    batch = _lm_batch(cfg, gen, shape.batch, shape.seq)
+    batch = tuple(t.to(torch.int32) for t in batch)
+    _same_meta(f"{name} params", params, args[0])
+    _same_meta(f"{name} opt", {"mu": opt["mu"], "nu": opt["nu"]},
+               {"mu": args[1]["mu"], "nu": args[1]["nu"]})
+    for i, t in enumerate(batch):
+        _same_meta(f"{name} input {i}", t, args[2 + i])
+    losses = []
+    params, opt, loss = step(params, opt, *batch)      # warm-up
+    losses.append(loss.item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        (params, opt, loss), ms = _events_ms(lambda: step(params, opt,
+                                                          *batch))
+        losses.append(loss.item())
+        times.append(ms)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"launch {name}: losses {losses}")
+    ms = statistics.median(times)
+    out[name] = {"batch": shape.batch, "seq": shape.seq,
+                 "accum_steps": step.accum_steps, "donate": list(donate),
+                 "losses": losses, "ms": ms,
+                 "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                 **_cell_terms(cfg, shape, step.accum_steps, ms)}
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+
+    # prefill_32k and decode_32k: bf16 weights, kernel 10 on the MLPs
+    params = transformer.decoder_init(cfg, seed, device="cuda",
+                                      dtype=torch.bfloat16)
+    mlp_weights = tuple(params["layers"]["mlp"][k][0]
+                        for k in ("wg", "wu", "wd"))
+    name = "prefill_32k"
+    shape = dataclasses.replace(SHAPES[name], batch=LAUNCH_BATCH[name])
+    steps = {k: build_cell(cfg, shape, mesh, multi_pod=False,
+                           use_pallas=k)[0] for k in (True, False)}
+    args = build_cell(cfg, shape, mesh, multi_pod=False)[1]
+    tokens = torch.randint(0, cfg.vocab_size, (shape.batch, shape.seq),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.arange(shape.seq, device="cuda",
+                       dtype=torch.int32).expand(shape.batch, shape.seq)
+    _same_meta(f"{name} params", params, args[0])
+    _same_meta(f"{name} tokens", tokens, args[1])
+    _same_meta(f"{name} positions", pos, args[2])
+    steps[True](params, tokens, pos)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (tok_k, cache_k), ms = _events_ms(lambda: steps[True](params, tokens,
+                                                          pos))
+    launches = ops.launch_counts()["fused_swiglu"]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms2 = _events_ms(lambda: steps[True](params, tokens, pos))[1]
+    ms = min(ms, ms2)
+    if launches != cfg.num_layers:
+        raise RuntimeError(f"launch {name}: kernel 10 launched {launches} "
+                           f"times, {cfg.num_layers} expected")
+    tok_p, cache_p = steps[False](params, tokens, pos)
+    out[name] = {"batch": shape.batch, "seq": shape.seq, "ms": ms,
+                 "peak_mib": peak, "launches": launches,
+                 "kernels_vs_plain": {
+                     k: _check_bf16(f"launch {name} cache {k} kernels vs "
+                                    "plain", cache_k[k], cache_p[k])
+                     for k in ("k", "v")},
+                 "token_agreement": float((tok_k == tok_p).float().mean()),
+                 **_cell_terms(cfg, shape, 1, ms)}
+    # the logits behind the greedy token, both paths
+    lg = {k: transformer.prefill(cfg, params, tokens, pos, shape.seq,
+                                 use_pallas=k)[0] for k in (True, False)}
+    out[name]["logits_kernels_vs_plain"] = _check_bf16(
+        f"launch {name} logits kernels vs plain", lg[True], lg[False])
+    if not torch.equal(lg[True][:, -1].argmax(-1).to(tok_k.dtype), tok_k):
+        raise RuntimeError(f"launch {name}: the step's token is not the "
+                           "argmax of its logits")
+    del cache_k, cache_p, lg, tok_k, tok_p, tokens, pos
+    torch.cuda.empty_cache()
+
+    name = "decode_32k"
+    shape = dataclasses.replace(SHAPES[name], batch=LAUNCH_BATCH[name])
+    steps = {k: build_cell(cfg, shape, mesh, multi_pod=False,
+                           use_pallas=k)[0] for k in (True, False)}
+    args = build_cell(cfg, shape, mesh, multi_pod=False)[1]
+    # a full 32,768-position cache of seeded values, the last
+    # LAUNCH_DECODE_STEPS + 1 positions still free
+    start = shape.seq - LAUNCH_DECODE_STEPS - 1
+    state = {k: torch.randn(args[2][k].shape, generator=gen,
+                            device="cuda").to(args[2][k].dtype)
+             for k in ("k", "v")}
+    state["pos"] = start
+    _same_meta(f"{name} state", state, args[2])
+    tokens = torch.randint(0, cfg.vocab_size, (shape.batch, 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    _same_meta(f"{name} tokens", tokens, args[1])
+
+    def at(p):
+        return torch.full((shape.batch, 1), p, device="cuda",
+                          dtype=torch.int32)
+
+    _, state = steps[True](params, tokens, state, at(start))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(LAUNCH_DECODE_STEPS - 1):
+        p = state["pos"]
+        (tok, state), ms = _events_ms(
+            lambda: steps[True](params, tokens, state, at(p)))
+        times.append(ms)
+    launches = ops.launch_counts()["fused_swiglu"]
+    want = cfg.num_layers * (LAUNCH_DECODE_STEPS - 1)
+    if launches != want:
+        raise RuntimeError(f"launch {name}: kernel 10 launched {launches} "
+                           f"times, {want} expected")
+    p = state["pos"]
+    lg = {}
+    for k in (True, False):
+        logits, new = transformer.decode_step(cfg, params, tokens, state,
+                                              at(p), use_pallas=k)
+        lg[k] = (logits, new["k"][:, :, p].clone(),
+                 new["v"][:, :, p].clone())
+    tok_k, _ = steps[True](params, tokens, dict(state), at(p))
+    ms = statistics.median(times)
+    out[name] = {"batch": shape.batch, "cache_positions": shape.seq,
+                 "start_pos": start, "ms": ms,
+                 "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                 "launches": launches,
+                 "logits_kernels_vs_plain": _check_bf16(
+                     f"launch {name} logits kernels vs plain", lg[True][0],
+                     lg[False][0]),
+                 "new_kv_kernels_vs_plain": [_check_bf16(
+                     f"launch {name} new {n} kernels vs plain", lg[True][i],
+                     lg[False][i]) for i, n in ((1, "k"), (2, "v"))],
+                 **_cell_terms(cfg, shape, 1, ms)}
+    if not torch.equal(lg[True][0].argmax(-1).to(tok_k.dtype), tok_k):
+        raise RuntimeError(f"launch {name}: the step's token is not the "
+                           "argmax of its logits")
+    del state, lg, steps
+    torch.cuda.empty_cache()
+    return out, mlp_weights
+
+
+def chgnet_cell_step(ds, seed: int, record: dict) -> dict:
+    """The dry run's CHGNet cell at one rank: ``FAST_FS_HEAD``, one step
+    on 8 crystals packed at JAX's per-device capacities (64 / 1,536 /
+    2,048 atoms / bonds / angles a crystal), its peak MiB beside the
+    record's argument bytes a rank."""
+    per = 8
+    caps = BatchCapacities(atoms=64 * per, bonds=1536 * per,
+                           angles=2048 * per)
+    idx = np.random.default_rng(seed + 8).permutation(len(ds))[:per]
+    batch = build_device_batch(ds, idx, caps, num_crystal_slots=per)
+    cfg = chgnet_mptrj.FAST_FS_HEAD
+    tr = Trainer(cfg, TrainConfig(global_batch=per, total_steps=10,
+                                  loss=chgnet_mptrj.LOSS), seed=seed,
+                 device="cuda")
+    tr.train(iter([batch]))                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hist, ms = _events_ms(lambda: tr.train(iter([batch])))
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise RuntimeError(f"chgnet cell: loss {hist}")
+    row = {"crystals": per, "capacities": vars(caps), "ms": ms,
+           "loss": hist[-1]["loss"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "resident_mib": base / 2**20,
+           "record_argument_mib": record["memory"]["argument_bytes"] / 2**20,
+           "real": {"atoms": int(batch.atom_mask.sum()),
+                    "bonds": int(batch.bond_offsets[-1]),
+                    "angles": int(batch.angle_offsets[-1])}}
+    del tr
+    return row
+
+
+def launch_phase(ds, seed: int, root: Path) -> tuple[dict, list]:
+    """1. ``build_cell``'s three step kinds on llama3-8b at full width cut
+    to 2 layers (``launch_cells``): train_4k at batch 1 (f32 masters, the
+    default accum), prefill_32k at batch 1 and decode_32k at batch 8
+    against a 32,768-position cache (bf16, kernel 10), each timed on CUDA
+    events with peak MiB, beside the roofline's compute and memory terms
+    of the same cut cell at one chip and the measured share of the
+    larger; 2. prefill and decode on the kernels' path against the plain
+    path at §4's bound; 3. the dry run ``--all`` (records by status),
+    ``torch.cuda.memory_allocated()`` unchanged; 4. the CHGNet cell's step
+    at one rank.  Returns the ``{"launch"}`` row and kernel 10's rows at
+    the prefill and decode shapes."""
+    torch.cuda.empty_cache()
+    cfg = lm_configs.get_config(LM_ARCH).with_(num_layers=LAUNCH_LAYERS)
+    cells, mlp = launch_cells(cfg, seed)
+    for name, c in cells.items():
+        print(f"launch {name}: batch {c['batch']}, {c['ms']:.1f} ms, peak "
+              f"{c['peak_mib']:.0f} MiB; roofline compute "
+              f"{c['compute_ms']:.2f} ms, memory {c['memory_ms']:.2f} ms "
+              f"({c['larger']} larger: {c['share_of_larger']:.3f} of the "
+              "measured time)", flush=True)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = dryrun.main(["--all", "--out", str(root / "dryrun.json")])
+    dry_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise RuntimeError("the dry run allocated on the card")
+    with open(root / "dryrun.json") as f:
+        recs = json.load(f)
+    by_status = {}
+    for r in recs:
+        key = r["status"].split(":")[0]
+        by_status[key] = by_status.get(key, 0) + 1
+    if rc != 0 or len(recs) != 2 * 40 + 2 or by_status != {"ok": 66,
+                                                           "skip": 16}:
+        raise RuntimeError(f"dry run: rc {rc}, {len(recs)} records, "
+                           f"{by_status}")
+    chg = [r for r in recs if r["arch"] == dryrun.CHGNET_ARCH
+           and r["mesh"] == "16x16"][0]
+    chgnet_row = chgnet_cell_step(ds, seed, chg)
+    llama = [r for r in recs if r["arch"] == LM_ARCH and r["status"] == "ok"]
+    row = {"cells": cells, "layers": LAUNCH_LAYERS,
+           "dryrun": {"records": len(recs), "by_status": by_status,
+                      "seconds": dry_s, "allocated_before": before,
+                      "allocated_after": after,
+                      "llama3-8b": {f"{r['shape']} {r['mesh']}": {
+                          "argument_gib": r["memory"]["argument_bytes"]
+                          / 2**30, "fits_80gb": r["fits_80gb"]}
+                          for r in llama}},
+           "chgnet_cell": chgnet_row}
+    print(f"launch dry run: {len(recs)} records {by_status} in {dry_s:.2f} "
+          f"s, no allocation on the card; chgnet cell step "
+          f"{chgnet_row['ms']:.1f} ms, peak {chgnet_row['peak_mib']:.0f} MiB "
+          f"(record's arguments {chgnet_row['record_argument_mib']:.1f} MiB a"
+          " rank)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    m_prefill = LAUNCH_BATCH["prefill_32k"] * SHAPES["prefill_32k"].seq
+    m_decode = LAUNCH_BATCH["decode_32k"]
+    cases = [swiglu_case(gen, f"swiglu_fwd launch prefill_32k M {m_prefill}",
+                         m_prefill, mlp, "silu", torch.bfloat16,
+                         "prefill_32k"),
+             swiglu_case(gen, f"swiglu_fwd launch decode_32k M {m_decode}",
+                         m_decode, mlp, "silu", torch.bfloat16,
+                         "decode_32k")]
+    rows = kernel_phase(cases)
+    rows[0]["launches"] = cells["prefill_32k"]["launches"]
+    rows[1]["launches"] = cells["decode_32k"]["launches"]
+    for r in rows:
+        r["on_main_path"] = True
+    del cases, mlp
+    torch.cuda.empty_cache()
+    return row, rows
+
+
+
 def _stamp(t_start: float, phase: str) -> None:
     print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f}"
           " s", flush=True)
@@ -4677,11 +5338,34 @@ def main() -> None:
     families_row, families_kernel_rows = families_phase(args.seed)
     print(json.dumps({"families": families_row}))
     _stamp(t_start, "families")
+    # 19. GPipe: llama3-8b's layers over 4 ranks sharing the card over
+    # gloo (their rendezvous file under build/, removed)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_pipe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        pipe_row, pipe_kernel_rows = pipeline_phase(args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"pipeline": pipe_row}))
+    _stamp(t_start, "pipeline")
+    # 20. build_cell's steps, the roofline beside them, the dry run, the
+    # CHGNet cell (the dry run's records under build/, removed)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_launch"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        launch_row, launch_kernel_rows = launch_phase(ds, args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"launch": launch_row}))
+    _stamp(t_start, "launch")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows + primary + sym_rows + bf16_on_path
                       + lm_kernel_rows + moe_kernel_rows
-                      + qwen_kernel_rows + families_kernel_rows}))
+                      + qwen_kernel_rows + families_kernel_rows
+                      + pipe_kernel_rows + launch_kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

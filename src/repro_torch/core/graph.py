@@ -142,3 +142,39 @@ class CrystalGraphBatch:
     @property
     def und_angle_cap(self) -> int:
         return self.und_angle_ij.shape[0]
+
+
+def batch_input_specs(batch_size: int, caps, dtype=torch.float32
+                      ) -> CrystalGraphBatch:
+    """A stand-in batch of ``meta`` tensors (shapes and dtypes, no
+    storage) for the dry run, as ``repro.core.graph.batch_input_specs``;
+    ``caps`` a ``batching.BatchCapacities``."""
+    f, i = dtype, torch.int32
+    a, e, g = caps.atoms, caps.bonds, caps.angles
+    eu, au = caps.und_cap, caps.und_angle_cap
+    shapes = {
+        "atom_z": ((a,), i), "atom_mask": ((a,), f),
+        "atom_crystal": ((a,), i), "frac_coords": ((a, 3), f),
+        "lattice": ((batch_size, 3, 3), f),
+        "crystal_mask": ((batch_size,), f),
+        "bond_center": ((e,), i), "bond_nbr": ((e,), i),
+        "bond_image": ((e, 3), f), "bond_crystal": ((e,), i),
+        "bond_mask": ((e,), f),
+        "angle_ij": ((g,), i), "angle_ik": ((g,), i),
+        "angle_mask": ((g,), f),
+        "bond_offsets": ((a + 1,), i), "angle_offsets": ((e + 1,), i),
+        "bond_pair": ((e,), i), "bond_sign": ((e,), f),
+        "und_center": ((eu,), i), "und_nbr": ((eu,), i),
+        "und_image": ((eu, 3), f), "und_crystal": ((eu,), i),
+        "und_mask": ((eu,), f),
+        "angle_pair": ((g,), i), "und_angle_ij": ((au,), i),
+        "und_angle_ik": ((au,), i), "und_angle_mask": ((au,), f),
+        "sym_dest": ((g,), i), "sym_rep": ((g,), i),
+        "sym_offsets": ((eu + 1,), i),
+        "energy": ((batch_size,), f), "forces": ((a, 3), f),
+        "stress": ((batch_size, 3, 3), f), "magmoms": ((a,), f),
+        "n_atoms_per_crystal": ((batch_size,), f),
+    }
+    return CrystalGraphBatch(**{
+        k: torch.empty(s, dtype=t, device="meta")
+        for k, (s, t) in shapes.items()})

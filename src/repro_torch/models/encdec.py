@@ -24,6 +24,7 @@ from repro_torch.core.chgnet import resolve_device
 from .config import LMConfig
 from .layers import (
     Maker,
+    pspec,
     attention_chunked,
     attention_full,
     attn_init,
@@ -53,30 +54,44 @@ def sinusoid_pos(s: int, d: int, dtype=torch.float32, device=None):
 def _enc_layer_init(mk: Maker, cfg: LMConfig, n: int):
     d = cfg.d_model
     return {
-        "ln1": mk.make((d,), init="ones", stack=n),
+        "ln1": mk.make((d,), (None,), init="ones", stack=n),
         "attn": attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim, stack=n),
-        "ln2": mk.make((d,), init="ones", stack=n),
+        "ln2": mk.make((d,), (None,), init="ones", stack=n),
         "mlp": plain_mlp_init(mk, d, cfg.d_ff, stack=n),
     }
 
 
 def whisper_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
-    """Parameter tree from ``seed`` on ``device`` (``None``: the card), in
-    ``dtype`` (default ``cfg.param_dtype``); JAX's layout."""
+    """Parameter tree from ``seed`` on ``device`` (``None``: the card;
+    ``"meta"``: shapes only), in ``dtype`` (default ``cfg.param_dtype``);
+    JAX's layout."""
     require_family(cfg, ("encdec",), "encdec")
-    mk = Maker(seed, resolve_device(device), getattr(torch, cfg.param_dtype)
-               if dtype is None else dtype)
+    return _whisper_tree(cfg, Maker(
+        seed, resolve_device(device), getattr(torch, cfg.param_dtype)
+        if dtype is None else dtype))
+
+
+def whisper_specs(cfg: LMConfig, mesh_sizes: dict):
+    """Spec tuples of ``whisper_init``'s leaves under JAX's layout
+    (``repro.models.encdec.whisper_specs``); data for the dry run."""
+    require_family(cfg, ("encdec",), "encdec")
+    return _whisper_tree(cfg, Maker(None, mesh_sizes=mesh_sizes))
+
+
+def _whisper_tree(cfg: LMConfig, mk: Maker):
     d, v, n = cfg.d_model, cfg.padded_vocab, cfg.num_decoder_layers
     dec = _enc_layer_init(mk, cfg, n)
-    dec["ln_x"] = mk.make((d,), init="ones", stack=n)
+    dec["ln_x"] = mk.make((d,), (None,), init="ones", stack=n)
     dec["cross"] = attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
                              cfg.resolved_head_dim, stack=n)
+    vax = mk.first_ax(v)
     return {
-        "embed": mk.make((v, d), scale=0.02),
-        "unembed": mk.make((d, v), scale=d ** -0.5),
-        "enc_final": mk.make((d,), init="ones"),
-        "dec_final": mk.make((d,), init="ones"),
+        "embed": mk.make((v, d), (vax, None), scale=0.02),
+        "unembed": mk.make((d, v), (None, mk.ax("model", v) or vax),
+                           scale=d ** -0.5),
+        "enc_final": mk.make((d,), (None,), init="ones"),
+        "dec_final": mk.make((d,), (None,), init="ones"),
         "encoder": _enc_layer_init(mk, cfg, cfg.num_layers),
         "decoder": dec,
     }
@@ -204,6 +219,17 @@ def init_cache(cfg: LMConfig, params, enc_out, max_len: int,
         "xk": torch.stack(xk), "xv": torch.stack(xv),
         "pos": 0,
     }
+
+
+def cache_specs(cfg: LMConfig, mesh_sizes: dict, *, batch_axes,
+                seq_axis: str | None):
+    """Spec tuples of the decode cache under JAX's layout
+    (``repro.models.encdec.cache_specs``): the self and cross K / V as
+    ``transformer.cache_specs``'s."""
+    head_ax = Maker(None, mesh_sizes=mesh_sizes).head_ax(cfg.num_kv_heads)
+    kv = pspec(None, batch_axes, seq_axis if head_ax is None else None,
+               head_ax, None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": ()}
 
 
 def decode_step(cfg: LMConfig, params, tokens, cache):

@@ -24,6 +24,7 @@ from repro_torch.core.chgnet import resolve_device
 from .config import LMConfig
 from .layers import (
     Maker,
+    pspec,
     attention_chunked,
     attention_full,
     attn_init,
@@ -49,25 +50,39 @@ def num_attn_sites(cfg: LMConfig) -> int:
 
 
 def zamba_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
-    """Parameter tree from ``seed`` on ``device`` (``None``: the card), in
-    ``dtype`` (default ``cfg.param_dtype``); JAX's layout."""
+    """Parameter tree from ``seed`` on ``device`` (``None``: the card;
+    ``"meta"``: shapes only), in ``dtype`` (default ``cfg.param_dtype``);
+    JAX's layout."""
     require_family(cfg, ("hybrid",), "hybrid")
-    mk = Maker(seed, resolve_device(device), getattr(torch, cfg.param_dtype)
-               if dtype is None else dtype)
+    return _zamba_tree(cfg, Maker(
+        seed, resolve_device(device), getattr(torch, cfg.param_dtype)
+        if dtype is None else dtype))
+
+
+def zamba_specs(cfg: LMConfig, mesh_sizes: dict):
+    """Spec tuples of ``zamba_init``'s leaves under JAX's layout
+    (``repro.models.hybrid.zamba_specs``); data for the dry run."""
+    require_family(cfg, ("hybrid",), "hybrid")
+    return _zamba_tree(cfg, Maker(None, mesh_sizes=mesh_sizes))
+
+
+def _zamba_tree(cfg: LMConfig, mk: Maker):
     n, d, v = cfg.num_layers, cfg.d_model, cfg.padded_vocab
-    layers = {"ln": mk.make((d,), init="ones", stack=n),
+    layers = {"ln": mk.make((d,), (None,), init="ones", stack=n),
               "mamba": mamba_init(mk, cfg, stack=n)}
     shared = {
-        "ln1": mk.make((d,), init="ones"),
+        "ln1": mk.make((d,), (None,), init="ones"),
         "attn": attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim),
-        "ln2": mk.make((d,), init="ones"),
+        "ln2": mk.make((d,), (None,), init="ones"),
         "mlp": gated_mlp_init(mk, d, cfg.d_ff),
     }
+    vax = mk.first_ax(v)
     return {
-        "embed": mk.make((v, d), scale=0.02),
-        "unembed": mk.make((d, v), scale=d ** -0.5),
-        "final_norm": mk.make((d,), init="ones"),
+        "embed": mk.make((v, d), (vax, None), scale=0.02),
+        "unembed": mk.make((d, v), (None, mk.ax("model", v) or vax),
+                           scale=d ** -0.5),
+        "final_norm": mk.make((d,), (None,), init="ones"),
         "layers": layers,
         "shared": shared,
     }
@@ -144,6 +159,20 @@ def init_state(cfg: LMConfig, batch: int, max_len: int,
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
         "pos": 0,
+    }
+
+
+def state_specs(cfg: LMConfig, mesh_sizes: dict, *, batch_axes,
+                seq_axis: str | None):
+    """Spec tuples of ``init_state``'s leaves under JAX's layout
+    (``repro.models.hybrid.state_specs``)."""
+    head_ax = Maker(None, mesh_sizes=mesh_sizes).head_ax(cfg.num_kv_heads)
+    kv = pspec(None, batch_axes, seq_axis if head_ax is None else None,
+               head_ax, None)
+    return {
+        "mamba": {"ssm": pspec(None, batch_axes, None, None, None),
+                  "conv": pspec(None, batch_axes, None, None)},
+        "k": kv, "v": kv, "pos": (),
     }
 
 

@@ -11,9 +11,14 @@ cast back.  Layouts are the JAX package's: activations (B, S, d), heads
 (B, S, H, D), weights applied as ``x @ w``, query head ``h = hkv * g +
 g_idx`` grouped over its KV head.
 
-``Maker`` is a seeded initializer on a ``torch.Generator``.  What the JAX
-module adds for the TPU mesh is left out: ``Maker``'s abstract
-``PartitionSpec`` mode and ``constrain_batch`` / ``constrain_logits``.
+``Maker`` is a seeded initializer on a ``torch.Generator``; with no seed
+it is JAX's abstract mode and returns each leaf's sharding spec instead
+(a tuple with one entry a dimension: an axis name, a tuple of names or
+``None``; JAX's ``PartitionSpec`` as data), by the same calls, so that
+init and specs cannot drift.  The port executes no tensor parallelism or
+FSDP: the specs only state what a leaf would take a rank under JAX's
+layout (``launch.dryrun``).  ``constrain_batch`` / ``constrain_logits``
+(GSPMD hints) are left out.
 The port's forwards run in the dtype of the parameters they are given
 (``serve.lm.load_serving_params`` casts once); ``cast_floats`` is the
 training loss's differentiable cast of f32 master weights.  The
@@ -29,21 +34,69 @@ import torch
 from repro_torch.kernels import ops, ref
 
 
+def pspec(*entries) -> tuple:
+    """JAX's ``PartitionSpec(*entries)`` as a tuple: one entry a
+    dimension, an axis name, a tuple of names or ``None``; a 1-tuple of
+    names becomes the name, as ``PartitionSpec`` normalises it."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
 class Maker:
     """Creates parameters from one ``torch.Generator`` seeded once:
     ``normal`` leaves are N(0, 1) * std, std ``shape[0] ** -0.5`` unless
-    given.  Leaves are drawn in f32 on ``device`` and cast to ``dtype``.
+    given.  Leaves are drawn in f32 on ``device`` and cast to ``dtype``
+    (on ``meta`` the generator is a CPU one and nothing is allocated).
     ``stack`` draws ``stack`` layers' copies of a leaf at once, with the
     per-layer default std.  Same distributions as the JAX ``Maker``, not
-    the same numbers: tests hand both packages one tree (``convert``)."""
+    the same numbers: tests hand both packages one tree (``convert``).
 
-    def __init__(self, seed: int, device=None, dtype=torch.float32):
+    ``seed=None`` is the abstract mode: ``make`` returns the leaf's spec
+    tuple (``None`` prepended for a stacked leaf, as JAX's
+    ``_prepend_none``), and ``ax`` / ``first_ax`` / ``head_ax`` read
+    ``mesh_sizes`` with JAX's divisibility fallbacks: a dimension is
+    sharded only where the axis size divides it."""
+
+    def __init__(self, seed: int | None, device=None, dtype=torch.float32,
+                 mesh_sizes: dict | None = None):
+        self.abstract = seed is None
+        self.mesh = dict(mesh_sizes or {})
         self.device = torch.device("cpu" if device is None else device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.dtype = dtype
+        if not self.abstract:
+            gen_dev = "cpu" if self.device.type == "meta" else self.device
+            self.gen = torch.Generator(device=gen_dev).manual_seed(seed)
 
-    def make(self, shape, *, scale: float | None = None,
-             init: str = "normal", stack: int | None = None):
+    def ax(self, axis, dim: int):
+        """``axis`` (a name or a tuple of names) if its size divides
+        ``dim`` and exceeds 1, else ``None``."""
+        names = axis if isinstance(axis, tuple) else (axis,)
+        size = 1
+        for a in names:
+            size *= self.mesh.get(a, 1)
+        return axis if size > 1 and dim % size == 0 else None
+
+    def first_ax(self, dim: int,
+                 candidates=(("data", "model"), "model", "data")):
+        """The first candidate that divides ``dim`` (vocab dims)."""
+        for cand in candidates:
+            if self.ax(cand, dim) is not None:
+                return cand
+        return None
+
+    def head_ax(self, num_heads: int):
+        """``"model"`` for a fused heads x head_dim dim where the head
+        count divides the model axis, else ``None``."""
+        size = self.mesh.get("model", 1)
+        return "model" if size > 1 and num_heads % size == 0 else None
+
+    def make(self, shape, spec: tuple | None = None, *,
+             scale: float | None = None, init: str = "normal",
+             stack: int | None = None):
+        if self.abstract:
+            if spec is None:
+                raise ValueError(f"no spec for a leaf of shape {shape}")
+            return pspec(*spec) if stack is None else pspec(None, *spec)
         full = tuple(shape) if stack is None else (stack, *shape)
         if init == "zeros":
             return torch.zeros(full, dtype=self.dtype, device=self.device)
@@ -219,16 +272,22 @@ def gated_mlp_apply(p, x, activation: str, use_pallas: bool = False):
 
 
 def gated_mlp_init(mk: Maker, d: int, f: int, *, stack: int | None = None):
-    return {"wg": mk.make((d, f), stack=stack),
-            "wu": mk.make((d, f), stack=stack),
-            "wd": mk.make((f, d), stack=stack)}
+    return {"wg": mk.make((d, f), (mk.ax("data", d), mk.ax("model", f)),
+                          stack=stack),
+            "wu": mk.make((d, f), (mk.ax("data", d), mk.ax("model", f)),
+                          stack=stack),
+            "wd": mk.make((f, d), (mk.ax("model", f), mk.ax("data", d)),
+                          stack=stack)}
 
 
 def plain_mlp_init(mk: Maker, d: int, f: int, *, stack: int | None = None):
-    return {"w1": mk.make((d, f), stack=stack),
-            "b1": mk.make((f,), init="zeros", stack=stack),
-            "w2": mk.make((f, d), stack=stack),
-            "b2": mk.make((d,), init="zeros", stack=stack)}
+    return {"w1": mk.make((d, f), (mk.ax("data", d), mk.ax("model", f)),
+                          stack=stack),
+            "b1": mk.make((f,), (mk.ax("model", f),), init="zeros",
+                          stack=stack),
+            "w2": mk.make((f, d), (mk.ax("model", f), mk.ax("data", d)),
+                          stack=stack),
+            "b2": mk.make((d,), (None,), init="zeros", stack=stack)}
 
 
 def plain_mlp_apply(p, x):
@@ -252,19 +311,20 @@ def cross_entropy(logits, labels):
 def attn_init(mk: Maker, d: int, h: int, hkv: int, hd: int, *,
               qkv_bias: bool = False, qk_norm: bool = False,
               stack: int | None = None):
+    dax = mk.ax("data", d)
     p = {
-        "wq": mk.make((d, h * hd), stack=stack),
-        "wk": mk.make((d, hkv * hd), stack=stack),
-        "wv": mk.make((d, hkv * hd), stack=stack),
-        "wo": mk.make((h * hd, d), stack=stack),
+        "wq": mk.make((d, h * hd), (dax, mk.head_ax(h)), stack=stack),
+        "wk": mk.make((d, hkv * hd), (dax, mk.head_ax(hkv)), stack=stack),
+        "wv": mk.make((d, hkv * hd), (dax, mk.head_ax(hkv)), stack=stack),
+        "wo": mk.make((h * hd, d), (mk.head_ax(h), dax), stack=stack),
     }
     if qkv_bias:
-        p["bq"] = mk.make((h * hd,), init="zeros", stack=stack)
-        p["bk"] = mk.make((hkv * hd,), init="zeros", stack=stack)
-        p["bv"] = mk.make((hkv * hd,), init="zeros", stack=stack)
+        p["bq"] = mk.make((h * hd,), (None,), init="zeros", stack=stack)
+        p["bk"] = mk.make((hkv * hd,), (None,), init="zeros", stack=stack)
+        p["bv"] = mk.make((hkv * hd,), (None,), init="zeros", stack=stack)
     if qk_norm:
-        p["q_norm"] = mk.make((hd,), init="ones", stack=stack)
-        p["k_norm"] = mk.make((hd,), init="ones", stack=stack)
+        p["q_norm"] = mk.make((hd,), (None,), init="ones", stack=stack)
+        p["k_norm"] = mk.make((hd,), (None,), init="ones", stack=stack)
     return p
 
 

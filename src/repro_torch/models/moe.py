@@ -31,10 +31,14 @@ def moe_init(mk: Maker, cfg, *, stack: int | None = None):
     m = cfg.moe
     e, fe = m.num_experts, m.d_ff_expert
     p = {
-        "router": mk.make((d, e), scale=d ** -0.5, stack=stack),
-        "we_gate": mk.make((e, d, fe), stack=stack),
-        "we_up": mk.make((e, d, fe), stack=stack),
-        "we_down": mk.make((e, fe, d), stack=stack),
+        "router": mk.make((d, e), (None, mk.ax("model", e)),
+                          scale=d ** -0.5, stack=stack),
+        "we_gate": mk.make((e, d, fe), (mk.ax("model", e), mk.ax("data", d),
+                                        None), stack=stack),
+        "we_up": mk.make((e, d, fe), (mk.ax("model", e), mk.ax("data", d),
+                                      None), stack=stack),
+        "we_down": mk.make((e, fe, d), (mk.ax("model", e), None,
+                                        mk.ax("data", d)), stack=stack),
     }
     if m.num_shared:
         p["shared"] = gated_mlp_init(mk, d, m.num_shared * fe, stack=stack)

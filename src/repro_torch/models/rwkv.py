@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.chgnet import resolve_device
 
 from .config import LMConfig
-from .layers import Maker, cast_floats, cross_entropy, rms_norm
+from .layers import Maker, cast_floats, cross_entropy, pspec, rms_norm
 from .ssm import rwkv_init_state, rwkv_layer_fwd, rwkv_layer_init
 from .transformer import (
     _check_params,
@@ -29,16 +29,30 @@ from .transformer import (
 
 
 def rwkv_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
-    """Parameter tree from ``seed`` on ``device`` (``None``: the card), in
-    ``dtype`` (default ``cfg.param_dtype``); JAX's layout."""
+    """Parameter tree from ``seed`` on ``device`` (``None``: the card;
+    ``"meta"``: shapes only), in ``dtype`` (default ``cfg.param_dtype``);
+    JAX's layout."""
     require_family(cfg, ("rwkv",), "rwkv")
-    mk = Maker(seed, resolve_device(device), getattr(torch, cfg.param_dtype)
-               if dtype is None else dtype)
+    return _rwkv_tree(cfg, Maker(
+        seed, resolve_device(device), getattr(torch, cfg.param_dtype)
+        if dtype is None else dtype))
+
+
+def rwkv_specs(cfg: LMConfig, mesh_sizes: dict):
+    """Spec tuples of ``rwkv_init``'s leaves under JAX's layout
+    (``repro.models.rwkv.rwkv_specs``); data for the dry run."""
+    require_family(cfg, ("rwkv",), "rwkv")
+    return _rwkv_tree(cfg, Maker(None, mesh_sizes=mesh_sizes))
+
+
+def _rwkv_tree(cfg: LMConfig, mk: Maker):
     d, v = cfg.d_model, cfg.padded_vocab
+    vax = mk.first_ax(v)
     return {
-        "embed": mk.make((v, d), scale=0.02),
-        "unembed": mk.make((d, v), scale=d ** -0.5),
-        "final_norm": mk.make((d,), init="ones"),
+        "embed": mk.make((v, d), (vax, None), scale=0.02),
+        "unembed": mk.make((d, v), (None, mk.ax("model", v) or vax),
+                           scale=d ** -0.5),
+        "final_norm": mk.make((d,), (None,), init="ones"),
         "layers": rwkv_layer_init(mk, cfg, stack=cfg.num_layers),
     }
 
@@ -49,6 +63,14 @@ def rwkv_init_states(cfg: LMConfig, batch: int, dtype=torch.float32,
     one = rwkv_init_state(cfg, batch, dtype, resolve_device(device))
     return {k: v.expand(cfg.num_layers, *v.shape).clone()
             for k, v in one.items()}
+
+
+def state_specs(cfg: LMConfig, batch_axes):
+    """Spec tuples of ``rwkv_init_states``' leaves under JAX's layout
+    (``repro.models.rwkv.state_specs``): batch over ``batch_axes``."""
+    return {"wkv": pspec(None, batch_axes, None, None, None),
+            "tm_prev": pspec(None, batch_axes, None, None),
+            "cm_prev": pspec(None, batch_axes, None, None)}
 
 
 def _layers(cfg, params, x, states=None):

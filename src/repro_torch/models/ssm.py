@@ -47,18 +47,26 @@ def mamba_init(mk: Maker, cfg, *, stack: int | None = None):
     kk = cfg.ssm_conv
     conv_ch = d_in + 2 * st
     return {
-        "wz": mk.make((d, d_in), stack=stack),
-        "wx": mk.make((d, d_in), stack=stack),
-        "wB": mk.make((d, st), stack=stack),
-        "wC": mk.make((d, st), stack=stack),
-        "wdt": mk.make((d, nh), stack=stack),
-        "conv_w": mk.make((kk, conv_ch), scale=0.5, stack=stack),
-        "conv_b": mk.make((conv_ch,), init="zeros", stack=stack),
-        "A_log": mk.make((nh,), init="zeros", stack=stack),
-        "D": mk.make((nh,), init="ones", stack=stack),
-        "dt_bias": mk.make((nh,), init="zeros", stack=stack),
-        "norm": mk.make((d_in,), init="ones", stack=stack),
-        "wo": mk.make((d_in, d), stack=stack),
+        "wz": mk.make((d, d_in), (mk.ax("data", d), mk.ax("model", d_in)),
+                      stack=stack),
+        "wx": mk.make((d, d_in), (mk.ax("data", d), mk.ax("model", d_in)),
+                      stack=stack),
+        "wB": mk.make((d, st), (mk.ax("data", d), None), stack=stack),
+        "wC": mk.make((d, st), (mk.ax("data", d), None), stack=stack),
+        "wdt": mk.make((d, nh), (mk.ax("data", d), mk.ax("model", nh)),
+                       stack=stack),
+        "conv_w": mk.make((kk, conv_ch), (None, None), scale=0.5,
+                          stack=stack),
+        "conv_b": mk.make((conv_ch,), (None,), init="zeros", stack=stack),
+        "A_log": mk.make((nh,), (mk.ax("model", nh),), init="zeros",
+                         stack=stack),
+        "D": mk.make((nh,), (mk.ax("model", nh),), init="ones", stack=stack),
+        "dt_bias": mk.make((nh,), (mk.ax("model", nh),), init="zeros",
+                           stack=stack),
+        "norm": mk.make((d_in,), (mk.ax("model", d_in),), init="ones",
+                        stack=stack),
+        "wo": mk.make((d_in, d), (mk.ax("model", d_in), mk.ax("data", d)),
+                      stack=stack),
     }
 
 
@@ -202,30 +210,31 @@ def rwkv_layer_init(mk: Maker, cfg, *, stack: int | None = None):
     nh = d // hd
     lora = 64
 
-    def make(shape, **kw):
-        return mk.make(shape, stack=stack, **kw)
+    def make(shape, spec, **kw):
+        return mk.make(shape, spec, stack=stack, **kw)
 
+    dax, fax = mk.ax("data", d), mk.ax("model", cfg.d_ff)
     return {
-        "ln1": make((d,), init="ones"),
-        "ln2": make((d,), init="ones"),
+        "ln1": make((d,), (None,), init="ones"),
+        "ln2": make((d,), (None,), init="ones"),
         # time-mix
-        "mu": make((5, d), scale=0.1),                      # r,k,v,g,w shifts
-        "wr": make((d, d)),
-        "wk": make((d, d)),
-        "wv": make((d, d)),
-        "wgate": make((d, d)),
-        "wo": make((d, d)),
-        "w0": make((d,), init="zeros"),
-        "w_lora_a": make((d, lora)),
-        "w_lora_b": make((lora, d), scale=0.01),
-        "u": make((nh, hd), scale=0.1),                     # bonus
-        "gn": make((d,), init="ones"),                      # per-head norm
+        "mu": make((5, d), (None, None), scale=0.1),        # r,k,v,g,w shifts
+        "wr": make((d, d), (dax, None)),
+        "wk": make((d, d), (dax, None)),
+        "wv": make((d, d), (dax, None)),
+        "wgate": make((d, d), (dax, None)),
+        "wo": make((d, d), (None, dax)),
+        "w0": make((d,), (None,), init="zeros"),
+        "w_lora_a": make((d, lora), (dax, None)),
+        "w_lora_b": make((lora, d), (None, None), scale=0.01),
+        "u": make((nh, hd), (None, None), scale=0.1),       # bonus
+        "gn": make((d,), (None,), init="ones"),             # per-head norm
         # channel-mix
-        "mu_ck": make((d,), scale=0.1),
-        "mu_cr": make((d,), scale=0.1),
-        "wck": make((d, cfg.d_ff)),
-        "wcv": make((cfg.d_ff, d)),
-        "wcr": make((d, d)),
+        "mu_ck": make((d,), (None,), scale=0.1),
+        "mu_cr": make((d,), (None,), scale=0.1),
+        "wck": make((d, cfg.d_ff), (dax, fax)),
+        "wcv": make((cfg.d_ff, d), (fax, dax)),
+        "wcr": make((d, d), (dax, None)),
     }
 
 

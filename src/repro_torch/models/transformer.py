@@ -30,6 +30,7 @@ from repro_torch.core.chgnet import resolve_device
 from .config import LMConfig
 from .layers import (
     Maker,
+    pspec,
     cast_floats,
     attention_chunked,
     attention_decode_merge,
@@ -83,17 +84,29 @@ def _check_params(cfg: LMConfig, params) -> None:
 # ---------------------------------------------------------------------------
 
 def decoder_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
-    """Parameter tree from ``seed`` on ``device`` (``None``: the card),
-    each leaf drawn in f32 and stored in ``dtype`` (default
-    ``cfg.param_dtype``); the stacked layer leaves are drawn whole."""
+    """Parameter tree from ``seed`` on ``device`` (``None``: the card;
+    ``"meta"``: shapes and dtypes only), each leaf drawn in f32 and
+    stored in ``dtype`` (default ``cfg.param_dtype``); the stacked layer
+    leaves are drawn whole."""
     require_ported(cfg)
-    dev = resolve_device(device)
-    mk = Maker(seed, dev, getattr(torch, cfg.param_dtype)
+    mk = Maker(seed, resolve_device(device), getattr(torch, cfg.param_dtype)
                if dtype is None else dtype)
+    return _decoder_tree(cfg, mk)
+
+
+def decoder_specs(cfg: LMConfig, mesh_sizes: dict):
+    """The spec tuple of every leaf of ``decoder_init``'s tree under JAX's
+    layout on a mesh of ``mesh_sizes`` (``repro.models.transformer.
+    decoder_specs``); data for the dry run, not a sharding the port runs."""
+    require_ported(cfg)
+    return _decoder_tree(cfg, Maker(None, mesh_sizes=mesh_sizes))
+
+
+def _decoder_tree(cfg: LMConfig, mk: Maker):
     n, d, v = cfg.num_layers, cfg.d_model, cfg.padded_vocab
     layers = {
-        "ln1": mk.make((d,), init="ones", stack=n),
-        "ln2": mk.make((d,), init="ones", stack=n),
+        "ln1": mk.make((d,), (None,), init="ones", stack=n),
+        "ln2": mk.make((d,), (None,), init="ones", stack=n),
         "attn": attn_init(mk, d, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
                           qk_norm=cfg.qk_norm, stack=n),
@@ -102,13 +115,18 @@ def decoder_init(cfg: LMConfig, seed: int = 0, *, device=None, dtype=None):
         layers["moe"] = moe_init(mk, cfg, stack=n)
     else:
         layers["mlp"] = gated_mlp_init(mk, d, cfg.d_ff, stack=n)
+    # JAX's vocab rule: V over 'model' where it feeds the logits matmul,
+    # the untied gather table over the first axis that divides it
+    logit_vax = mk.ax("model", v) or mk.first_ax(v)
     params = {
-        "embed": mk.make((v, d), scale=0.02),
-        "final_norm": mk.make((d,), init="ones"),
+        "embed": mk.make((v, d), (logit_vax if cfg.tie_embeddings
+                                  else mk.first_ax(v), None), scale=0.02),
+        "final_norm": mk.make((d,), (None,), init="ones"),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = mk.make((d, v), scale=d ** -0.5)
+        params["unembed"] = mk.make((d, v), (None, logit_vax),
+                                    scale=d ** -0.5)
     return params
 
 
@@ -168,12 +186,23 @@ def forward_train(cfg: LMConfig, params, tokens, positions, *,
     """tokens (B, S) -> logits (B, S, V) in the compute dtype."""
     require_ported(cfg)
     _check_params(cfg, params)
-    x = _embed(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        x, _ = _layer_fwd(cfg, layer_params(params["layers"], i), x,
-                          positions, attn_mode=attn_mode, chunk=chunk,
-                          use_pallas=use_pallas)
+    x = run_layers(cfg, params["layers"], _embed(cfg, params, tokens),
+                   positions, attn_mode=attn_mode, chunk=chunk,
+                   use_pallas=use_pallas)
     return _unembed(cfg, params, x)
+
+
+def run_layers(cfg: LMConfig, layers, x, positions, *,
+               attn_mode: str = "full", chunk: int = 1024,
+               use_pallas: bool = False):
+    """Hidden states x (B, S, d) through every layer of the stacked
+    ``layers`` in order (the whole stack, or one stage of
+    ``distributed.pipeline.split_stages``: a GPipe ``stage_fn``)."""
+    for i in range(layers["ln1"].shape[0]):
+        x, _ = _layer_fwd(cfg, layer_params(layers, i), x, positions,
+                          attn_mode=attn_mode, chunk=chunk,
+                          use_pallas=use_pallas)
+    return x
 
 
 def lm_loss(cfg: LMConfig, params, tokens, labels, positions, **fw):
@@ -196,6 +225,17 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": 0}
+
+
+def cache_specs(cfg: LMConfig, mesh_sizes: dict, *, batch_axes,
+                seq_axis: str | None):
+    """Spec tuples of the KV cache under JAX's layout: batch over
+    ``batch_axes``, the sequence over ``seq_axis`` where the KV heads do
+    not divide the model axis (``repro.models.transformer.cache_specs``)."""
+    head_ax = Maker(None, mesh_sizes=mesh_sizes).head_ax(cfg.num_kv_heads)
+    kv = pspec(None, batch_axes, seq_axis if head_ax is None else None,
+               head_ax, None)
+    return {"k": kv, "v": kv, "pos": ()}
 
 
 def prefill(cfg: LMConfig, params, tokens, positions, max_len: int, *,

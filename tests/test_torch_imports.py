@@ -56,7 +56,12 @@ def test_port_files_exist():
             "src/repro_torch/configs/qwen2_vl_2b.py",
             "src/repro_torch/configs/zamba2_1p2b.py",
             "src/repro_torch/configs/rwkv6_3b.py",
-            "src/repro_torch/configs/whisper_medium.py"} <= names
+            "src/repro_torch/configs/whisper_medium.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/distributed/pipeline.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/analysis/roofline.py",
+            "src/repro_torch/launch/dryrun.py"} <= names
 
 
 def test_every_library_has_its_source():
@@ -113,7 +118,7 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -135,6 +140,11 @@ def test_port_imports_without_jax():
         "from repro_torch.models.api import family_fns\n"
         "for arch in ARCH_IDS:\n"
         "    family_fns(get_config(arch))\n"
+        "import repro_torch.distributed.pipeline, repro_torch.launch.mesh\n"
+        "import repro_torch.configs.shapes, repro_torch.analysis.roofline\n"
+        "from repro_torch.launch import dryrun\n"
+        f"assert dryrun.main(['--arch', 'llama3-8b', '--shape', 'decode_32k',\n"
+        f"                    '--out', {str(tmp_path / 'dry.json')!r}]) == 0\n"
         "from repro_torch.launch import train\n"
         "assert train.main(['--arch', 'zamba2-1.2b', '--steps', '1',\n"
         "                   '--device', 'cpu']) == 1\n"
