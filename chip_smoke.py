@@ -1903,9 +1903,12 @@ def profile_step(step, out_file: Path | None, kernels=(),
         torch.cuda.synchronize()
     averages = prof.key_averages()
     # device-side events only (kernels, copies): the aten:: rows repeat
-    # the device time of the kernels they launch
+    # the device time of the kernels they launch, and the profiler mirrors
+    # each span of the program (``runtime.trace``) on the device as an
+    # annotation over the kernels it covers
     events = sorted((e for e in averages if e.device_type != DeviceType.CPU
-                     and e.self_device_time_total > 0),
+                     and e.self_device_time_total > 0
+                     and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: -e.self_device_time_total)
     if out_file is not None:
         out_file.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,9 @@
+"""Milliseconds an item spends in the prefetch worker's span
+``prefetch.copy`` (pinning, the non-blocking copy to the card and the
+wait for it), the mean over the items begun during the traced steps;
+moves ``train_crystals_per_s``."""
+from perfbench import progspans
+
+
+def read(ctx):
+    return progspans.worker_ms(ctx, "prefetch.copy")

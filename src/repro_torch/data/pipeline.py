@@ -52,6 +52,7 @@ from repro_torch.batching.balance import (
 from repro_torch.batching.cost import DEFAULT_COST_MODEL, CostModel
 from repro_torch.core.graph import CrystalGraphBatch
 from repro_torch.core.losses import global_denominators
+from repro_torch.runtime import trace
 from repro_torch.runtime.fault import TransientSampleError
 from .sampler import (
     CostBalanceSampler,
@@ -368,6 +369,11 @@ class Prefetcher:
     pinning and copying; ``wait_s``, the consumer's time blocked on the
     queue; and ``items``, the items handed over.  The share of packing
     that the thread hides is ``1 - wait_s / (source_s + copy_s)``.
+    While ``runtime.trace`` records (a profiler runs on the thread that
+    steps), the same clock reads also give each item's spans:
+    ``prefetch.pack`` over the time ``source_s`` adds and
+    ``prefetch.copy`` over the time ``copy_s`` adds, with the item's
+    ordinal among those the worker produced.
     """
 
     _STOP = object()
@@ -427,7 +433,7 @@ class Prefetcher:
         return _OnDevice(moved, ready)
 
     def _worker(self):
-        retries = 0
+        retries = produced = 0
         clock = time.perf_counter
         try:
             if self._stream is not None:
@@ -454,9 +460,16 @@ class Prefetcher:
                 retries = 0
                 t1 = clock()
                 self.stats["source_s"] += t1 - t0
+                traced = trace.on()
+                if traced:
+                    trace.record("prefetch.pack", t0, t1, produced)
                 if self.device is not None:
                     item = self._to_device(item)
-                    self.stats["copy_s"] += clock() - t1
+                    t2 = clock()
+                    self.stats["copy_s"] += t2 - t1
+                    if traced:
+                        trace.record("prefetch.copy", t1, t2, produced)
+                produced += 1
                 if not self._put(item):
                     return  # closed mid-put: consumer is gone
         except BaseException as e:  # re-raised in the consumer

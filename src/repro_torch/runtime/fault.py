@@ -43,7 +43,8 @@ RESUME_MARKER = "RESUME.json"
 
 class StragglerWatch:
     def __init__(self, window: int = 32, threshold: float = 2.0):
-        self.times: list[float] = []
+        # the trailing window only: a run records every step
+        self.times: deque[float] = deque(maxlen=window)
         self.window = window
         self.threshold = threshold
         self.flags = 0
@@ -51,10 +52,9 @@ class StragglerWatch:
     def record(self, seconds: float) -> bool:
         """Record one step; returns True if it is a straggler step."""
         self.times.append(seconds)
-        hist = self.times[-self.window:]
-        if len(hist) < 8:
+        if len(self.times) < 8:
             return False
-        med = float(np.median(hist))
+        med = float(np.median(self.times))
         is_slow = seconds > self.threshold * med
         if is_slow:
             self.flags += 1

@@ -106,6 +106,7 @@ from repro_torch.precision import (
     resolve_policy,
     scale_loss,
 )
+from repro_torch.runtime import trace
 from repro_torch.runtime.async_ckpt import AsyncCheckpointWriter
 from repro_torch.runtime.checkpoint import (
     MissingLeafError,
@@ -165,18 +166,20 @@ class TrainConfig:
 
 def chgnet_loss_fn(params, cfg: CHGNetConfig, batch: CrystalGraphBatch,
                    weights: LossWeights):
-    pred = chgnet_apply(params, cfg, batch)
-    return chgnet_loss(pred, batch, weights)
+    with trace.span("trainer.forward"):
+        pred = chgnet_apply(params, cfg, batch)
+        return chgnet_loss(pred, batch, weights)
 
 
 def grads_of(loss, params) -> list:
     """d loss / d leaf for every leaf of ``params``, in ``optim.tree.leaves``
     order.  Leaves the loss never reaches (the last block's angle MLP, the
     final block's bond and angle MLPs) get zeros, as under ``jax.grad``."""
-    flat = leaves(params)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(flat, grads)]
+    with trace.span("trainer.backward"):
+        flat = leaves(params)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(flat, grads)]
 
 
 def _read(values: dict) -> dict:
@@ -216,32 +219,34 @@ def apply_grads(grads, opt_state, params, lr, train_cfg: TrainConfig,
     An ``opt_state["lr_scale"]`` (divergence rollback, DESIGN.md §8)
     multiplies the schedule's LR, passes through Adam like any extra
     state key, and is reported among the extra metrics."""
-    lr_scale = opt_state.get("lr_scale")
-    if lr_scale is not None:
-        lr = lr * lr_scale
-    extra = {} if lr_scale is None else {"lr_scale": lr_scale}
-    scaler = opt_state.get("loss_scale")
-    if scaler is None:
-        norm = global_norm(grads)
-        grads = clip_by_global_norm(grads, train_cfg.grad_clip)
-        params, opt_state = adam_update(grads, opt_state, params, lr,
-                                        train_cfg.adam)
-        return params, opt_state, dict(extra, grad_norm=norm)
-    adam_state = {k: v for k, v in opt_state.items() if k != "loss_scale"}
-    # unscale to f32 before the clip, so that the clip threshold and the
-    # finite check see the true gradients
-    grads = unscale_grads(grads, scaler["scale"])
-    host = _read(dict(metrics or {}, grad_norm=global_norm(grads),
-                      grads_finite=tree_all_finite(grads)))
-    finite = bool(host["grads_finite"])
-    if finite:
-        grads = clip_by_global_norm(grads, train_cfg.grad_clip)
-        params, adam_state = adam_update(grads, adam_state, params, lr,
-                                         train_cfg.adam)
-    scaler = loss_scale_update(scaler, finite, train_cfg.loss_scale,
-                               scale_kind)
-    return params, dict(adam_state, loss_scale=scaler), dict(
-        host, loss_scale=scaler["scale"], **extra)
+    with trace.span("trainer.optimizer"):
+        lr_scale = opt_state.get("lr_scale")
+        if lr_scale is not None:
+            lr = lr * lr_scale
+        extra = {} if lr_scale is None else {"lr_scale": lr_scale}
+        scaler = opt_state.get("loss_scale")
+        if scaler is None:
+            norm = global_norm(grads)
+            grads = clip_by_global_norm(grads, train_cfg.grad_clip)
+            params, opt_state = adam_update(grads, opt_state, params, lr,
+                                            train_cfg.adam)
+            return params, opt_state, dict(extra, grad_norm=norm)
+        adam_state = {k: v for k, v in opt_state.items()
+                      if k != "loss_scale"}
+        # unscale to f32 before the clip, so that the clip threshold and
+        # the finite check see the true gradients
+        grads = unscale_grads(grads, scaler["scale"])
+        host = _read(dict(metrics or {}, grad_norm=global_norm(grads),
+                          grads_finite=tree_all_finite(grads)))
+        finite = bool(host["grads_finite"])
+        if finite:
+            grads = clip_by_global_norm(grads, train_cfg.grad_clip)
+            params, adam_state = adam_update(grads, adam_state, params, lr,
+                                             train_cfg.adam)
+        scaler = loss_scale_update(scaler, finite, train_cfg.loss_scale,
+                                   scale_kind)
+        return params, dict(adam_state, loss_scale=scaler), dict(
+            host, loss_scale=scaler["scale"], **extra)
 
 
 def _lr_schedule(train_cfg: TrainConfig):
@@ -418,8 +423,10 @@ def make_chgnet_accum_step_fns(model_cfg: CHGNetConfig,
     scale_kind = train_cfg.loss_scale.resolved_kind(model_cfg.precision)
 
     def grad_step(params, batch, denoms, scaler=None, stop=None):
-        pred = chgnet_apply(params, model_cfg, batch)
-        loss, sums = chgnet_loss_sums(pred, batch, train_cfg.loss, denoms)
+        with trace.span("trainer.forward"):
+            pred = chgnet_apply(params, model_cfg, batch)
+            loss, sums = chgnet_loss_sums(pred, batch, train_cfg.loss,
+                                          denoms)
         grads = grads_of(loss if scaler is None else scale_loss(loss, scaler),
                          params)
         sums = {k: v.detach() for k, v in sums.items()}
@@ -488,6 +495,17 @@ class Trainer:
     ``on_cost_model`` and ``on_quarantine`` receive refit cost models and
     quarantined dataset indices (the launcher wires them to the
     iterator's ``update_cost_model`` and ``add_quarantine``).
+
+    Spans (``runtime.trace``): each step records ``trainer.step`` (its
+    body after the batch is drawn) and inside it ``trainer.forward``
+    (``chgnet_loss_fn`` or the accumulation step's loss, with the
+    autodiff readout's create-graph backward), ``trainer.backward``
+    (``grads_of``), ``trainer.optimizer`` (``apply_grads``: norm, clip,
+    Adam; with a loss scaler also the step's device read) and
+    ``trainer.read`` (the step's metrics to the host), only while a
+    profiler runs on the thread that calls ``train``: the step checks
+    once (``trace.follow_profiler``), and otherwise its spans do
+    nothing.
     """
 
     def __init__(self, model_cfg: CHGNetConfig, train_cfg: TrainConfig, *,
@@ -823,54 +841,61 @@ class Trainer:
         for batch in batches:
             if max_steps is not None and self.step >= max_steps:
                 break
-            if self._agreed_stop if self.mesh is not None \
-                    else self._stop_flag():
-                self._preempt()
-            t0 = time.perf_counter()
-            if fault_injector is not None:
-                fault_injector.maybe_fail(self.step)
-            indices = None
-            if isinstance(batch, TaggedBatch):
-                indices, batch = batch.indices, batch.batch
-            # on a mesh, this rank's SIGTERM flag rides the step's reduction
-            stop = None if self.mesh is None else self._stop_flag()
-            if isinstance(batch, StepPlan):
-                self.params, self.opt_state, metrics = self._step_plan(
-                    batch, stop)
-            elif isinstance(batch, CrystalGraphBatch):
-                self.params, self.opt_state, metrics = self._train_step(
-                    self.params, self.opt_state, batch.to(self.device),
-                    self.step, stop)
-            else:
-                raise TypeError(f"Trainer.train takes CrystalGraphBatch, "
-                                f"StepPlan or TaggedBatch items, got "
-                                f"{type(batch).__name__}")
-            if indices is not None:
-                self._recent_indices.append((self.step, np.asarray(indices)))
-            values = _host_values(metrics)
-            if stop is not None:
-                self._agreed_stop = values.pop("stop") > 0
-            loss = values["loss"]
-            # a step the scaler skipped (grads_finite 0) left the state
-            # untouched: not a fault (DESIGN.md §4)
-            skipped = not values.get("grads_finite", 1.0)
-            if self.sentinel is not None:
-                if self.sentinel.record(loss, scaler_skipped=skipped):
-                    self._rollback()
-                    continue
-            elif not math.isfinite(loss) and not skipped:
-                # no sentinel: restore rather than go on poisoned
-                if self.maybe_restore():
-                    continue
-                raise FloatingPointError(
-                    f"non-finite loss at step {self.step}")
-            self.step += 1
-            self.straggler.record(time.perf_counter() - t0)
-            self._maybe_refit_cost_model()
-            history.append(values)
-            if self.ckpt_dir is not None and self.step % self.ckpt_every == 0:
-                # only states the sentinel finds healthy, so that every
-                # file is a known-good rollback target
-                if self.sentinel is None or not self.sentinel.suspicious:
-                    self.save()
+            trace.follow_profiler(self.step)
+            with trace.span("trainer.step"):
+                self._train_one(batch, history, fault_injector)
         return history
+
+    def _train_one(self, batch, history, fault_injector):
+        """One step of ``_train_loop`` on a drawn ``batch``: the step, its
+        one device read, the sentinel, the checkpoint."""
+        if self._agreed_stop if self.mesh is not None else self._stop_flag():
+            self._preempt()
+        t0 = time.perf_counter()
+        if fault_injector is not None:
+            fault_injector.maybe_fail(self.step)
+        indices = None
+        if isinstance(batch, TaggedBatch):
+            indices, batch = batch.indices, batch.batch
+        # on a mesh, this rank's SIGTERM flag rides the step's reduction
+        stop = None if self.mesh is None else self._stop_flag()
+        if isinstance(batch, StepPlan):
+            self.params, self.opt_state, metrics = self._step_plan(
+                batch, stop)
+        elif isinstance(batch, CrystalGraphBatch):
+            self.params, self.opt_state, metrics = self._train_step(
+                self.params, self.opt_state, batch.to(self.device),
+                self.step, stop)
+        else:
+            raise TypeError(f"Trainer.train takes CrystalGraphBatch, "
+                            f"StepPlan or TaggedBatch items, got "
+                            f"{type(batch).__name__}")
+        if indices is not None:
+            self._recent_indices.append((self.step, np.asarray(indices)))
+        with trace.span("trainer.read"):
+            values = _host_values(metrics)
+        if stop is not None:
+            self._agreed_stop = values.pop("stop") > 0
+        loss = values["loss"]
+        # a step the scaler skipped (grads_finite 0) left the state
+        # untouched: not a fault (DESIGN.md §4)
+        skipped = not values.get("grads_finite", 1.0)
+        if self.sentinel is not None:
+            if self.sentinel.record(loss, scaler_skipped=skipped):
+                self._rollback()
+                return
+        elif not math.isfinite(loss) and not skipped:
+            # no sentinel: restore rather than go on poisoned
+            if self.maybe_restore():
+                return
+            raise FloatingPointError(
+                f"non-finite loss at step {self.step}")
+        self.step += 1
+        self.straggler.record(time.perf_counter() - t0)
+        self._maybe_refit_cost_model()
+        history.append(values)
+        if self.ckpt_dir is not None and self.step % self.ckpt_every == 0:
+            # only states the sentinel finds healthy, so that every
+            # file is a known-good rollback target
+            if self.sentinel is None or not self.sentinel.suspicious:
+                self.save()

@@ -545,6 +545,17 @@ def test_straggler_watch_flags_slow_steps():
     assert w.flags == 1
 
 
+def test_straggler_watch_keeps_only_its_window():
+    """A run records every step: the watch keeps the trailing ``window``
+    times, and still flags a slow step after many."""
+    w = StragglerWatch(window=16, threshold=2.0)
+    for _ in range(100):
+        assert w.record(0.1) is False
+    assert len(w.times) == 16 and list(w.times) == [0.1] * 16
+    assert w.record(0.5) is True
+    assert w.flags == 1 and len(w.times) == 16
+
+
 def test_fault_injector_fires_once():
     fi = FaultInjector({3})
     fi.maybe_fail(2)
