@@ -47,9 +47,12 @@ PyTorch version:
      and 4 T + 3 rows with zero rows amid them; each called twice for
      equal bits, the bases also on the batches' inputs), and batches with
      self-image pairs and singleton undirected entries;
-  4. backward: the kernel wrappers' backwards (recompute, or a gather for
-     the segment sum) against plain autograd through ``kernels.ref`` on
-     the card, and whether two backward runs give bitwise equal gradients;
+  4. backward: the kernel wrappers' backwards (the convs' backward
+     kernel, the recompute, or a gather for the segment sum) against plain
+     autograd through ``kernels.ref`` on the card, and whether two
+     backward runs give bitwise equal gradients; the convs' backward
+     kernel timed against the recompute it replaces, each form at both
+     batches (``conv_bwd`` lines);
   5. serve: ``ServeEngine`` / ``BatchedMD`` with 16 replicas, one warm-up
      MD step then counted steps, at ``FAST_FUSED`` (5 steps), at
      ``FAST_PALLAS`` (the unfused Pallas tier: segment sum, GatedMLP, RBF
@@ -499,6 +502,25 @@ def check_launches(name: str, counts: dict, per_forward: dict,
         if n != want:
             raise RuntimeError(f"{name}: {fn} launched {n} times in "
                                f"{forwards} forwards, expected {want}")
+
+
+def bwd_launch_counts() -> dict[str, int]:
+    """The convs' backward kernel launches since the last reset, by
+    wrapper."""
+    return {fn.__name__: fn.bwd_launches for fn in ops.BWD_WRAPPERS}
+
+
+def check_bwd_launches(name: str, counts: dict, per_forward: dict,
+                       backwards: int) -> None:
+    """The convs' backward kernel taken by every one of ``backwards``
+    first-order backwards, once for each of the conv's ``per_forward``
+    launches of a forward: no conv backward of the main path recomputed."""
+    for fn, n in counts.items():
+        want = per_forward.get(fn, 0) * backwards
+        if n != want:
+            raise RuntimeError(f"{name}: {fn}'s backward kernel launched "
+                               f"{n} times in {backwards} backwards, "
+                               f"expected {want}")
 
 
 def _time_ms(fn, reps: int = 20, inner: int = 10) -> float:
@@ -1479,8 +1501,8 @@ def kernel_phase(cases) -> list[dict]:
 
 
 def backward_phase(cases, seed: int) -> list[dict]:
-    """Each wrapper's recompute backward against plain autograd through
-    its ``kernels.ref`` version on the same CUDA tensors: the gradients of
+    """Each wrapper's backward against plain autograd through its
+    ``kernels.ref`` version on the same CUDA tensors: the gradients of
     ``sum(out * r)`` for every float input, ``r`` from a seeded
     generator.  Each backward runs twice; whether the two runs give
     bitwise equal gradients is reported, not required (a sum whose CUDA
@@ -1520,6 +1542,76 @@ def backward_phase(cases, seed: int) -> list[dict]:
         print(f"backward {c['name']}: {len(idx)} input grads, "
               f"max|k-p| {err:.3e} (tolerance {tol:.3e}), bitwise "
               f"repeatable: {bitwise}", flush=True)
+    return rows
+
+
+def conv_backward_rows(cases, batch: str) -> list[dict]:
+    """The convs' backward kernel (``conv_bwd_kernel``, a first-order
+    backward) timed against the chunked recompute it replaces, which the
+    wrappers take where the backward is itself differentiated
+    (``create_graph``), on each conv case of ``cases`` (the directed store
+    and the mirror operands): ms a backward of one retained graph, in
+    turns (host cost included: the recompute reads ``offsets[-1]`` to the
+    host), and the kernel's launches alone behind a spin (``device_ms``).
+    Bound: three products of 2 E K 2D in split f32 at the TF32 peak, or
+    twice the forward's bytes (the operands read, their cotangents
+    written), whichever is larger."""
+    rows = []
+    for c in cases:
+        counter = c.get("counter", getattr(c["wrapper"], "__name__", ""))
+        if counter not in ("fused_atom_conv", "fused_bond_conv"):
+            continue
+        args = list(c["args"])
+        idx = [i for i, x in enumerate(args)
+               if torch.is_tensor(x) and x.is_floating_point()]
+        for i in idx:
+            args[i] = args[i].detach().clone().requires_grad_()
+        wrt = [args[i] for i in idx]
+        out = c["wrapper"](*args)
+        r = torch.randn_like(out)
+
+        def kernel():
+            return torch.autograd.grad(out, wrt, r, retain_graph=True)
+
+        def recompute():
+            return torch.autograd.grad(out, wrt, r, create_graph=True)
+
+        wrapper = getattr(ops, counter)
+        n0 = wrapper.bwd_launches
+        got = kernel()
+        if wrapper.bwd_launches != n0 + 1:
+            raise RuntimeError(f"{c['name']}: the backward did not take "
+                               "the kernel")
+        want = [g.detach() for g in recompute()]
+        if wrapper.bwd_launches != n0 + 1:
+            raise RuntimeError(f"{c['name']}: the create-graph backward "
+                               "took the kernel")
+        # each cotangent's error over its largest element, the limit of
+        # tests/test_torch_conv_bwd_cuda.py
+        rel = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30))
+                  .item() for k, p in zip(got, want) if p.numel())
+        if not rel <= 1e-4:
+            raise RuntimeError(f"{c['name']} at the {batch} batch: the "
+                               f"backward kernel is {rel:.2e} of the "
+                               "recompute's largest element off it")
+        del got, want
+        n0 = wrapper.bwd_launches
+        ms, plain_ms = _time_turns([kernel, recompute], reps=10, inner=5)
+        device_ms = _time_device(kernel, reps=10, inner=5)
+        taken = wrapper.bwd_launches - n0
+        bound, by = _bound(3 * 3 * c["flops"], 2 * c["bytes"],
+                           PEAK_TF32_FLOPS)
+        row = {"name": c["name"].replace("_fwd", "_bwd"), "batch": batch,
+               "wrapper": counter, "max_rel_err": rel,
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "kernel_backwards": taken,
+               "shape": c["shape"]}
+        rows.append(row)
+        print(f"conv_bwd {row['name']} {batch}: {ms:.4f} ms (device "
+              f"{device_ms:.4f}), recompute {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}); rel err {rel:.2e}; {taken} kernel "
+              "backwards", flush=True)
+        del out, wrt, args
     return rows
 
 
@@ -2214,12 +2306,14 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = ops.launch_counts()
+        bwd_counts = bwd_launch_counts()
         entries = ops.entry_launch_counts()
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
         stats = ({k: pf.stats[k] - stats0[k] for k in stats0} if pf
                  else None)
         check_launches(name, counts, per_forward, steps)
+        check_bwd_launches(name, bwd_counts, per_forward, steps)
         if per_forward and resolve_policy(cfg.precision) \
                 .low_precision_compute:
             check_bf16_entries(name, entries, counts)
@@ -2238,8 +2332,8 @@ def train_phase(name: str, cfg, ds, caps, steps: int, per_forward: dict,
             "crystals_per_s": crystals / elapsed,
             "atoms_per_s": atoms / elapsed,
             "peak_mem_bytes": peak, "peak_reserved_bytes": peak_reserved,
-            "launches": counts, "entries": entries,
-            "caps_per_step": [e[3] for e in steps_log],
+            "launches": counts, "bwd_launches": bwd_counts,
+            "entries": entries, "caps_per_step": [e[3] for e in steps_log],
             "bucket_per_step": [_bucket(caps, e[3]) for e in steps_log],
             "losses": [h["loss"] for h in hist],
             "grad_norms": [h["grad_norm"] for h in hist],
@@ -3735,6 +3829,7 @@ def balanced_phase(ds, caps, fixed_caps, seed: int, card: str,
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
             counts = ops.launch_counts()
+            bwd_counts = bwd_launch_counts()
             peak = torch.cuda.max_memory_allocated()
             peak_reserved = torch.cuda.max_memory_reserved()
             micro = log[c0:]
@@ -3742,6 +3837,7 @@ def balanced_phase(ds, caps, fixed_caps, seed: int, card: str,
                 raise RuntimeError(f"{name}: microbatches per step "
                                    f"{[len(p) for p in micro]}")
             check_launches(name, counts, PER_FORWARD, 2 * steps)
+            check_bwd_launches(name, bwd_counts, PER_FORWARD, 2 * steps)
             for h in hist:
                 if not (math.isfinite(h["loss"])
                         and math.isfinite(h["grad_norm"])):
@@ -4116,6 +4212,7 @@ def dp_world1(ds, caps, seed: int, root: Path) -> dict:
                 del b0, loss, grads
                 h_ref, h_dp, t_ref, t_dp = [], [], 0.0, 0.0
                 counts: dict = {}
+                bwd_counts: dict = {}
                 for i, b in enumerate(batches):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -4128,6 +4225,8 @@ def dp_world1(ds, caps, seed: int, root: Path) -> dict:
                     t2 = time.perf_counter()
                     for k, v in ops.launch_counts().items():
                         counts[k] = counts.get(k, 0) + v
+                    for k, v in bwd_launch_counts().items():
+                        bwd_counts[k] = bwd_counts.get(k, 0) + v
                     if i:
                         t_ref += t1 - t0
                         t_dp += t2 - t1
@@ -4138,6 +4237,8 @@ def dp_world1(ds, caps, seed: int, root: Path) -> dict:
                         _same_state(f"world 1 {how} step {i}", ref, dp)
                 check_launches(f"world 1 {how}", counts, PER_FORWARD,
                                1 + DP_STEPS)
+                check_bwd_launches(f"world 1 {how}", bwd_counts, PER_FORWARD,
+                                   1 + DP_STEPS)
                 if how == "compressed":
                     for a, b in zip(h_dp, h_ref):
                         if not (abs(a["loss"] - b["loss"])
@@ -4194,6 +4295,8 @@ def _dp_run(tr, batches, mesh, name: str, forwards: int) -> dict:
     counts = ops.launch_counts()
     check_launches(f"{name} rank {mesh.rank}", counts, PER_FORWARD,
                    forwards * DP_STEPS)
+    check_bwd_launches(f"{name} rank {mesh.rank}", bwd_launch_counts(),
+                       PER_FORWARD, forwards * DP_STEPS)
     return {"digests": digests, "history": hist, "launches": counts,
             "ms_per_step": elapsed / DP_STEPS * 1e3,
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
@@ -5037,7 +5140,8 @@ def main() -> None:
     build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in ("swiglu", "flash_attention", "gated_mlp", "message_passing",
-                "message_passing_bf16", "segment_sum", "basis"):
+                "message_passing_bf16", "message_passing_bwd", "segment_sum",
+                "basis"):
         log = build.build_log(lib)
         print(f"{lib}.cu: {log.splitlines()[0]}", flush=True)
         for line in ptxas_lines(log):
@@ -5118,6 +5222,7 @@ def main() -> None:
                                   + serve_sym_cases)
     serve_bf16_rows = kernel_phase(bf16_serve_cases)
     bf16_serve_paths = [c["path"] for c in bf16_serve_cases]
+    conv_bwd_rows = conv_backward_rows(serve_cases + serve_sym_cases, "serve")
     del bf16_serve_cases, serve_cases, serve_tier_cases
     print(f"kernels: {edge_case_phase(tree, args.seed)} ragged-layout and "
           "edge cases agree with the plain versions", flush=True)
@@ -5127,6 +5232,7 @@ def main() -> None:
     # batch
     backward_rows = backward_phase(
         train_cases + tier_cases + sym_backward_cases(sym_cases), args.seed)
+    conv_bwd_rows += conv_backward_rows(train_cases + sym_cases, "train")
 
     _stamp(t_start, "backwards")
     # 5. serve: each path driven with the counters set to 0 just before it
@@ -5265,6 +5371,25 @@ def main() -> None:
         if not row["launches"]:
             raise RuntimeError(f"{row['name']} was not launched on "
                                f"{c['path']}")
+    # the convs' backward kernel on the main path: the directed forms at
+    # the training batch, with their launches on the FAST_FUSED steps
+    bwd_rows = []
+    for row in conv_bwd_rows:
+        if row["batch"] != "train" or "[" in row["name"]:
+            continue
+        launches = train_rows["FAST_FUSED"]["bwd_launches"][row["wrapper"]]
+        if not launches:
+            raise RuntimeError(f"{row['name']} was not launched on "
+                               "FAST_FUSED")
+        bwd_rows.append({
+            "name": f"conv_bwd_kernel {row['name']}", "route": "cuda",
+            "source": f"{CSRC}/message_passing_bwd.cu",
+            "replaces": "the chunked recompute (_recompute_vjp)",
+            "wrapper": row["wrapper"], "max_rel_err": row["max_rel_err"],
+            "tolerance": 1e-4, "ms": row["ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "launches": launches, "shape": row["shape"]})
     # the bf16 rows: directed convs and 4a on FAST_FUSED_MIXED (through
     # the prefetcher), [pair] on FAST_FUSED_HALF_MIXED, [pair+und], 5 and 6
     # on FAST_FUSED_SYM_MIXED, 4b on FAST_FUSED_VIRIAL_MIXED, 1 and 7 on
@@ -5312,6 +5437,7 @@ def main() -> None:
     print(json.dumps({"train": dict(
         train_rows, FUSED_MLP_PALLAS=fused_mlp,
         FAST_FUSED_HALF_vs_FAST_FUSED=half_vs_fused, backward=backward_rows,
+        conv_bwd=conv_bwd_rows,
         balanced=balanced, runtime=runtime,
         learns=learns, learns_mixed=learns_mixed,
         kernel_extra_shapes=extra + bf16_extra,
@@ -5365,7 +5491,8 @@ def main() -> None:
     _stamp(t_start, "launch")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
-    print(json.dumps({"kernels": rows + primary + sym_rows + bf16_on_path
+    print(json.dumps({"kernels": rows + primary + sym_rows + bwd_rows
+                      + bf16_on_path
                       + lm_kernel_rows + moe_kernel_rows
                       + qwen_kernel_rows + families_kernel_rows
                       + pipe_kernel_rows + launch_kernel_rows}))

@@ -22,8 +22,11 @@
 //                      virial=True: two launches, the second a small
 //                      ordered per-crystal sum of the first's row partials
 //
-// Their backward passes are not kernels: kernels/ops.py recomputes the
-// messages chunk by chunk in PyTorch, as the JAX package's custom VJPs do.
+// The backward of atom_conv_fwd and bond_conv_fwd is a kernel,
+// conv_bwd_kernel in message_passing_bwd.cu, where the backward is of first
+// order; the other backwards, and the convs' where the backward itself is
+// differentiated, are not kernels: kernels/ops.py recomputes the messages
+// chunk by chunk in PyTorch, as the JAX package's custom VJPs do.
 //
 // What each computes is in the comment above its kernel.  Shared rules,
 // the semantics the TPU kernels define (DESIGN.md §1-§3):

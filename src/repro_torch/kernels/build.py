@@ -6,8 +6,9 @@ parallel.  Libraries go to ``build/kernels/<hash>/`` at the root of the
 checkout, keyed by a hash of the source text, of every ``csrc/*.cuh``
 header it includes (``hopper.cuh``: the TMA / mbarrier / wgmma /
 mma.sync helpers; ``message_passing.cuh``: the message-passing templates
-that ``message_passing.cu`` instantiates in f32 and
-``message_passing_bf16.cu`` in bf16) and of the compiler flags, so an edited source or
+that ``message_passing.cu`` instantiates in f32,
+``message_passing_bf16.cu`` in bf16 and ``message_passing_bwd.cu`` uses
+for the convs' backward) and of the compiler flags, so an edited source or
 header is rebuilt and an unchanged one is loaded as is.  Beside each
 library, ``lib<name>.log`` keeps the compiler's output (``-Xptxas -v``:
 registers, shared memory and spills of every kernel) and its build time.
@@ -43,6 +44,13 @@ SIGNATURES = {
         "force_readout_fwd": [_P] * 8 + [_I] * 6 + [_P],
         "force_virial_fwd": [_P] * 10 + [_I] * 6 + [_P],
         "virial_crystal_sum": [_P] * 4 + [_I, _I, _P],
+    },
+    # the backward of kernels 2 and 3 (f32), compiled beside the forward
+    "message_passing_bwd": {
+        "atom_conv_bwd": [_P] * 18 + [_I] * 7 + [_P],
+        "bond_conv_bwd": [_P] * 23 + [_I] * 6 + [_P],
+        "conv_bwd_row_sums": [_P] * 13 + [_I] * 12 + [_P],
+        "sorted_row_starts": [_P] * 2 + [_I] * 2 + [_P],
     },
     # the same templates at bf16 operands, compiled beside the f32 ones
     "message_passing_bf16": {

@@ -21,15 +21,23 @@ operands to f32, recompute in f32 and cast each cotangent to its
 operand's dtype, as the JAX package's custom VJPs do.  The bases (8 and
 9) take f32 only: they read the f32 geometry.
 
-The backward is the same code on both devices and mirrors the JAX
-package's custom VJPs: it keeps the operands, never the messages, and
-recomputes the messages (or the GatedMLP, or the basis) chunk by chunk of
-rows in PyTorch, pulling the output cotangent back through each chunk
-with ``torch.autograd.grad`` (``_recompute_vjp``); the segment sum's
-backward is a gather.  No backward is a kernel: a hand-written backward
-kernel is an optimization for later.  Every backward is built from torch
-ops, so it is itself differentiable: the autodiff readout trains through
-a double backward.
+Every backward keeps the operands, never the messages.  The backward of
+the fused atom and bond convs (kernels 2 and 3) is a kernel,
+``conv_bwd_kernel`` in ``csrc/message_passing_bwd.cu`` (three launches and
+the sorts of the ids, f32 on widened operands, the same bits on every
+run), where the operands lie on the card and grad mode is off inside the
+backward (a first-order backward: training with the direct heads, the
+balanced and DP steps, a serving force readout by autodiff), in every
+operand form (directed, ``pair``, ``pair`` + ``und``).  Everywhere else
+(the CPU, and a backward that is itself differentiated, whose grad mode is
+on), the convs' backward and every other wrapper's is the same code on
+both devices and mirrors the JAX package's custom VJPs: it recomputes the
+messages (or the GatedMLP, or the basis) chunk by chunk of rows in
+PyTorch, pulling the output cotangent back through each chunk with
+``torch.autograd.grad`` (``_recompute_vjp``); the segment sum's backward
+is a gather.  The recompute is built from torch ops, so it is itself
+differentiable: the autodiff readout trains through a double backward,
+whose first backward runs with grad mode on and so recomputes.
 
 Two tiers use them: the fused convs and force readouts
 (``conv_impl="fused"``, ``csrc/message_passing.cu``) and the unfused
@@ -50,9 +58,12 @@ that require a gradient: LM training runs the plain MLP and attention,
 as the JAX package's does (its Pallas kernels have no VJP).
 
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, incremented only where a kernel is launched; and
+``<wrapper>.launches``, incremented only where a kernel is launched (the
+convs' backward kernel in ``fused_atom_conv.bwd_launches`` and
+``fused_bond_conv.bwd_launches``, a backward each); and
 ``entry_launch_counts()`` counts them by C entry point, so that a run can
-show which of an f32 and a bf16 entry it took.
+show which of an f32 and a bf16 entry it took, and how often the convs'
+backward took its kernel (``atom_conv_bwd``, ``bond_conv_bwd``).
 """
 from __future__ import annotations
 
@@ -66,6 +77,7 @@ from . import build, ref
 
 _LIB = "message_passing"
 _LIB_BF16 = "message_passing_bf16"  # the bf16 entries of kernels 2-5
+_LIB_BWD = "message_passing_bwd"    # the backward of kernels 2 and 3
 
 # Bytes of the widest per-edge tensor of one recompute chunk (the
 # concatenated GatedMLP input).  The JAX package's chunk of 256 edges is
@@ -261,6 +273,40 @@ def conv_chunks(offsets, plan: ConvPlan) -> list[tuple[int, int, int, int]]:
     return out
 
 
+def conv_bwd_plan(mode: str, dim: int, n_rows: int, sms: int) -> ConvPlan:
+    """The launch geometry of the convs' backward kernel
+    (``conv_bwd_kernel`` in ``csrc/message_passing_bwd.cu``, f32), the numbers
+    it checks ``tm`` and ``smem`` against: tiles of 64 edges (one m16 tile
+    a warp) on the forward's edge partition (``conv_chunks`` applies, with
+    ``t`` = 64), each tile's x and W chunks streamed twice through the
+    forward's two stages (x rows at a stride of 40 floats, W rows at 2D +
+    4); beside them the tile's dz (rows of 2D + 8 floats), one chunk of
+    the cotangent part summed by row (40), bias and LayerNorm parameters,
+    each warp's partial sums of db, dln_scale and dln_bias (6D), two carry
+    rows of the part summed by row (D), the row starts and runs.  Two
+    blocks a SM up to D = 64 (108,320 bytes each at D = 64), one at
+    D = 128."""
+    if mode not in ("atom", "bond"):
+        raise ValueError(f"mode must be 'atom' or 'bond', got {mode!r}")
+    _check_conv_dim(dim)
+    kc, tm = _CONV_KC, _CONV_WARPS * 16
+    d_in = (3 if mode == "atom" else 4) * dim
+    floats = (_CONV_STAGES * (tm * (kc + 8) + kc * (2 * dim + 4))
+              + tm * (2 * dim + 8) + tm * (kc + 8) + 6 * dim
+              + _CONV_WARPS * 6 * dim + 2 * dim)
+    smem = 4 * floats + 4 * (3 * tm + 8)
+    per_sm = min(2 if dim <= 64 else 1,
+                 _SM_SHARED // (smem + _BLOCK_RESERVED))
+    return ConvPlan(tm, tm, _CONV_WARPS, max(1, min(per_sm * sms, n_rows)),
+                    smem, -(-d_in // kc), per_sm)
+
+
+def conv_bwd_partials(mode: str, dim: int) -> int:
+    """Floats of one block's partials of the convs' backward kernel: dW
+    (d_in, 2D), db, dln_scale and dln_bias (2D each)."""
+    return (3 if mode == "atom" else 4) * dim * 2 * dim + 6 * dim
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -361,6 +407,94 @@ def _recompute_vjp(fn, dense, edge, needs, cotangents, n_real: int,
     return out
 
 
+def _bwd_kernel(g: torch.Tensor) -> bool:
+    """Whether a conv's backward takes its kernel: the cotangent on the
+    card and a first-order backward (grad mode off inside it; a double
+    backward differentiates the recompute)."""
+    return g.is_cuda and not torch.is_grad_enabled()
+
+
+def _conv_bwd_cuda(mode, entry, operands, ids, g, outs, *ints):
+    """The convs' backward kernel and the ordered sum of its blocks'
+    partials (two launches) on f32 ``operands`` (tables, then W, b,
+    ln_scale, ln_bias), the int ``ids`` and the cotangent rows ``outs``
+    of its entry: returns the cotangents of W, b, ln_scale and ln_bias."""
+    n_rows, dim = g.shape
+    dev = g.device
+    _check("g", g, torch.float32, (n_rows, dim), dev)
+    plan = conv_bwd_plan(mode, dim, n_rows, _sm_count(dev.index))
+    w = operands[-4]
+    n_param = conv_bwd_partials(mode, dim)
+    part = torch.empty(plan.grid * n_param, dtype=torch.float32, device=dev)
+    dparams = torch.empty(n_param, dtype=torch.float32, device=dev)
+    _launch(_LIB_BWD, entry, *(t.data_ptr() for t in operands),
+            *(None if t is None else t.data_ptr() for t in ids),
+            g.data_ptr(), *(t.data_ptr() for t in outs), part.data_ptr(),
+            dparams.data_ptr(), n_rows, dim, *ints, plan.grid, plan.t,
+            plan.tm, plan.smem, _stream(dev))
+    d2 = 2 * dim
+    dw, db, dls, dlb = dparams.split([w.shape[0] * d2, d2, d2, d2])
+    return dw.view(w.shape), db, dls, dlb
+
+
+def _zeros(*like) -> list:
+    """f32 zeros shaped as each of ``like``: views of one allocation (one
+    fill)."""
+    sizes = [t.numel() for t in like]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=like[0].device)
+    return [x.view(t.shape) for x, t in zip(flat.split(sizes), like)]
+
+
+# the stable sorts of the ids by which the convs' backward sums rows, kept
+# for the id tensors that the convs of a step share (the atom convs'
+# bond_nbr and pair, the bond convs' angle_ik and envelope rows): a
+# tensor matches by identity and version, and is held while kept, so that
+# its id is not reused; the oldest of more than _ID_SORTS_KEPT goes
+_ID_SORTS: dict = {}
+_ID_SORTS_KEPT = 8
+
+
+def _sorted_ids(ids: tuple, n_out: int):
+    """The stable sort of the int32 ``ids`` (concatenated, on one card) as
+    the backward's row sums read it: the sources' positions in sorted
+    order (``perm``, int64) and the first position of each row 0..n_out
+    in it (``starts``, int32, by ``sorted_row_starts``)."""
+    tag = (n_out,) + tuple((id(t), t._version) for t in ids)
+    hit = _ID_SORTS.get(tag)
+    if hit is not None and all(a is b for a, b in zip(hit[0], ids)):
+        return hit[1]
+    cat = ids[0] if len(ids) == 1 else torch.cat(ids)
+    key, perm = torch.sort(cat, stable=True)
+    starts = torch.empty(n_out + 1, dtype=torch.int32, device=cat.device)
+    _launch(_LIB_BWD, "sorted_row_starts", key.data_ptr(), starts.data_ptr(),
+            key.shape[0], n_out, _stream(cat.device))
+    while len(_ID_SORTS) >= _ID_SORTS_KEPT:
+        del _ID_SORTS[next(iter(_ID_SORTS))]
+    _ID_SORTS[tag] = (ids, (perm, starts))
+    return perm, starts
+
+
+def _row_sums(jobs, offs, n_edges: int) -> None:
+    """Adds the edge rows that the backward kernel wrote into the rows
+    they read (``conv_bwd_row_sums``, one launch): each job ``(out, src,
+    ids)`` adds row p of ``src`` into row ``cat(ids)[p]`` of ``out``, the
+    sources of each row in the order of a stable sort of the ids
+    (``_sorted_ids``), so the same bits on every run.  Row p of ``src``
+    belongs to edge p modulo ``n_edges`` (``ids`` may list the edges
+    twice), and the rows of padded edges, from ``offs[-1]`` on, are left
+    out."""
+    ptrs, ints = [], []
+    for out, src, ids in jobs:
+        perm, starts = _sorted_ids(ids, out.shape[0])
+        ptrs += [out.data_ptr(), src.data_ptr(), starts.data_ptr(),
+                 perm.data_ptr()]
+        ints += [perm.shape[0], out.shape[0], n_edges]
+    pad = 3 - len(jobs)
+    _launch(_LIB_BWD, "conv_bwd_row_sums", *ptrs, *([None] * 4 * pad),
+            offs.data_ptr(), *ints, *([0] * 3 * pad), offs.shape[0] - 1,
+            jobs[0][0].shape[1], len(jobs), _stream(offs.device))
+
+
 # ---------------------------------------------------------------------------
 # Atom conv (Eq. 4)
 # ---------------------------------------------------------------------------
@@ -401,6 +535,34 @@ def _atom_conv_cuda(v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
     return out
 
 
+def _atom_conv_bwd_cuda(v, e, e_a, w, b, lns, lnb, center, nbr, offs, pair,
+                        und, g):
+    """The backward of ``fused_atom_conv`` on the card, on f32 operands:
+    the cotangents of v, e, e_a, W, b, ln_scale and ln_bias.  The kernel
+    sums v[center]'s rows by CSR row and writes the directed store's e
+    and e_a rows at their edges; v[nbr]'s rows, and those of e and e_a
+    read through ``pair``, it writes at the edges' rows of a scratch,
+    which ``_row_sums`` adds into the rows they read."""
+    dv, de, de_a = _zeros(v, e, e_a)
+    n_edges, dim = center.shape[0], v.shape[1]
+    mirror = pair is not None
+    buf = torch.empty((1 + int(und) + int(mirror), n_edges, dim),
+                      dtype=torch.float32, device=v.device)
+    x_e = buf[1] if und else de
+    x_ea = buf[-1] if mirror else de_a
+    params = _conv_bwd_cuda("atom", "atom_conv_bwd",
+                            (v, e, e_a, w, b, lns, lnb),
+                            (center, nbr, pair, offs), g,
+                            (dv, buf[0], x_e, x_ea), int(und))
+    jobs = [(dv, buf[0], (nbr,))]
+    if und:
+        jobs.append((de, x_e, (pair,)))
+    if mirror:
+        jobs.append((de_a, x_ea, (pair,)))
+    _row_sums(jobs, offs, n_edges)
+    return (dv, de, de_a, *params)
+
+
 class _AtomConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, e_a, w, b, ln_scale, ln_bias, bond_center,
@@ -422,8 +584,16 @@ class _AtomConv(torch.autograd.Function):
         *floats, center, nbr, offs, pair = ctx.saved_tensors
         v, e, e_a, w, b, lns, lnb = _upcast(floats)
         (g,) = _upcast([g])
-        c = center.long()
         nig = ctx.needs_input_grad
+        if _bwd_kernel(g):
+            grads = _atom_conv_bwd_cuda(v, e, e_a, w, b, lns, lnb, center,
+                                        nbr, offs, pair, ctx.und,
+                                        g.contiguous())
+            fused_atom_conv.bwd_launches += 1
+            return _cast_like(tuple(x if n else None
+                                    for x, n in zip(grads, nig)),
+                              floats) + (None,) * 6
+        c = center.long()
         # e and e_a are per-edge operands (chunks of rows), or Eu tables
         # read through pair, whose cotangents sum over the chunks
         operands = {"e": (e, ctx.und, nig[1]),
@@ -462,8 +632,10 @@ def fused_atom_conv(v, e, e_a, w, b, ln_scale, ln_bias,
     real-bond count.  On the card the kernel balances its blocks by edges
     (``conv_plan``, ``conv_chunks``); ``block_rows`` is accepted for the
     callers of the earlier kernel and no longer shapes the launch.
-    The backward recomputes ``chunk`` edges at a time (default: sized by
-    ``CHUNK_BYTES``); the result does not depend on it.
+    On the card a first-order backward is a kernel (``conv_bwd_kernel``,
+    see the module docstring); otherwise the backward recomputes
+    ``chunk`` edges at a time (default: sized by ``CHUNK_BYTES``), and the
+    result does not depend on it.
 
     ``pair`` (the undirected store, DESIGN.md §5): the directed ->
     undirected mirror map; ``e_a`` is then the (Eu, D) envelope table,
@@ -520,6 +692,27 @@ def _bond_conv_cuda(v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
     return out
 
 
+def _bond_conv_bwd_cuda(v, e, a, e_b, w, b, lns, lnb, angle_ij, angle_ik,
+                        center_ids, offs, env_ij, env_ik, g):
+    """The backward of ``fused_bond_conv`` on the card, on f32 operands:
+    the cotangents of v, e, a, e_b, W, b, ln_scale and ln_bias.  The
+    kernel sums e[ij]'s rows by CSR row and writes a's rows at their
+    angles; the rows of v[ctr], e[ik] and both e_b factors it writes at
+    the angles' rows of a scratch, which ``_row_sums`` adds into the rows
+    they read (so ``center_ids`` may be any atom of each angle)."""
+    dv, de, da, de_b = _zeros(v, e, a, e_b)
+    n_ang, dim = angle_ij.shape[0], v.shape[1]
+    buf = torch.empty((4, n_ang, dim), dtype=torch.float32, device=v.device)
+    params = _conv_bwd_cuda("bond", "bond_conv_bwd",
+                            (v, e, a, e_b, w, b, lns, lnb),
+                            (angle_ij, angle_ik, center_ids, env_ij, env_ik,
+                             offs), g, (de, buf[0], buf[1], da, buf[2],
+                                        buf[3]))
+    _row_sums([(dv, buf[0], (center_ids,)), (de, buf[1], (angle_ik,)),
+               (de_b, buf[2:], (env_ij, env_ik))], offs, n_ang)
+    return (dv, de, da, de_b, *params)
+
+
 class _BondConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, e, a, e_b, w, b, ln_scale, ln_bias, angle_ij,
@@ -546,6 +739,15 @@ class _BondConv(torch.autograd.Function):
          env_ik) = ctx.saved_tensors
         v, e, a, e_b, w, b, lns, lnb = _upcast(floats)
         (g,) = _upcast([g])
+        nig = ctx.needs_input_grad
+        if _bwd_kernel(g):
+            grads = _bond_conv_bwd_cuda(v, e, a, e_b, w, b, lns, lnb,
+                                        angle_ij, angle_ik, center_ids,
+                                        offs, env_ij, env_ik, g.contiguous())
+            fused_bond_conv.bwd_launches += 1
+            return _cast_like(tuple(x if n else None
+                                    for x, n in zip(grads, nig)),
+                              floats) + (None,) * 6
         ij = angle_ij.long()
 
         def msgs(dense, edge, sl):
@@ -559,7 +761,6 @@ class _BondConv(torch.autograd.Function):
             return phi * ref.gather_rows(eb, env_ij[sl]) \
                 * ref.gather_rows(eb, env_ik[sl])
 
-        nig = ctx.needs_input_grad
         dv, de, deb, dw, db, dls, dlb, da = _recompute_vjp(
             msgs, [v, e, e_b, w, b, lns, lnb], [a],
             [nig[0], nig[1], nig[3], nig[4], nig[5], nig[6], nig[7], nig[2]],
@@ -580,7 +781,9 @@ def fused_bond_conv(v, e, a, e_b, w, b, ln_scale, ln_bias,
     ``angle_offsets`` (DESIGN.md §1).  On the card the kernel balances its
     blocks by edges (``conv_plan``, ``conv_chunks``); ``block_rows`` is
     accepted for the callers of the earlier kernel and no longer shapes
-    the launch.  ``chunk`` is the backward's recompute chunk, in angles.
+    the launch.  On the card a first-order backward is a kernel, as
+    ``fused_atom_conv``'s; otherwise ``chunk`` is the backward's
+    recompute chunk, in angles.
     ``pair`` (the undirected store, DESIGN.md §5): ``e_b`` is the (Eu, D)
     envelope table and both factors read rows ``pair[angle_ij]`` /
     ``pair[angle_ik]`` (int gathers this wrapper composes).
@@ -1488,14 +1691,19 @@ WRAPPERS = (fused_atom_conv, fused_bond_conv, fused_sym_bond_conv, sym_msg,
             fused_segment_sum,
             fused_gated_mlp_packed, fused_rbf, fused_fourier,
             fused_swiglu, flash_attention)
-for _fn in WRAPPERS:
-    _fn.launches = 0
+# the wrappers whose backward is a kernel too, counted in ``bwd_launches``
+BWD_WRAPPERS = (fused_atom_conv, fused_bond_conv)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in BWD_WRAPPERS:
+        fn.bwd_launches = 0
     _ENTRY_LAUNCHES.clear()
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:

@@ -81,8 +81,9 @@ def test_every_library_has_its_source():
 def test_digest_follows_included_headers(tmp_path, monkeypatch):
     """A library's build key hashes the .cuh headers its source includes:
     editing csrc/hopper.cuh rebuilds swiglu, flash_attention, gated_mlp and
-    both message-passing libraries, and no other library; editing
-    csrc/message_passing.cuh rebuilds those two alone."""
+    the three message-passing libraries (f32, bf16, the convs' backward),
+    and no other library; editing csrc/message_passing.cuh rebuilds those
+    three alone."""
     import shutil
 
     from repro_torch.kernels import build
@@ -98,8 +99,9 @@ def test_digest_follows_included_headers(tmp_path, monkeypatch):
     after = {name: build._out_path(name) for name in build.SIGNATURES}
     changed = {n for n in build.SIGNATURES if before[n] != after[n]}
     assert changed == {"swiglu", "flash_attention", "gated_mlp",
-                       "message_passing", "message_passing_bf16"}
-    # the message-passing templates rebuild both of their libraries
+                       "message_passing", "message_passing_bf16",
+                       "message_passing_bwd"}
+    # the message-passing templates rebuild each of their libraries
     assert [h.name for h in build._headers(csrc / "message_passing.cu")] \
         == ["message_passing.cuh", "hopper.cuh"]
     before = after
@@ -107,7 +109,7 @@ def test_digest_follows_included_headers(tmp_path, monkeypatch):
     templates.write_text(templates.read_text() + "\n// edited\n")
     after = {name: build._out_path(name) for name in build.SIGNATURES}
     assert {n for n in build.SIGNATURES if before[n] != after[n]} == \
-        {"message_passing", "message_passing_bf16"}
+        {"message_passing", "message_passing_bf16", "message_passing_bwd"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
