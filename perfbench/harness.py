@@ -1,27 +1,26 @@
-"""One run of one benchmark cell: FastCHGNet training on one card.
+"""One run of one benchmark cell: the timeline, with nothing of the model.
 
-The entry the window drives is ``repro_torch.train.Trainer.train`` fed by
-``Prefetcher(BatchIterator(ds, batch, 1, ladder_for(ds, batch,
-num_buckets=...), load_balance=True), device="cuda")``, the one-device
-wiring of ``launch/train.train_chgnet``.  ``Feed`` wraps the stream the
-Trainer draws from: for each batch it records the time of the draw and
-the batch's real rows and passes the batch on unchanged.  The Trainer
-reads each step's loss back to the host, so the time between two draws
-is a step's wall time.
+The harness owns the order of a run and every end-to-end number: the
+set-up clock from the process's start; the checked first steps; the
+warm-up of every shape that the window can reach; the measured window,
+whose draws and rows ``Feed`` records; the peak memory; the traced steps
+under ``torch.profiler``; ``train_crystals_per_s``, ``train_step_ms_p95``,
+``peak_mem_gib`` and ``setup_s`` from those draws and rows; the context
+that the per-layer metrics under ``metrics/`` read; freeing the program;
+then the check, ``judge`` and ``emit``.
 
-Set-up: crystals and labels from the seed (``datagen``), the graphs from
-the port's ``build_graph``, the parameters from the seed
-(``reference.chgnet.init_params``) handed to one Trainer, which trains its
-first three steps through the window's own feed (the steps the reference
-follows), then one step on each ladder bucket that the window will reach
-and has not yet run; then the measured window.  After it, with the
-program's state freed, the reference follows the first three steps and
-the comparison decides ``correct``.
+What the program is, how it is set up and fed, and how the reference
+checks it belong to the driver that the cell's configuration names
+(``"driver"``, a path under ``perfbench/``; ``drivers/__init__.py`` has
+the contract).  A cell is added by files alone: a configuration with its
+driver and reference, a mix under ``mixes/``, a limits file under
+``limits/`` that names the driver's ``CHECKS``, and its metrics'
+readers.
 """
 from __future__ import annotations
 
-import collections
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -32,15 +31,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import datagen, devtrace
-from perfbench.reference import chgnet as ref_model
-from perfbench.reference import graph as ref_graph
-from perfbench.reference import train as ref_train
+from perfbench import devtrace
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
-# steps the reference follows
-CHECKED_STEPS = 3
 # top-level module names that no run may load
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -51,22 +45,30 @@ def _json(path: Path) -> dict:
 
 def cell_spec(name: str, root: Path = ROOT) -> dict:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration, mix,
-    limits and the metrics it reports."""
+    limits and the metrics it reports, every file read under ``root``;
+    ``bench`` is the benchmark's directory there."""
+    root = Path(root)
     bench = _json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise SystemExit(f"perfbench: no workload {name!r}")
     cell = cells[name]
-    config = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    config = _json(root / entry["file"])
+    for key in ("driver", "reference"):
+        if not (root / "perfbench" / config[key]).is_file():
+            raise SystemExit(f"perfbench: {entry['file']}: no {key} "
+                             f"{config[key]!r}")
 
     def mine(metric):
         return name in metric.get("workloads", [name])
 
     return {
         "cell": cell,
-        "config": _json(root / config["file"]),
-        "mix": _json(BENCH / "mixes" / f"{cell['traffic']}.json"),
-        "limits": _json(BENCH / "limits" / f"{name}.json"),
+        "config": config,
+        "bench": root / "perfbench",
+        "mix": _json(root / "perfbench" / "mixes" / f"{cell['traffic']}.json"),
+        "limits": _json(root / "perfbench" / "limits" / f"{name}.json"),
         "end_to_end": [m for m in bench["end_to_end"] if mine(m)],
         "per_layer": [m for m in bench["per_layer"] if mine(m)],
     }
@@ -81,6 +83,24 @@ def load_file(path: Path):
     return mod
 
 
+def module_at(bench: Path, rel: str):
+    """The module of the file ``rel`` under the benchmark's directory
+    ``bench``, imported by its module path (``drivers/chgnet_train.py`` is
+    ``perfbench.drivers.chgnet_train``), so that its relative imports
+    resolve beside it.  ``bench`` has to be the ``perfbench`` package that
+    this process imports."""
+    name = "perfbench." + rel.removesuffix(".py").replace("/", ".")
+    mod = importlib.import_module(name)
+    if Path(mod.__file__).resolve() != (Path(bench) / rel).resolve():
+        raise ImportError(f"{name} is {mod.__file__}, not under {bench}")
+    return mod
+
+
+def driver(spec: dict):
+    """The driver module that the cell's configuration names."""
+    return module_at(spec["bench"], spec["config"]["driver"])
+
+
 def seeds(seed: int) -> dict:
     """Independent streams for the data, the parameters and the sampler."""
     data, params, sampler = np.random.SeedSequence(seed).generate_state(3)
@@ -88,32 +108,23 @@ def seeds(seed: int) -> dict:
             "sampler": int(sampler)}
 
 
-def train_recipe(config: dict, mix: dict) -> dict:
-    total = config["train"]["epochs"] * (mix["pool"] // mix["batch"])
-    return dict(config["train"], batch=mix["batch"], total_steps=total)
-
-
-def _rows(batch) -> dict:
-    """Real and capacity rows of a packed CPU batch."""
-    return {"crystals": int(batch.crystal_mask.sum()),
-            "atoms": int(batch.atom_mask.sum()),
-            "bonds": int(batch.bond_offsets[-1]),
-            "angles": int(batch.angle_offsets[-1]),
-            "atom_cap": batch.atom_mask.shape[0],
-            "bond_cap": batch.bond_mask.shape[0],
-            "angle_cap": batch.angle_mask.shape[0]}
-
-
 class Feed:
-    """The stream ``Trainer.train`` draws from.  ``take(n)``,
+    """The stream the program's timed entry draws from.  ``take(n)``,
     ``window(seconds)`` and ``traced(seconds)`` each hand out the next
     prefetched batches unchanged, and record for each the time of its
-    draw and its real rows (in the order the prefetcher keeps)."""
+    draw and its real rows (in the order the prefetcher keeps).
+    ``prefetcher`` is an iterable whose ``stats["wait_s"]`` counts the
+    seconds its consumer has waited for it; ``rows`` is the queue in
+    which the driver puts each batch's rows as it makes the batch."""
 
-    def __init__(self, prefetcher, rows: collections.deque):
+    def __init__(self, prefetcher, rows):
         self._it = iter(prefetcher)
         self._rows = rows
         self.prefetcher = prefetcher
+
+    @property
+    def wait_s(self) -> float:
+        return self.prefetcher.stats["wait_s"]
 
     def _next(self):
         item = next(self._it)
@@ -158,258 +169,6 @@ class Feed:
         self._it.close()
 
 
-def _leaves_copy(tree) -> list:
-    return [x.detach().clone() for x in ref_model.leaves(tree)]
-
-
-def _check_tree(got, want, path="params"):
-    """The program's parameter tree has the reference's structure."""
-    if isinstance(want, dict):
-        if not isinstance(got, dict) or sorted(got) != sorted(want):
-            raise ValueError(f"{path}: keys {sorted(got)} != {sorted(want)}")
-        for k in want:
-            _check_tree(got[k], want[k], f"{path}.{k}")
-    elif isinstance(want, list):
-        if not isinstance(got, list) or len(got) != len(want):
-            raise ValueError(f"{path}: list of another length")
-        for i, (g, w) in enumerate(zip(got, want)):
-            _check_tree(g, w, f"{path}[{i}]")
-    elif tuple(got.shape) != tuple(want.shape):
-        raise ValueError(f"{path}: shape {tuple(got.shape)} != "
-                         f"{tuple(want.shape)}")
-
-
-class Program:
-    """The system under test, set up for one cell and seed: the dataset,
-    the prefetched feed and one Trainer whose parameters come from the
-    seed.  ``fault`` plants a fault in the timed path (the checks' tests):
-    ``"half_batch"`` packs each batch from the first half of its crystals.
-    ``data`` reuses the crystals and dataset of an earlier ``Program`` of
-    the same cell and seed."""
-
-    def __init__(self, spec: dict, seed: int, device: str,
-                 fault: str | None = None, data: tuple | None = None):
-        from repro_torch.core.chgnet import CHGNetConfig
-        from repro_torch.core.losses import LossWeights
-        from repro_torch.core.neighbors import Crystal, build_graph
-        from repro_torch.data import (BatchIterator, Prefetcher,
-                                      SyntheticConfig, SyntheticDataset,
-                                      build_device_batch, ladder_for)
-        from repro_torch.optim.adam import AdamConfig, adam_init
-        from repro_torch.train.trainer import (TrainConfig, Trainer,
-                                               params_on)
-
-        self.spec, self.device = spec, device
-        config, mix = spec["config"], spec["mix"]
-        self.model = config["model"]
-        self.recipe = train_recipe(config, mix)
-        self.seeds = seeds(seed)
-        clock = time.perf_counter
-        self.times = {"start": clock()}
-        if data is None:
-            self.crystals = datagen.make_crystals(
-                mix, self.seeds["data"], self.model["r_cut_atom"])
-            self.times["data"] = clock()
-            prog = [Crystal(lattice=c["lattice"], frac_coords=c["frac"],
-                            atomic_numbers=c["z"], energy=c["energy"],
-                            forces=c["forces"], stress=c["stress"],
-                            magmoms=c["magmoms"]) for c in self.crystals]
-            graphs = [build_graph(c, self.model["r_cut_atom"],
-                                  self.model["r_cut_bond"]) for c in prog]
-            self.times["graphs"] = clock()
-            self.ds = SyntheticDataset(prog, graphs, SyntheticConfig(
-                num_crystals=mix["pool"],
-                r_cut_atom=self.model["r_cut_atom"],
-                r_cut_bond=self.model["r_cut_bond"]))
-        else:
-            self.crystals, self.ds = data
-        batch = mix["batch"]
-        self.ladder = ladder_for(self.ds, batch,
-                                 num_buckets=mix["ladder_buckets"])
-        iterator = BatchIterator(self.ds, batch, 1, self.ladder,
-                                 load_balance=True,
-                                 seed=self.seeds["sampler"],
-                                 tag_indices=True)
-        self.first_batches: list[dict] = []
-        self.first_indices: list[np.ndarray] = []
-        rows: collections.deque = collections.deque()
-
-        def source():
-            while True:
-                for tagged in iterator:
-                    b = tagged.batch
-                    if fault == "half_batch":
-                        idx = tagged.indices[:len(tagged.indices) // 2]
-                        b = build_device_batch(
-                            self.ds, idx, self.ladder.bucket_for(
-                                *self._real(idx)), num_crystal_slots=batch)
-                    if len(self.first_batches) < CHECKED_STEPS:
-                        self.first_batches.append(b.numpy())
-                        self.first_indices.append(np.asarray(tagged.indices))
-                    rows.append(_rows(b))
-                    yield b
-
-        self.feed = Feed(Prefetcher(
-            source(), device=device if device == "cuda" else None), rows)
-        r = self.recipe
-        self.trainer = Trainer(
-            CHGNetConfig(**self.model),
-            TrainConfig(global_batch=batch, total_steps=r["total_steps"],
-                        base_lr=r["base_lr"], lr_k=r["lr_k"],
-                        grad_clip=r["grad_clip"],
-                        adam=AdamConfig(**r["adam"]),
-                        loss=LossWeights(**r["loss"])),
-            device=device)
-        self.init = ref_model.init_params(self.model, self.seeds["params"],
-                                          device)
-        _check_tree(self.trainer.params, self.init)
-        count = sum(x.numel() for x in ref_model.leaves(self.init))
-        if count != config["param_count"]:
-            raise ValueError(f"{count} parameters, the configuration "
-                             f"states {config['param_count']}")
-        self.trainer.params = params_on(self.init, device)
-        self.trainer.opt_state = adam_init(self.trainer.params)
-        self.times["trainer"] = clock()
-
-    def _real(self, idx) -> tuple[int, int, int]:
-        return (sum(self.ds.crystals[i].num_atoms for i in idx),
-                sum(self.ds.graphs[i].num_bonds for i in idx),
-                sum(self.ds.graphs[i].num_angles for i in idx))
-
-    def first_steps(self) -> dict:
-        """The first steps through the feed, read as ``ref_train.replay``
-        returns them: each step's metrics, the first step's outputs at its
-        real rows (as the step's ``chgnet_apply`` returned them to the
-        loss), the first gradient as Adam got it (its first moment after
-        one step over 1 - b1) and the parameters' change then, and after
-        the last step the parameters' change and the moments, read before
-        any later step writes over them."""
-        from repro_torch.train import trainer as step_module
-
-        t, log = self.trainer, []
-        b1 = self.recipe["adam"]["b1"]
-        p0 = _leaves_copy(t.params)
-        # the first step's outputs, read where the step's loss takes them
-        apply, seen = step_module.chgnet_apply, []
-
-        def observed(*args, **kwargs):
-            pred = apply(*args, **kwargs)
-            if not seen:
-                seen.append({k: pred[k].detach().clone()
-                             for k in ref_train.TARGETS})
-            return pred
-
-        step_module.chgnet_apply = observed
-        try:
-            hist = t.train(self.feed.take(1, log))
-        finally:
-            step_module.chgnet_apply = apply
-        if not seen:
-            raise RuntimeError("the training step did not call chgnet_apply")
-        real = {"energy": log[0]["crystals"], "stress": log[0]["crystals"],
-                "forces": log[0]["atoms"], "magmom": log[0]["atoms"]}
-        outputs = {k: x[:real[k]] for k, x in seen[0].items()}
-        grad = [m / (1 - b1) for m in _leaves_copy(t.opt_state["mu"])]
-        delta_first = [p - q for p, q in zip(_leaves_copy(t.params), p0)]
-        hist += t.train(self.feed.take(CHECKED_STEPS - 2, log))
-        t0 = time.perf_counter()
-        hist += t.train(self.feed.take(1, log))
-        self.last_step_s = time.perf_counter() - t0
-        self.first_rows = log
-        self.times["first_steps"] = time.perf_counter()
-        return {"metrics": hist, "outputs": outputs, "grad": grad,
-                "delta_first": delta_first,
-                "delta": [p - q for p, q in
-                          zip(_leaves_copy(t.params), p0)],
-                "mu": _leaves_copy(t.opt_state["mu"]),
-                "nu": _leaves_copy(t.opt_state["nu"])}
-
-    def warm_buckets(self, steps: int) -> set:
-        """One step on each ladder bucket that the next ``steps`` batches
-        reach and the first steps did not: the batch that first reaches
-        it, packed as the iterator packs it.  Returns the buckets warmed
-        or run."""
-        from repro_torch.data import LoadBalanceSampler, build_device_batch
-
-        twin = LoadBalanceSampler(self.ds.feature_counts(),
-                                  self.seeds["sampler"])
-        atoms = np.array([c.num_atoms for c in self.ds.crystals])
-        bonds = np.array([g.num_bonds for g in self.ds.graphs])
-        angles = np.array([g.num_angles for g in self.ds.graphs])
-        batch = self.spec["mix"]["batch"]
-        seen = {_caps(r) for r in self.first_rows}
-        todo, k = {}, 0
-        while k < steps:
-            for _, shards in twin.epoch(batch, 1):
-                idx = shards[0]
-                caps = self.ladder.bucket_for(int(atoms[idx].sum()),
-                                              int(bonds[idx].sum()),
-                                              int(angles[idx].sum()))
-                key = (caps.atoms, caps.bonds, caps.angles)
-                if key not in seen and key not in todo:
-                    todo[key] = (idx, caps)
-                k += 1
-        for idx, caps in todo.values():
-            b = build_device_batch(self.ds, idx, caps,
-                                   num_crystal_slots=batch)
-            self.trainer.train([b])
-        self.times["warm_up"] = time.perf_counter()
-        self.buckets = sorted(seen | set(todo))
-        return seen | set(todo)
-
-    def report(self) -> str:
-        """Seconds of each set-up phase, and the buckets run."""
-        t = list(self.times.items())
-        phases = ", ".join(f"{k} {b - a:.2f} s"
-                           for (_, a), (k, b) in zip(t, t[1:]))
-        return f"set-up: {phases}; buckets {self.buckets}"
-
-    def close(self):
-        self.feed.close()
-
-
-def _caps(rows: dict) -> tuple:
-    return (rows["atom_cap"], rows["bond_cap"], rows["angle_cap"])
-
-
-def reference_readings(spec: dict, init: dict, crystals: list,
-                       batches: list, device: str,
-                       tf32: bool = False) -> tuple[dict, int]:
-    """The reference's replay of the first steps on ``batches`` (lists of
-    crystal indices), from its own graphs of the crystals, and the count
-    of entries of the program's packed ``first`` batches (host arrays, or
-    None) that differ from those graphs."""
-    model = spec["config"]["model"]
-    cache, graphs = {}, []
-    for idx in batches:
-        for i in idx:
-            if i not in cache:
-                c = crystals[i]
-                cache[i] = ref_graph.crystal_graph(
-                    c["lattice"], c["frac"], model["r_cut_atom"],
-                    model["r_cut_bond"])
-        graphs.append(ref_graph.concat([crystals[i] for i in idx],
-                                       [cache[i] for i in idx]))
-    recipe = train_recipe(spec["config"], spec["mix"])
-    tf32_was = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        readings = ref_train.replay(
-            init, model, recipe, recipe["total_steps"],
-            [ref_model.device_graph(g, device) for g in graphs], tf32=tf32)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32_was
-    return readings, graphs
-
-
-def numbers(program: dict, reference: dict, first_batches: list,
-            graphs: list) -> dict:
-    """Every number compared, by name."""
-    mism = sum(sum(ref_graph.batch_mismatches(b, g).values())
-               for b, g in zip(first_batches, graphs))
-    return dict(graph=mism, **ref_train.compare(program, reference))
-
-
 def forbidden_modules() -> list[str]:
     """Loaded modules whose top-level name is JAX's or the JAX package's,
     compared whole (``repro_torch`` is the port)."""
@@ -440,23 +199,27 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, *,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = device == "cuda"
-    prog = Program(spec, seed, device, fault)
+    drv = driver(spec)
+    if set(spec["limits"]) != set(drv.CHECKS):
+        raise ValueError(f"limits {sorted(spec['limits'])} are not the "
+                         f"CHECKS of {drv.__name__} {sorted(drv.CHECKS)}")
+    prog = drv.Program(spec, seed, device, fault)
     try:
         readings = prog.first_steps()
         # the steps a window can reach: at twice the pace of the last
         # checked step, and a few more
-        horizon = CHECKED_STEPS + int(2 * seconds / prog.last_step_s) + 16
+        horizon = (len(prog.first_rows) + int(2 * seconds / prog.last_step_s)
+                   + 16)
         warmed = prog.warm_buckets(horizon)
         if cuda:
             torch.cuda.synchronize()
             setup_peak = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-        pf = prog.feed.prefetcher
-        wait0 = pf.stats["wait_s"]
+        wait0 = prog.feed.wait_s
         setup_s = time.perf_counter() - t_start
         rows, draws = [], []
-        prog.trainer.train(prog.feed.window(seconds, rows, draws))
-        wait_s = pf.stats["wait_s"] - wait0
+        prog.train(prog.feed.window(seconds, rows, draws))
+        wait_s = prog.feed.wait_s - wait0
         if cuda:
             torch.cuda.synchronize()
             window_peak = torch.cuda.max_memory_allocated()
@@ -469,7 +232,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, *,
               f"crystals/s by thirds "
               f"{_by_thirds(rows, draws)}",
               file=log)
-        unwarmed = {_caps(r) for r in rows} - warmed
+        unwarmed = {drv.shape(r) for r in rows} - warmed
         if unwarmed:
             print(f"perfbench: buckets not warmed: {sorted(unwarmed)}",
                   file=log)
@@ -478,10 +241,11 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, *,
         prog.close()
     window_s = draws[-1] - draws[0]
     kind = device_info(device)["kind"]
+    bench = spec["bench"]
     ctx = {"model": spec["config"]["model"], "peaks": peaks_for(kind),
            "window": {"seconds": window_s, "rows": rows, "wait_s": wait_s},
            "trace": traced,
-           "kernels": lambda k: load_file(BENCH / "kernels" / f"{k}.py")}
+           "kernels": lambda k: load_file(bench / "kernels" / f"{k}.py")}
     values = {
         "setup_s": setup_s,
         "train_crystals_per_s": sum(r["crystals"] for r in rows) / window_s,
@@ -491,7 +255,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, *,
     metrics = {}
     for m in (spec["per_layer"] if trace else spec["end_to_end"]):
         if trace:
-            v = load_file(BENCH / "metrics" / f"{m['name']}.py").read(ctx)
+            v = load_file(bench / "metrics" / f"{m['name']}.py").read(ctx)
         else:
             v = values[m["name"]]
         if v is not None:
@@ -505,16 +269,13 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, *,
         dev["busy_s"] = devtrace.busy_us(traced["trace"]) * 1e-6
         dev["window_s"] = (hi - lo) * 1e-6
         result["breakdown"] = devtrace.breakdown(traced["trace"])
-    init, crystals = prog.init, prog.crystals
-    first_batches, first_idx = prog.first_batches, prog.first_indices
+    evidence = prog.evidence()
     del prog
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    reference, graphs = reference_readings(spec, init, crystals, first_idx,
-                                           device)
-    nums = numbers(readings, reference, first_batches, graphs)
+    nums = drv.check(spec, evidence, readings, device)
     print(f"perfbench: reference {time.perf_counter() - t_ref:.2f} s",
           file=log)
     result["correct"] = judge(nums, spec["limits"])
@@ -538,7 +299,7 @@ def judge(nums: dict, limits: dict) -> bool:
                for k, lim in limits.items())
 
 
-def _traced_steps(prog: Program, spec: dict, cuda: bool) -> dict:
+def _traced_steps(prog, spec: dict, cuda: bool) -> dict:
     """Profile the steps that follow the window, for about the mix's
     ``trace_seconds``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -546,8 +307,7 @@ def _traced_steps(prog: Program, spec: dict, cuda: bool) -> dict:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     log = []
     with torch.profiler.profile(activities=acts) as prof:
-        prog.trainer.train(prog.feed.traced(spec["mix"]["trace_seconds"],
-                                            log))
+        prog.train(prog.feed.traced(spec["mix"]["trace_seconds"], log))
         if cuda:
             torch.cuda.synchronize()
     print(f"perfbench: traced {len(log)} steps", file=sys.stderr)

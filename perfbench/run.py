@@ -2,9 +2,12 @@
 
     python3 perfbench/run.py --workload NAME --seed N --seconds S --trace 0|1
 
-Looks the cell up in ``BENCHMARK.json``, runs it on the card (``harness``)
-and prints the result as one JSON line, last on standard output, after
-the numbers compared for ``correct`` on standard error.  ``--trace 0``
+Looks the cell up in ``BENCHMARK.json``, runs it on the card and prints
+the result as one JSON line, last on standard output, after the numbers
+compared for ``correct`` on standard error.  ``harness`` keeps the run's
+timeline and computes the end-to-end metrics; the driver that the cell's
+configuration names (``drivers/``) sets up the program, feeds its timed
+entry and runs the reference's check.  ``--trace 0``
 reports the cell's end-to-end metrics, ``--trace 1`` its per-layer ones.
 Exits non-zero, printing no result, without as many cards as the cell
 asks for, or if JAX or the JAX package was loaded.  The port builds its

@@ -37,14 +37,20 @@ def test_top_level_and_entries():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["file"].startswith("perfbench/")
         assert (harness.ROOT / c["file"]).exists()
+        config = json.loads((harness.ROOT / c["file"]).read_text())
+        for key in ("driver", "reference"):
+            assert (harness.BENCH / config[key]).is_file(), (c["name"], key)
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         assert (harness.BENCH / "mixes" / f"{w['traffic']}.json").exists()
         assert (harness.BENCH / "limits" / f"{w['name']}.json").exists()
     for text in [c["why"] for c in BENCH["configs"] + BENCH["workloads"]] \
             + [m["layer"] for m in BENCH["per_layer"]]:
         assert 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
+    # four chips only in a quarter of the cells, rounded down, or in one
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25
     cells = {w["name"] for w in BENCH["workloads"]}
@@ -66,9 +72,8 @@ def test_every_cell_reports_enough():
         e2e = [m["name"] for m in spec["end_to_end"]]
         assert "setup_s" in e2e and len(e2e) >= 2
         assert spec["per_layer"]
-        assert set(spec["limits"]) == {"graph", "loss", "outputs", "grad",
-                                       "update", "update_worst",
-                                       "update_first", "moments"}
+        # the limits name exactly the numbers in the driver module's CHECKS
+        assert set(spec["limits"]) == set(harness.driver(spec).CHECKS)
 
 
 def test_file_names_under_paths():

@@ -93,3 +93,16 @@ def test_roofline_silent_when_launches_differ(extra):
     assert share(ctx, "conv") is not None
     ctx["trace"]["trace"]["device"] = device + [(extra, 11e6, 12e6)]
     assert share(ctx, "conv") is None
+
+
+@pytest.mark.parametrize("name, want", [
+    # 2 steps of 1 crystal over 2 s
+    ("step.crystals_per_s.host_paced", 1.0),
+    # 1 - (3 + 4 + 6) / (8 + 16 + 32), as batching.pad_share.train
+    ("batching.pad_share.memory", 100 * (1 - 13 / 56)),
+])
+def test_window_readers_by_hand(name, want):
+    read = harness.load_file(harness.BENCH / "metrics" / f"{name}.py").read
+    window = {"seconds": 2.0, "rows": [ROWS, ROWS], "wait_s": 0.0}
+    assert read({"window": window}) == pytest.approx(want)
+    assert read({"window": dict(window, rows=[])}) is None
